@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (contouring_uncertainty_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py              # the smoke run
+    python3 chip_smoke.py --profile    # plus the full torch.profiler table and
+                                       # a Chrome trace, written to chiprun_out/
+
+Phases (any failure raises, so the script exits non-zero and prints no
+result line):
+
+1. card check: CUDA present; the card's name and power limit; TF32 off for
+   matmuls and cuDNN convolutions;
+2. build: nvcc for the CUDA kernel, Triton JIT for the DSNT kernel, from the
+   sources in this checkout into contouring_uncertainty_torch/_build/;
+3. DSNT moment kernel (Triton) against its plain version in f64, row and
+   column layouts, random and sharp off-centre blob heatmaps, bf16 and f32:
+   mu <= 1e-4 px, sigma relative error <= 1e-3;
+4. crossing-selection kernel (CUDA) against its plain version on the zigzag
+   contours of the JAX package's parity check: bitwise-equal crossings,
+   0 mismatched fill pixels;
+5. the main path: `run_predict` on synthetic CAMUS-like views with the
+   flagship TMI serving configuration (8-stage UNet at full width, bf16,
+   MC dropout T_e=10 x PSM T_a=25, 256^2, K=21) and seed-initialised
+   weights; launch counters reset just before and read just after; outputs
+   finite with the JAX package's shapes; steady-state views/s; the device's
+   busy time per view from a profiled pass, and the top kernels;
+6. the crossing selection again on one view's 500 sampled contours;
+7. the GPU path against the CPU path (plain versions) on a small input;
+8. kernel timings beside their bounds; the kernels JSON line, the card line
+   and the final {"ok": true, ...} line.
+
+It imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet, dense): device memory and f32 outside
+# the tensor cores. Bounds below are computed from this run's inputs.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+DSNT_BARS = {"mu_px": 1e-4, "sigma_rel": 1e-3}
+
+MAIN_CFG = dict(t_e=10, t_a=25, size=256, k=21, n_patients=8, seed=0)
+STEADY_PASSES = 5  # timed passes over the test views after the first
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms: `iters` calls captured in one CUDA
+    graph and replayed between two CUDA events, so the host's launch cost
+    (Python, the Triton launcher) does not pad the kernel's time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def dsnt_inputs(n: int, size: int, rng: np.random.Generator) -> dict:
+    """n random-logit heatmaps and n sharp off-centre Gaussian blobs
+    (2-8 px spreads, the regime of a trained DSNT head), (n, size^2) f32."""
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    cx = rng.uniform(0.15 * size, 0.85 * size, n)[:, None, None]
+    cy = rng.uniform(0.15 * size, 0.85 * size, n)[:, None, None]
+    s = rng.uniform(2.0, 8.0, n)[:, None, None]
+    blobs = -((xs - cx) ** 2 + (ys - cy) ** 2) / (2.0 * s * s)
+    return {"random": rng.normal(size=(n, size * size)).astype(np.float32),
+            "blob": blobs.reshape(n, -1).astype(np.float32)}
+
+
+def check_dsnt(size: int = 256, n: int = 420) -> dict:
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel
+    from contouring_uncertainty_torch.ops.dsnt import raw6_to_pixel_gaussians
+
+    worst = {"mu_px": 0.0, "sigma_rel": 0.0}
+    for name, x in dsnt_inputs(n, size, np.random.default_rng(7)).items():
+        for dtype in (torch.bfloat16, torch.float32):
+            xt = torch.as_tensor(x, device="cuda").to(dtype)
+            ref = dsnt_kernel.raw_moments_plain(xt.double(), size, size)
+            mu_r, sig_r = raw6_to_pixel_gaussians(ref[:, :6], size, size)
+            scale = (sig_r[:, 0, 0] + sig_r[:, 1, 1])[:, None, None] / 2.0
+            layouts = {
+                "rows": dsnt_kernel.dsnt_raw_moments(xt, size, size),
+                "cols": dsnt_kernel.dsnt_raw_moments_cols(xt.t().contiguous(), size, size),
+            }
+            for layout, raw in layouts.items():
+                mu_k, sig_k = raw6_to_pixel_gaussians(raw[:, :6].double(), size, size)
+                mu_err = (mu_k - mu_r).abs().max().item()
+                sig_err = ((sig_k - sig_r).abs() / scale).max().item()
+                print(f"  dsnt {name:6s} {str(dtype):14s} {layout}: "
+                      f"mu err {mu_err:.3e} px, sigma rel err {sig_err:.3e}")
+                worst["mu_px"] = max(worst["mu_px"], mu_err)
+                worst["sigma_rel"] = max(worst["sigma_rel"], sig_err)
+    torch.cuda.synchronize()
+    if worst["mu_px"] > DSNT_BARS["mu_px"] or worst["sigma_rel"] > DSNT_BARS["sigma_rel"]:
+        raise AssertionError(f"DSNT kernel outside its bars {DSNT_BARS}: {worst}")
+    return worst
+
+
+def check_selection(dense, height: int, width: int, label: str):
+    """Kernel vs plain crossings (bitwise) and fills (pixel count) on the card."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import select_kernel
+    from contouring_uncertainty_torch.ops.rasterize import fill_from_crossings
+
+    xs_k = select_kernel.min_k_crossings_kernel(dense, height)
+    xs_p = select_kernel.min_k_crossings_plain(dense, height)
+    torch.cuda.synchronize()
+    unequal = int((xs_k != xs_p).sum().item())
+    fill_k = fill_from_crossings(xs_k, dense, width)
+    fill_p = fill_from_crossings(xs_p, dense, width)
+    mismatch = int((fill_k != fill_p).sum().item())
+    print(f"  selection {label}: {dense.shape[0]} masks, crossings differing "
+          f"{unequal}, fill pixels differing {mismatch}, filled px "
+          f"{int(fill_k.sum().item())}")
+    if unequal or mismatch:
+        raise AssertionError(f"crossing selection differs from its plain version ({label})")
+
+
+def main_path(profile_dir=None) -> dict:
+    """run_predict on the flagship serving configuration."""
+    import torch
+
+    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.predict import run_predict
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+
+    c = MAIN_CFG
+    t0 = time.perf_counter()
+    data = SyntheticContourData(n_patients=c["n_patients"], k=c["k"], size=c["size"],
+                                seed=c["seed"])
+    task = DSNTAleatoric(
+        data_params=data.data_params, t_e=c["t_e"], t_a=c["t_a"], covar=True,
+        model_kwargs=dict(drop_block=True, dtype="bfloat16", head_dtype="bfloat16"))
+    model = task.build_model(device="cuda",
+                             generator=torch.Generator().manual_seed(c["seed"]))
+    cfg = {"seed": c["seed"]}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  set-up {time.perf_counter() - t0:.1f} s: {n_params} UNet parameters, "
+          f"{len(list(data.predict_views('test')))} test views")
+
+    dsnt_kernel.launches = 0
+    select_kernel.launches = 0
+    t0 = time.perf_counter()
+    results = run_predict(task, model, data, cfg, split="test")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"dsnt": dsnt_kernel.launches, "select": select_kernel.launches}
+    n_views = len(results)
+    print(f"  main path: {n_views} views in {first_s:.2f} s (first run, warm-up "
+          f"included); kernel launches {launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the main path never launched the {name} kernel")
+
+    n, t_e, t_a, k, s = 2, c["t_e"], c["t_a"], c["k"], c["size"]
+    shapes = {"mu": (n, k, 2), "cov": (n, k, 2, 2), "post_mu": (n, k, 2),
+              "post_cov": (n, k, 2, 2), "contour_samples": (n, t_e, t_a, k, 2),
+              "pred_samples": (n, t_e, t_a, s, s), "pred": (n, s, s),
+              "uncertainty_map": (n, s, s), "entropy_map": (n, s, s)}
+    for res in results:
+        for key, shape in shapes.items():
+            value = getattr(res, key)
+            if value.shape != shape:
+                raise AssertionError(f"{key} shape {value.shape} != {shape}")
+            if not np.isfinite(value.astype(np.float64)).all():
+                raise AssertionError(f"{key} has non-finite values")
+        for group in (res.point_uncertainty, res.instant_uncertainty):
+            for key, value in group.items():
+                if not np.isfinite(value).all():
+                    raise AssertionError(f"{key} has non-finite values")
+        if res.pred_samples.max() != 1 or res.uncertainty_map.max() <= 0:
+            raise AssertionError("no sample mask or uncertainty map was painted")
+
+    # Steady state: more passes over the same views, all kernels built.
+    pass_s = []
+    for _ in range(STEADY_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_predict(task, model, data, cfg, split="test")
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+    ms_per_view = sorted(1e3 * t / n_views for t in pass_s)
+    kernel_ms, copy_ms, table = profile_run(
+        lambda: run_predict(task, model, data, cfg, split="test"), profile_dir)
+    median = ms_per_view[len(ms_per_view) // 2]
+    return {"views": n_views, "launches": launches, "first_s": first_s,
+            "views_per_s": 1e3 / median, "ms_per_view": median,
+            "ms_per_view_range": (ms_per_view[0], ms_per_view[-1]),
+            "kernel_ms_per_view": kernel_ms / n_views, "copy_ms_per_view": copy_ms / n_views,
+            "profile": table,
+            "results": results, "task": task, "model": model, "data": data}
+
+
+def profile_run(fn, out_dir=None):
+    """torch.profiler over one more steady-state pass. Returns the summed
+    device time (ms) of the kernels and of the copies (the device-side
+    events only: each aten op's own "self CUDA" time repeats its kernels'),
+    and the top rows by device time. With `out_dir`, the full table and a
+    Chrome trace are written there."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    copy_ms = sum(e.self_device_time_total for e in device
+                  if e.key.startswith(("Memcpy", "Memset"))) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in device) / 1e3 - copy_ms
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "profile_run.txt").write_text(
+            events.table(sort_by="self_device_time_total", row_limit=80))
+        prof.export_chrome_trace(str(out_dir / "profile_run.json"))
+    return kernel_ms, copy_ms, events.table(sort_by="self_device_time_total", row_limit=12)
+
+
+def small_reference_check():
+    """The GPU path (kernels) against the CPU path (plain versions) on one
+    small view: same weights, same CPU-generator draws."""
+    import torch
+
+    from contouring_uncertainty_torch.data.config import DataParams
+    from contouring_uncertainty_torch.data.synthetic import make_arrays
+    from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+    from contouring_uncertainty_torch.predict import AleatoricPredictor, view_generator
+    from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+
+    imgs, _, contours = make_arrays(12, size=64, seed=1)
+    task = DSNTAleatoric(
+        data_params=DataParams(in_shape=(1, 64, 64), out_shape=(21, 2)), t_e=2, t_a=8,
+        model_kwargs=dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3,
+                          drop_block=True))
+    prior = fit_shape_prior(contours)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = task.build_model(device=device, generator=torch.Generator().manual_seed(3))
+        predictor = AleatoricPredictor(
+            task, model, PosteriorShapeModelSampler(prior, device=device), device=device)
+        outs[device] = {k: v for k, v in predictor(imgs[:2], view_generator(5, 0)).items()
+                        if isinstance(v, torch.Tensor)}
+    cpu, gpu = outs["cpu"], {k: v.cpu() for k, v in outs["cuda"].items()}
+    mu_err = (gpu["mu"] - cpu["mu"]).abs().max().item()
+    cov_err = ((gpu["cov"] - cpu["cov"]).abs().max() / cpu["cov"].abs().max()).item()
+    sample_dev = (gpu["contour_samples"] - cpu["contour_samples"]).abs().median().item()
+    pop_diff = (gpu["pred_samples"] != cpu["pred_samples"]).float().mean().item()
+    # The same (CPU) sample contours rasterized through the kernel path and
+    # through the plain path isolate the fill from the sampler's rounding.
+    samples = cpu["contour_samples"]
+    fill_gpu = rasterize_batch(samples.cuda(), 64, 64).cpu()
+    fill_diff = (fill_gpu != rasterize_batch(samples, 64, 64)).float().mean().item()
+    print(f"  GPU vs CPU (64^2, 4-stage f32, T_e=2, T_a=8): mu {mu_err:.2e} px, "
+          f"cov rel {cov_err:.2e}, median sample shift {sample_dev:.2e} px, "
+          f"sample-mask pixels differing {pop_diff:.2e}; same samples filled on "
+          f"both: pixels differing {fill_diff:.2e}")
+    # mu and cov: f32 convolutions reduce in another order on the card (TF32
+    # off), ~1e-5 px. The PSM posterior of an untrained model is conditioned
+    # at ~1e8, so f32 rounding alone moves its samples by up to ~2 px and
+    # flips ~0.5% of sample-mask pixels (measured on the CPU, f32 vs f64
+    # with the same normals): the population is held by its median shift and
+    # that budget, the fill itself exactly.
+    if (mu_err > 1e-3 or cov_err > 1e-3 or sample_dev > 1e-2 or pop_diff > 2e-2
+            or fill_diff > 1e-4):
+        raise AssertionError("GPU path disagrees with the CPU path")
+
+
+def kernel_timings(main: dict) -> list:
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+
+    c = MAIN_CFG
+    n_views = main["views"]
+    model, task = main["model"], main["task"]
+    view = next(iter(main["data"].predict_views("test")))
+    img = torch.as_tensor(view["img"], device="cuda")
+
+    # DSNT kernel at the main path's shape: the (T_e*N, K, H, W) bf16 head
+    # output of one view (420 heatmaps of 256^2), row layout.
+    with torch.inference_mode():
+        logits = model(img.repeat(c["t_e"], 1, 1, 1), deterministic=False,
+                       generator=torch.Generator().manual_seed(1))["out"]
+    rows_in = logits.reshape(-1, c["size"] * c["size"])
+    rows, hw = rows_in.shape
+    cols_in = rows_in.t().contiguous()
+    raw_ref = dsnt_kernel.raw_moments_plain(rows_in.double(), c["size"], c["size"])
+    raw_k = dsnt_kernel.dsnt_raw_moments(rows_in, c["size"], c["size"])
+    d_ms = cuda_ms(lambda: dsnt_kernel.raw_moments_kernel(rows_in, c["size"], c["size"]))
+    d_cols_ms = cuda_ms(lambda: dsnt_kernel.dsnt_raw_moments_cols(cols_in, c["size"], c["size"]))
+    d_plain = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows_in, c["size"], c["size"]))
+    d_bytes = rows * hw * rows_in.element_size() + rows * 8 * 4
+    # max, subtract, exp, 8 multiplies and 8 adds per pixel
+    d_ops = rows * hw * 19
+    d_bound = {"bytes": d_bytes / HBM_BYTES_PER_S * 1e3, "operations": d_ops / F32_OPS_PER_S * 1e3}
+
+    # Crossing selection at the main path's shape: one view's 500 sampled
+    # contours, splined to 1024 vertices, 256 rows.
+    samples = torch.as_tensor(main["results"][0].contour_samples, device="cuda")
+    dense = contour_spline(samples.reshape(-1, c["k"], 2), n=1024).contiguous()
+    m, e, _ = dense.shape
+    s_ms = cuda_ms(lambda: select_kernel.min_k_crossings_kernel(dense, c["size"]))
+    s_plain = cuda_ms(lambda: select_kernel.min_k_crossings_plain(dense, c["size"]), iters=5)
+    neg_cand = -select_kernel.crossing_candidates(dense, c["size"])
+    s_lib = cuda_ms(lambda: torch.topk(neg_cand, 16, dim=-1), iters=5)
+    n_cross = int(torch.isfinite(neg_cand).sum().item())
+    del neg_cand
+    xs_k = select_kernel.min_k_crossings_kernel(dense, c["size"])
+    xs_p = select_kernel.min_k_crossings_plain(dense, c["size"])
+    s_err = torch.where(xs_k == xs_p, 0.0, (xs_k - xs_p).abs()).max().item()
+    # two straddle comparisons and their xor per (row, edge); a subtract,
+    # divide, subtract, multiply, add and compare per actual crossing
+    s_ops = 3 * m * c["size"] * e + 6 * n_cross
+    s_bytes = m * e * 2 * 4 + m * c["size"] * 16 * 4
+    s_bound = {"bytes": s_bytes / HBM_BYTES_PER_S * 1e3, "operations": s_ops / F32_OPS_PER_S * 1e3}
+    return [
+        {"name": "dsnt_moments (online-softmax DSNT moments; K1 column and K2 row layouts)",
+         "route": "triton", "source": "contouring_uncertainty_torch/ops/dsnt_kernel.py",
+         "replaces": "contouring_uncertainty_tpu/ops/pallas_dsnt.py:198",
+         "also_replaces": "contouring_uncertainty_tpu/ops/pallas_dsnt.py:105",
+         "launches": main["launches"]["dsnt"],
+         "launches_per_view": main["launches"]["dsnt"] / n_views,
+         "shape": [rows, hw], "dtype": str(rows_in.dtype),
+         "max_abs_err": (raw_k.double() - raw_ref).abs().max().item(),
+         "ms": d_ms, "cols_ms": d_cols_ms, "plain_ms": d_plain,
+         "bound_ms": max(d_bound.values()), "bound_by": max(d_bound, key=d_bound.get),
+         "library_ms": None},
+        {"name": "min_k_crossings (exact min-16 scanline crossing selection; K3)",
+         "route": "cuda", "source": "contouring_uncertainty_torch/csrc/min_k_crossings.cu",
+         "replaces": "contouring_uncertainty_tpu/ops/pallas_select.py:89",
+         "launches": main["launches"]["select"],
+         "launches_per_view": main["launches"]["select"] / n_views,
+         "shape": [m, e, c["size"]], "crossings": n_cross,
+         "max_abs_err": s_err,
+         "ms": s_ms, "plain_ms": s_plain,
+         "bound_ms": max(s_bound.values()), "bound_by": max(s_bound, key=s_bound.get),
+         "library_ms": s_lib, "library_call": "torch.topk over the (M, H, E) candidates"},
+    ]
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; one CUDA GPU is required",
+              file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"[1] card: {card} ({torch.cuda.device_count()} visible); torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("    torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
+
+    from contouring_uncertainty_torch import build
+    from contouring_uncertainty_torch.ops import dsnt_kernel
+    from contouring_uncertainty_torch.ops.rasterize import zigzag_contours
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    nvcc_s = time.perf_counter() - t0
+    probe = torch.zeros((2, 64 * 64), device="cuda", dtype=torch.bfloat16)
+    dsnt_kernel.dsnt_raw_moments(probe, 64, 64)
+    torch.cuda.synchronize()
+    print(f"[2] build: nvcc {nvcc_s:.1f} s ({', '.join(p.name for p in libs)}), "
+          f"Triton first launch {time.perf_counter() - t0 - nvcc_s:.1f} s")
+    for name, log in build.BUILD_LOGS.items():
+        print("    " + "\n    ".join(line for line in log.splitlines() if "ptxas info" in line
+                                    and ("registers" in line or "spill" in line)))
+
+    print("[3] DSNT moment kernel vs plain f64 (420 heatmaps of 256^2 each)")
+    dsnt_worst = check_dsnt()
+
+    print("[4] crossing selection vs plain: zigzag contours (64, 256^2, n=1024)")
+    zz = torch.as_tensor(zigzag_contours(64, seed=0), device="cuda")
+    check_selection(contour_spline(zz, n=1024).contiguous(), 256, 256, "zigzag")
+
+    profile_dir = Path("chiprun_out") if "--profile" in argv else None
+    print("[5] main path: run_predict, flagship TMI serving configuration")
+    main_res = main_path(profile_dir)
+    kernel_ms, copy_ms = main_res["kernel_ms_per_view"], main_res["copy_ms_per_view"]
+    busy = (kernel_ms + copy_ms) / main_res["ms_per_view"]
+    lo, hi = main_res["ms_per_view_range"]
+    print(f"    steady state: {main_res['views_per_s']:.2f} views/s, median "
+          f"{main_res['ms_per_view']:.1f} ms/view over {STEADY_PASSES} passes of "
+          f"{main_res['views']} views (range {lo:.1f}-{hi:.1f}) on {card}")
+    print(f"    device busy per view (profiled pass): kernels {kernel_ms:.2f} ms + copies "
+          f"{copy_ms:.2f} ms = {busy:.1%} of the steady-state view time; idle share "
+          f"{1 - busy:.1%}")
+    print(main_res["profile"])
+
+    print("[6] crossing selection vs plain: one view's sampled contours")
+    samples = torch.as_tensor(main_res["results"][0].contour_samples, device="cuda")
+    check_selection(contour_spline(samples.reshape(-1, MAIN_CFG["k"], 2), n=1024)
+                    .contiguous(), 256, 256, "PSM samples")
+
+    print("[7] reference check on a small input")
+    small_reference_check()
+
+    print("[8] kernel timings at the main path's shapes")
+    kernels = kernel_timings(main_res)
+    for kern in kernels:
+        print(f"    {kern['name'].split()[0]}: {kern['ms']:.4f} ms (bound "
+              f"{kern['bound_ms']:.4f} ms by {kern['bound_by']}), plain "
+              f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}")
+    print(f"    DSNT worst over the parity inputs: {dsnt_worst}")
+    print(f"    total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

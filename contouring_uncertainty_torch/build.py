@@ -1,0 +1,90 @@
+"""Builds the port's hand-written kernels from the sources in the checkout.
+
+Everything is built at first use into `contouring_uncertainty_torch/_build/`
+(git-ignored), never at import:
+
+- CUDA C++ sources under `csrc/` are compiled by `nvcc` for `sm_90a` into a
+  shared library with a plain C interface, loaded with ctypes. The library's
+  file name carries a hash of its source and flags, so an edited source is
+  rebuilt and a stale library is never loaded.
+- Triton kernels JIT-compile at their first launch; their cache is pointed
+  at the same directory (`TRITON_CACHE_DIR`) so nothing is written outside
+  the checkout.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, List
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+# Hopper only: `sm_90a` keeps wgmma/setmaxnreg available to later kernels.
+# --fmad=false: no mul-add contraction, so crossing abscissae are rounded
+# exactly like the plain PyTorch version's separate mul and add (bitwise
+# parity); IEEE division stays on (no --use_fast_math).
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
+    "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# name -> source file under csrc/
+CUDA_SOURCES = {"min_k_crossings": "min_k_crossings.cu"}
+
+# Compiler output (ptxas register/shared-memory report) of the last build.
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / CUDA_SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_cuda_library(name: str) -> Path:
+    """Compile csrc/<source> into a shared library unless it is built."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC_DIR / CUDA_SOURCES[name])]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{BUILD_LOGS[name]}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> List[Path]:
+    """Build every CUDA library, one nvcc per source, all started together."""
+    with ThreadPoolExecutor(max_workers=len(CUDA_SOURCES)) as pool:
+        futures = [pool.submit(build_cuda_library, n) for n in CUDA_SOURCES]
+        return [f.result() for f in futures]
+
+
+def import_triton():
+    """Import Triton with its kernel cache inside the build directory."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    import triton
+
+    return triton

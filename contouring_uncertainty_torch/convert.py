@@ -1,0 +1,51 @@
+"""JAX (flax) UNet parameters -> the port's `state_dict`.
+
+Takes the flax parameter tree as a nested dict of numpy arrays (a
+`variables` dict with a top-level "params" key is accepted too) and returns
+tensors keyed like the port's UNet, whose submodules keep the flax names
+(ConvBlock_i / UpsampleBlock_j / OutputBlock_0 / ConvLayer_0 / Conv_0 /
+InstanceNorm_0 / ConvTranspose_0). The mapping is the one the JAX package's
+reference-model parity test uses:
+
+- conv kernels (kh, kw, ci, co) -> (co, ci, kh, kw);
+- ConvTranspose kernels are flipped in both spatial dims (flax's transposed
+  conv mirrors the kernel relative to torch's ConvTranspose2d), then
+  permuted to (ci, co, kh, kw);
+- InstanceNorm scale/bias -> weight/bias; conv bias -> bias.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping
+
+import numpy as np
+import torch
+
+
+def flax_to_torch_state(params: Mapping) -> Dict[str, torch.Tensor]:
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, path: List[str]):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, path + [name])
+                continue
+            t = torch.from_numpy(np.array(value, dtype=np.float32))
+            prefix = ".".join(path)
+            if name == "kernel":
+                if path[-1].startswith("ConvTranspose"):
+                    t = t.flip(0).flip(1).permute(2, 3, 0, 1)
+                else:
+                    t = t.permute(3, 2, 0, 1)
+                state[f"{prefix}.weight"] = t.contiguous()
+            elif name == "scale":
+                state[f"{prefix}.weight"] = t
+            elif name == "bias":
+                state[f"{prefix}.bias"] = t
+            else:
+                raise KeyError(f"unexpected flax parameter {prefix}.{name}")
+
+    walk(params, [])
+    return state

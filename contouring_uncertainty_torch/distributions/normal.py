@@ -1,0 +1,47 @@
+"""Bivariate normal: logpdf, marginals and sampling, batched over leading axes.
+
+Counterpart of contouring_uncertainty_tpu/distributions/normal.py. Sampling
+takes an explicit `torch.Generator`; the standard normals are drawn on the
+generator's device and moved to `mu`'s, so a CPU generator gives the same
+draws on every device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from contouring_uncertainty_torch.distributions.linalg import chol2x2, mat2_vec, rotate_cov
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def logpdf(x: torch.Tensor, mu: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+    """Log density of N(mu, cov) at x. Shapes broadcast; last axis is the 2-vector."""
+    a = cov[..., 0, 0]
+    b = cov[..., 0, 1]
+    d = cov[..., 1, 1]
+    det = a * d - b * b
+    diff = x - mu
+    dx, dy = diff[..., 0], diff[..., 1]
+    maha = (d * dx * dx - 2.0 * b * dx * dy + a * dy * dy) / det
+    return -_LOG_2PI - 0.5 * torch.log(det) - 0.5 * maha
+
+
+def marginal(mu: torch.Tensor, cov: torch.Tensor, axis: int, angle=0.0):
+    """Marginal (mean, variance) along `axis` after rotating cov by -angle."""
+    angle = torch.as_tensor(angle, dtype=cov.dtype, device=cov.device)
+    cov = rotate_cov(cov, -angle)
+    return mu[..., axis], cov[..., axis, axis]
+
+
+def rvs(generator: Optional[torch.Generator], mu: torch.Tensor, cov: torch.Tensor,
+        shape=()) -> torch.Tensor:
+    """Sample from N(mu, cov); returns shape (*shape, *mu.shape)."""
+    chol = chol2x2(cov)
+    gen_device = generator.device if generator is not None else torch.device("cpu")
+    z = torch.randn((*shape, *mu.shape), generator=generator, dtype=mu.dtype,
+                    device=gen_device).to(mu.device)
+    return mu + mat2_vec(chol, z)

@@ -1,0 +1,271 @@
+"""nnU-Net-style dynamic U-Net in PyTorch (NCHW), flagship flags.
+
+Counterpart of contouring_uncertainty_tpu/models/unet.py with the flags of
+the serving configuration: 8 stages of filters min(2^(5+i), 480), double
+conv blocks of conv -> [channel dropout] -> instance norm -> LeakyReLU(0.01),
+`drop_block` MC-dropout in the two deepest encoder stages and the
+bottleneck, transposed-conv upsampling with the skip concatenated after the
+upsampled tensor, a 1x1 head, `dtype`/`head_dtype` compute types, and the
+`encode_prefix`/`decode_from_prefix` modes of the MC-dropout predict path.
+(`residual`, `attention`, `deep_supervision`, `ssn_rank` and
+`bottleneck_out` are not ported yet.)
+
+Submodules carry the flax auto-names (ConvBlock_i, UpsampleBlock_j,
+OutputBlock_0, ConvLayer_0, Conv_0, InstanceNorm_0, ConvTranspose_0), so
+convert.py maps a JAX parameter tree onto `state_dict` keys one to one.
+Parameters are float32; convolutions run in `dtype` (weights cast per call),
+instance-norm statistics in f32. Dropout draws its masks from an explicit
+`torch.Generator` (on the generator's device, then moved), in execution order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_NEG_SLOPE = 1e-2
+# flax variance_scaling(2 / (1 + 0.01^2), "fan_in", "truncated_normal"):
+# N(0, sqrt(scale / fan_in)) truncated at +-2 std, std corrected by the
+# truncation factor.
+_KAIMING_SCALE = 2.0 / (1.0 + 0.01 ** 2)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _kaiming_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
+    std = math.sqrt(_KAIMING_SCALE / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def torch_padding(kernel_size) -> tuple:
+    """Symmetric padding (k//2, k//2) per spatial dim (not XLA's "SAME")."""
+    return tuple(k // 2 for k in kernel_size)
+
+
+def channel_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """Dropout2d: zero whole channels with probability `rate`, scale the
+    kept ones by 1/(1-rate) (flax Dropout with broadcast_dims=(H, W))."""
+    keep_prob = 1.0 - rate
+    gen_device = generator.device if generator is not None else torch.device("cpu")
+    u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator, device=gen_device)
+    keep = (u < keep_prob).to(x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class InstanceNorm(nn.Module):
+    """Instance norm with single-pass f32 statistics max(E[x^2]-E[x]^2, 0),
+    eps 1e-5 and affine f32 parameters; output in `dtype`."""
+
+    def __init__(self, channels: int, dtype=torch.float32, epsilon: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.dtype = dtype
+        self.epsilon = epsilon
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        mean2 = (xf * xf).mean(dim=(2, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(self.dtype)
+
+
+class Conv(nn.Module):
+    """Conv2d with f32 parameters computed in `dtype`."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size=(3, 3), stride=(1, 1),
+                 padding=(0, 0), bias: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c_out, c_in, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None):
+        _kaiming_(self.weight, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+                        self.stride, self.padding)
+
+
+class ConvTranspose(nn.Module):
+    """Stride-s, kernel-s transposed conv without bias (flax ConvTranspose,
+    padding VALID); the weight is in torch's (ci, co, kh, kw) orientation."""
+
+    def __init__(self, c_in: int, c_out: int, stride=(2, 2), dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c_in, c_out, *stride))
+        self.stride = tuple(stride)
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None):
+        c_in, _, kh, kw = self.weight.shape
+        _kaiming_(self.weight, c_in * kh * kw, generator)
+
+    def forward(self, x):
+        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                                  stride=self.stride)
+
+
+class ConvLayer(nn.Module):
+    """conv -> [channel dropout] -> instance norm -> leaky relu."""
+
+    def __init__(self, c_in, features, kernel_size=(3, 3), strides=(1, 1),
+                 drop_block=False, drop_rate=0.5, dtype=torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(c_in, features, kernel_size, strides,
+                           torch_padding(kernel_size), dtype=dtype)
+        self.InstanceNorm_0 = InstanceNorm(features, dtype=dtype)
+        self.drop_block = drop_block
+        self.drop_rate = drop_rate
+
+    def forward(self, x, deterministic=True, generator=None):
+        x = self.Conv_0(x)
+        if self.drop_block and not deterministic:
+            x = channel_dropout(x, self.drop_rate, generator)
+        x = self.InstanceNorm_0(x)
+        return F.leaky_relu(x, _NEG_SLOPE)
+
+
+class ConvBlock(nn.Module):
+    """Double ConvLayer; the first carries the stage stride."""
+
+    def __init__(self, c_in, features, kernel_size=(3, 3), strides=(1, 1),
+                 drop_block=False, dtype=torch.float32):
+        super().__init__()
+        self.ConvLayer_0 = ConvLayer(c_in, features, kernel_size, strides,
+                                     drop_block, dtype=dtype)
+        self.ConvLayer_1 = ConvLayer(features, features, kernel_size, (1, 1),
+                                     drop_block, dtype=dtype)
+
+    def forward(self, x, deterministic=True, generator=None):
+        x = self.ConvLayer_0(x, deterministic, generator)
+        return self.ConvLayer_1(x, deterministic, generator)
+
+
+class UpsampleBlock(nn.Module):
+    """Transposed-conv upsample, concat [upsampled, skip], double conv."""
+
+    def __init__(self, c_in, c_skip, features, kernel_size=(3, 3), strides=(2, 2),
+                 dtype=torch.float32):
+        super().__init__()
+        self.ConvTranspose_0 = ConvTranspose(c_in, features, strides, dtype=dtype)
+        self.ConvBlock_0 = ConvBlock(features + c_skip, features, kernel_size,
+                                     (1, 1), False, dtype=dtype)
+
+    def forward(self, x, skip, deterministic=True, generator=None):
+        x = self.ConvTranspose_0(x)
+        x = torch.cat([x, skip.to(x.dtype)], dim=1)
+        return self.ConvBlock_0(x, deterministic, generator)
+
+
+class OutputBlock(nn.Module):
+    """1x1 conv head (bias off), computed in `dtype`, emitted in `out_dtype`."""
+
+    def __init__(self, c_in, features, dtype=torch.float32, out_dtype=torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(c_in, features, (1, 1), bias=False, dtype=dtype)
+        self.out_dtype = out_dtype
+
+    def forward(self, x):
+        return self.Conv_0(x).to(self.out_dtype)
+
+
+class UNet(nn.Module):
+    """Dynamic 2D U-Net: NCHW in, {"out": (N, C_out, H, W)} out."""
+
+    def __init__(self, input_shape: Sequence[int], output_shape: Sequence[int],
+                 kernels=((3, 3),) * 8, strides=((1, 1),) + ((2, 2),) * 7,
+                 drop_block: bool = False, dtype=torch.float32,
+                 head_dtype=torch.float32):
+        super().__init__()
+        self.input_shape = tuple(input_shape)
+        self.output_shape = tuple(output_shape)
+        self.kernels = tuple(tuple(k) for k in kernels)
+        self.strides = tuple(tuple(s) for s in strides)
+        self.drop_block = drop_block
+        self.dtype = dtype
+        self.head_dtype = head_dtype
+        filters = self.filters
+        n_down = len(filters) - 2
+        self.n_down = n_down
+        self.drop_flags = [drop_block and (n_down - i) <= 2 for i in range(n_down)]
+        # First stochastic encoder stage; the prefix is everything before it.
+        self.first_drop = next((i for i, f in enumerate(self.drop_flags) if f), n_down)
+
+        c_in = input_shape[0]
+        enc_ch = []
+        for idx in range(n_down + 2):
+            f = filters[idx] if idx <= n_down else filters[-1]
+            use_drop = (self.drop_flags[idx - 1] if 1 <= idx <= n_down
+                        else drop_block if idx == n_down + 1 else False)
+            self.add_module(f"ConvBlock_{idx}", ConvBlock(
+                c_in, f, self.kernels[idx], self.strides[idx], use_drop, dtype=dtype))
+            c_in = f
+            enc_ch.append(f)
+        skips_ch = enc_ch[:-1]
+        up_filters = filters[:-1][::-1]
+        up_kernels = list(self.kernels[1:])[::-1]
+        up_strides = list(self.strides[1:])[::-1]
+        for j, c_skip in enumerate(reversed(skips_ch)):
+            self.add_module(f"UpsampleBlock_{j}", UpsampleBlock(
+                c_in, c_skip, up_filters[j], up_kernels[j], up_strides[j], dtype=dtype))
+            c_in = up_filters[j]
+        head_compute = torch.promote_types(dtype, head_dtype)
+        self.OutputBlock_0 = OutputBlock(c_in, output_shape[0], dtype=head_compute,
+                                         out_dtype=head_dtype)
+
+    @property
+    def filters(self):
+        return [min(2 ** (5 + i), 480) for i in range(len(self.strides))]
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax-style init (truncated-normal Kaiming for LeakyReLU(0.01),
+        zero biases, unit norm scales) drawn from `generator`."""
+        for mod in self.modules():
+            if isinstance(mod, (Conv, ConvTranspose)):
+                mod.reset_parameters(generator)
+            elif isinstance(mod, InstanceNorm):
+                nn.init.ones_(mod.weight)
+                nn.init.zeros_(mod.bias)
+
+    def forward(self, x: Optional[torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None, mode: str = "full",
+                prefix: Optional[dict] = None):
+        """mode "full" runs the network; "encode_prefix" only the
+        deterministic prefix (stem + encoder stages before the first dropout
+        stage), returning {"skips": [...]}; "decode_from_prefix" the
+        stochastic tail from `prefix` (possibly tiled along batch; `x` is
+        ignored)."""
+        if mode == "decode_from_prefix":
+            if prefix is None:
+                raise ValueError("mode='decode_from_prefix' requires prefix=")
+            skips = [s.to(self.dtype) for s in prefix["skips"]]
+            out = skips[-1]
+            for i in range(self.first_drop, self.n_down):
+                out = getattr(self, f"ConvBlock_{i + 1}")(out, deterministic, generator)
+                skips.append(out)
+        else:
+            out = self.ConvBlock_0(x.to(self.dtype), deterministic, generator)
+            skips = [out]
+            stop = self.first_drop if mode == "encode_prefix" else self.n_down
+            for i in range(stop):
+                out = getattr(self, f"ConvBlock_{i + 1}")(out, deterministic, generator)
+                skips.append(out)
+            if mode == "encode_prefix":
+                return {"skips": skips}
+        out = getattr(self, f"ConvBlock_{self.n_down + 1}")(out, deterministic, generator)
+        for j, skip in enumerate(reversed(skips)):
+            out = getattr(self, f"UpsampleBlock_{j}")(out, skip, deterministic, generator)
+        return {"out": self.OutputBlock_0(out)}
