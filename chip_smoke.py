@@ -12,14 +12,21 @@ result line):
 
 1. card check: CUDA present; the card's name and power limit; TF32 off for
    matmuls and cuDNN convolutions;
-2. build: nvcc for the CUDA kernel, Triton JIT for the DSNT kernel, from the
-   sources in this checkout into contouring_uncertainty_torch/_build/;
-3. DSNT moment kernel (Triton) against its plain version in f64, row and
-   column layouts, random and sharp off-centre blob heatmaps, bf16 and f32:
-   mu <= 1e-4 px, sigma relative error <= 1e-3;
-4. crossing-selection kernel (CUDA) against its plain version on the zigzag
-   contours of the JAX package's parity check: bitwise-equal crossings,
-   0 mismatched fill pixels;
+2. build: nvcc for the two CUDA sources (csrc/min_k_crossings.cu,
+   csrc/dsnt_moments.cu, in parallel), Triton JIT for the column-layout DSNT
+   kernel, from the sources in this checkout into
+   contouring_uncertainty_torch/_build/;
+3. DSNT moment kernels against their plain version in f64: the CUDA row
+   kernel (K2) and the Triton column kernel (K1), random and sharp
+   off-centre blob heatmaps, bf16 and f32, at 256^2 and 64^2, and the row
+   kernel's band split (a few heatmaps, one cluster each): mu <= 1e-4 px,
+   sigma relative error <= 1e-3;
+4. crossing-selection kernel (CUDA, K3) against its plain version on the
+   zigzag contours of the JAX package's parity check and on the edge cases
+   of ops/rasterize.py `selection_edge_cases` (tied crossings, horizontal
+   edges, vertices outside the image, rows with more crossings than a
+   bucket holds): bitwise-equal crossings, 0 mismatched fill pixels; the
+   rows that took the overflow path are counted and must not be 0;
 5. the main path: `run_predict` on synthetic CAMUS-like views with the
    flagship TMI serving configuration (8-stage UNet at full width, bf16,
    MC dropout T_e=10 x PSM T_a=25, 256^2, K=21) and seed-initialised
@@ -28,8 +35,10 @@ result line):
    busy time per view from a profiled pass, and the top kernels;
 6. the crossing selection again on one view's 500 sampled contours;
 7. the GPU path against the CPU path (plain versions) on a small input;
-8. kernel timings beside their bounds; the kernels JSON line, the card line
-   and the final {"ok": true, ...} line.
+8. kernel timings beside their bounds, each redesigned kernel beside its
+   first design on the same inputs in the same run (K2 against the Triton
+   row tile, K3 against the row walk); the kernels JSON line (K1, K2, K3),
+   the card line and the final {"ok": true, ...} line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -99,7 +108,11 @@ def dsnt_inputs(n: int, size: int, rng: np.random.Generator) -> dict:
             "blob": blobs.reshape(n, -1).astype(np.float32)}
 
 
-def check_dsnt(size: int = 256, n: int = 420) -> dict:
+def check_dsnt(size: int, n: int = 420) -> dict:
+    """Both moment kernels against f64 on n random and n blob heatmaps of
+    size^2: the CUDA row kernel on the row layout (all n heatmaps, one block
+    each, and the first 21, split into bands), the Triton kernel on the
+    column layout."""
     import torch
 
     from contouring_uncertainty_torch.ops import dsnt_kernel
@@ -112,43 +125,58 @@ def check_dsnt(size: int = 256, n: int = 420) -> dict:
             ref = dsnt_kernel.raw_moments_plain(xt.double(), size, size)
             mu_r, sig_r = raw6_to_pixel_gaussians(ref[:, :6], size, size)
             scale = (sig_r[:, 0, 0] + sig_r[:, 1, 1])[:, None, None] / 2.0
+            few = xt[:21]
+            bands = dsnt_kernel.row_bands(21, size, size, xt.element_size(), n_sm())
             layouts = {
-                "rows": dsnt_kernel.dsnt_raw_moments(xt, size, size),
-                "cols": dsnt_kernel.dsnt_raw_moments_cols(xt.t().contiguous(), size, size),
+                "rows (CUDA)": (dsnt_kernel.raw_moments_cuda(xt, size, size), slice(None)),
+                f"rows, 21 in {bands} bands (CUDA)":
+                    (dsnt_kernel.raw_moments_cuda(few, size, size), slice(0, 21)),
+                "cols (Triton)": (dsnt_kernel.dsnt_raw_moments_cols(xt.t().contiguous(), size,
+                                                                    size), slice(None)),
             }
-            for layout, raw in layouts.items():
+            for layout, (raw, sel) in layouts.items():
                 mu_k, sig_k = raw6_to_pixel_gaussians(raw[:, :6].double(), size, size)
-                mu_err = (mu_k - mu_r).abs().max().item()
-                sig_err = ((sig_k - sig_r).abs() / scale).max().item()
-                print(f"  dsnt {name:6s} {str(dtype):14s} {layout}: "
+                mu_err = (mu_k - mu_r[sel]).abs().max().item()
+                sig_err = ((sig_k - sig_r[sel]).abs() / scale[sel]).max().item()
+                print(f"  dsnt {size}^2 {name:6s} {str(dtype):14s} {layout}: "
                       f"mu err {mu_err:.3e} px, sigma rel err {sig_err:.3e}")
                 worst["mu_px"] = max(worst["mu_px"], mu_err)
                 worst["sigma_rel"] = max(worst["sigma_rel"], sig_err)
     torch.cuda.synchronize()
     if worst["mu_px"] > DSNT_BARS["mu_px"] or worst["sigma_rel"] > DSNT_BARS["sigma_rel"]:
-        raise AssertionError(f"DSNT kernel outside its bars {DSNT_BARS}: {worst}")
+        raise AssertionError(f"DSNT kernels outside their bars {DSNT_BARS}: {worst}")
     return worst
 
 
-def check_selection(dense, height: int, width: int, label: str):
-    """Kernel vs plain crossings (bitwise) and fills (pixel count) on the card."""
+def n_sm() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def check_selection(dense, height: int, width: int, label: str) -> int:
+    """Kernel vs plain crossings (bitwise) and fills (pixel count) on the
+    card. Returns the number of rows that took the kernel's overflow path."""
     import torch
 
     from contouring_uncertainty_torch.ops import select_kernel
     from contouring_uncertainty_torch.ops.rasterize import fill_from_crossings
 
-    xs_k = select_kernel.min_k_crossings_kernel(dense, height)
+    overflow = torch.zeros(1, dtype=torch.int32, device="cuda")
+    xs_k = select_kernel.min_k_crossings_kernel(dense, height, overflow_rows=overflow)
     xs_p = select_kernel.min_k_crossings_plain(dense, height)
     torch.cuda.synchronize()
     unequal = int((xs_k != xs_p).sum().item())
     fill_k = fill_from_crossings(xs_k, dense, width)
     fill_p = fill_from_crossings(xs_p, dense, width)
     mismatch = int((fill_k != fill_p).sum().item())
+    n_overflow = int(overflow.item())
     print(f"  selection {label}: {dense.shape[0]} masks, crossings differing "
           f"{unequal}, fill pixels differing {mismatch}, filled px "
-          f"{int(fill_k.sum().item())}")
+          f"{int(fill_k.sum().item())}, rows on the overflow path {n_overflow}")
     if unequal or mismatch:
         raise AssertionError(f"crossing selection differs from its plain version ({label})")
+    return n_overflow
 
 
 def main_path(profile_dir=None) -> dict:
@@ -174,19 +202,23 @@ def main_path(profile_dir=None) -> dict:
     print(f"  set-up {time.perf_counter() - t0:.1f} s: {n_params} UNet parameters, "
           f"{len(list(data.predict_views('test')))} test views")
 
-    dsnt_kernel.launches = 0
-    select_kernel.launches = 0
+    dsnt_kernel.cuda_launches = dsnt_kernel.triton_launches = 0
+    select_kernel.launches = select_kernel.walk_launches = 0
     t0 = time.perf_counter()
     results = run_predict(task, model, data, cfg, split="test")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"dsnt": dsnt_kernel.launches, "select": select_kernel.launches}
+    launches = {"K1 dsnt (Triton, column layout)": dsnt_kernel.triton_launches,
+                "K2 dsnt (CUDA, row layout)": dsnt_kernel.cuda_launches,
+                "K3 select (CUDA)": select_kernel.launches,
+                "K3 row walk": select_kernel.walk_launches}
     n_views = len(results)
     print(f"  main path: {n_views} views in {first_s:.2f} s (first run, warm-up "
           f"included); kernel launches {launches}")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"the main path never launched the {name} kernel")
+    for name in ("K2 dsnt (CUDA, row layout)", "K3 select (CUDA)"):
+        if launches[name] < n_views:
+            raise AssertionError(f"the main path launched {name} {launches[name]} times "
+                                 f"in {n_views} views")
 
     n, t_e, t_a, k, s = 2, c["t_e"], c["t_a"], c["k"], c["size"]
     shapes = {"mu": (n, k, 2), "cov": (n, k, 2, 2), "post_mu": (n, k, 2),
@@ -303,6 +335,13 @@ def small_reference_check():
         raise AssertionError("GPU path disagrees with the CPU path")
 
 
+def in_turns(first, second) -> tuple:
+    """Device times of two versions of one function, taken in turns (first,
+    second, second, first) so that drift hits both alike; means of each."""
+    a0, b0, b1, a1 = cuda_ms(first), cuda_ms(second), cuda_ms(second), cuda_ms(first)
+    return (a0 + a1) / 2.0, (b0 + b1) / 2.0
+
+
 def kernel_timings(main: dict) -> list:
     import torch
 
@@ -311,23 +350,33 @@ def kernel_timings(main: dict) -> list:
 
     c = MAIN_CFG
     n_views = main["views"]
-    model, task = main["model"], main["task"]
+    launches = main["launches"]
+    model = main["model"]
     view = next(iter(main["data"].predict_views("test")))
     img = torch.as_tensor(view["img"], device="cuda")
+    size = c["size"]
 
-    # DSNT kernel at the main path's shape: the (T_e*N, K, H, W) bf16 head
-    # output of one view (420 heatmaps of 256^2), row layout.
+    # DSNT kernels at the main path's shape: the (T_e*N, K, H, W) bf16 head
+    # output of one view (420 heatmaps of 256^2), row layout for K2 and its
+    # (HW, 420) transpose for K1.
     with torch.inference_mode():
         logits = model(img.repeat(c["t_e"], 1, 1, 1), deterministic=False,
                        generator=torch.Generator().manual_seed(1))["out"]
-    rows_in = logits.reshape(-1, c["size"] * c["size"])
+    rows_in = logits.reshape(-1, size * size)
     rows, hw = rows_in.shape
     cols_in = rows_in.t().contiguous()
-    raw_ref = dsnt_kernel.raw_moments_plain(rows_in.double(), c["size"], c["size"])
-    raw_k = dsnt_kernel.dsnt_raw_moments(rows_in, c["size"], c["size"])
-    d_ms = cuda_ms(lambda: dsnt_kernel.raw_moments_kernel(rows_in, c["size"], c["size"]))
-    d_cols_ms = cuda_ms(lambda: dsnt_kernel.dsnt_raw_moments_cols(cols_in, c["size"], c["size"]))
-    d_plain = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows_in, c["size"], c["size"]))
+    raw_ref = dsnt_kernel.raw_moments_plain(rows_in.double(), size, size)
+    raw_k2 = dsnt_kernel.dsnt_raw_moments(rows_in, size, size)
+    raw_k1 = dsnt_kernel.dsnt_raw_moments_cols(cols_in, size, size)
+    k2_first, k2_ms = in_turns(lambda: dsnt_kernel.raw_moments_triton(rows_in, size, size),
+                             lambda: dsnt_kernel.raw_moments_cuda(rows_in, size, size))
+    k1_ms = cuda_ms(lambda: dsnt_kernel.dsnt_raw_moments_cols(cols_in, size, size))
+    d_plain = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows_in, size, size))
+    d_plain_cols = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(cols_in.t(), size, size))
+    band_ms = {b: cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(rows_in, size, size, bands=b))
+               for b in (1, 2, 4, 8)}
+    print(f"    K2 band splits (ms): {band_ms}; default "
+          f"{dsnt_kernel.row_bands(rows, size, size, rows_in.element_size(), n_sm())}")
     d_bytes = rows * hw * rows_in.element_size() + rows * 8 * 4
     # max, subtract, exp, 8 multiplies and 8 adds per pixel
     d_ops = rows * hw * 19
@@ -338,41 +387,56 @@ def kernel_timings(main: dict) -> list:
     samples = torch.as_tensor(main["results"][0].contour_samples, device="cuda")
     dense = contour_spline(samples.reshape(-1, c["k"], 2), n=1024).contiguous()
     m, e, _ = dense.shape
-    s_ms = cuda_ms(lambda: select_kernel.min_k_crossings_kernel(dense, c["size"]))
-    s_plain = cuda_ms(lambda: select_kernel.min_k_crossings_plain(dense, c["size"]), iters=5)
-    neg_cand = -select_kernel.crossing_candidates(dense, c["size"])
+    k3_first, k3_ms = in_turns(lambda: select_kernel.min_k_crossings_walk(dense, size),
+                             lambda: select_kernel.min_k_crossings_kernel(dense, size))
+    s_plain = cuda_ms(lambda: select_kernel.min_k_crossings_plain(dense, size), iters=5)
+    neg_cand = -select_kernel.crossing_candidates(dense, size)
     s_lib = cuda_ms(lambda: torch.topk(neg_cand, 16, dim=-1), iters=5)
     n_cross = int(torch.isfinite(neg_cand).sum().item())
     del neg_cand
-    xs_k = select_kernel.min_k_crossings_kernel(dense, c["size"])
-    xs_p = select_kernel.min_k_crossings_plain(dense, c["size"])
+    xs_k = select_kernel.min_k_crossings_kernel(dense, size)
+    xs_p = select_kernel.min_k_crossings_plain(dense, size)
     s_err = torch.where(xs_k == xs_p, 0.0, (xs_k - xs_p).abs()).max().item()
-    # two straddle comparisons and their xor per (row, edge); a subtract,
-    # divide, subtract, multiply, add and compare per actual crossing
-    s_ops = 3 * m * c["size"] * e + 6 * n_cross
-    s_bytes = m * e * 2 * 4 + m * c["size"] * 16 * 4
+    # What the function needs, whatever the algorithm: each edge's row range
+    # (a min, a max and two ceilings) and, per actual crossing, a subtract,
+    # divide, subtract, multiply, add and compare; the vertices read once and
+    # the crossings written once.
+    s_ops = 4 * m * e + 6 * n_cross
+    s_bytes = m * e * 2 * 4 + m * size * 16 * 4
     s_bound = {"bytes": s_bytes / HBM_BYTES_PER_S * 1e3, "operations": s_ops / F32_OPS_PER_S * 1e3}
+
+    def bound(b):
+        return {"bound_ms": max(b.values()), "bound_by": max(b, key=b.get)}
+
     return [
-        {"name": "dsnt_moments (online-softmax DSNT moments; K1 column and K2 row layouts)",
+        {"name": "K1 dsnt_moments_cols (online-softmax DSNT moments, column layout)",
          "route": "triton", "source": "contouring_uncertainty_torch/ops/dsnt_kernel.py",
          "replaces": "contouring_uncertainty_tpu/ops/pallas_dsnt.py:198",
-         "also_replaces": "contouring_uncertainty_tpu/ops/pallas_dsnt.py:105",
-         "launches": main["launches"]["dsnt"],
-         "launches_per_view": main["launches"]["dsnt"] / n_views,
+         "launches": launches["K1 dsnt (Triton, column layout)"],
+         "launches_per_view": launches["K1 dsnt (Triton, column layout)"] / n_views,
+         "shape": [hw, rows], "dtype": str(rows_in.dtype),
+         "max_abs_err": (raw_k1.double() - raw_ref).abs().max().item(),
+         "ms": k1_ms, "plain_ms": d_plain_cols, **bound(d_bound), "library_ms": None},
+        {"name": "K2 dsnt_moments (online-softmax DSNT moments, row layout)",
+         "route": "cuda", "source": "contouring_uncertainty_torch/csrc/dsnt_moments.cu",
+         "replaces": "contouring_uncertainty_tpu/ops/pallas_dsnt.py:105",
+         "launches": launches["K2 dsnt (CUDA, row layout)"],
+         "launches_per_view": launches["K2 dsnt (CUDA, row layout)"] / n_views,
          "shape": [rows, hw], "dtype": str(rows_in.dtype),
-         "max_abs_err": (raw_k.double() - raw_ref).abs().max().item(),
-         "ms": d_ms, "cols_ms": d_cols_ms, "plain_ms": d_plain,
-         "bound_ms": max(d_bound.values()), "bound_by": max(d_bound, key=d_bound.get),
-         "library_ms": None},
-        {"name": "min_k_crossings (exact min-16 scanline crossing selection; K3)",
+         "max_abs_err": (raw_k2.double() - raw_ref).abs().max().item(),
+         "ms": k2_ms, "first_design_ms": k2_first,
+         "first_design": "Triton row tile (2 x 1024 px)",
+         "plain_ms": d_plain, **bound(d_bound), "library_ms": None},
+        {"name": "K3 min_k_crossings (exact min-16 scanline crossing selection)",
          "route": "cuda", "source": "contouring_uncertainty_torch/csrc/min_k_crossings.cu",
          "replaces": "contouring_uncertainty_tpu/ops/pallas_select.py:89",
-         "launches": main["launches"]["select"],
-         "launches_per_view": main["launches"]["select"] / n_views,
-         "shape": [m, e, c["size"]], "crossings": n_cross,
+         "launches": launches["K3 select (CUDA)"],
+         "launches_per_view": launches["K3 select (CUDA)"] / n_views,
+         "shape": [m, e, size], "crossings": n_cross,
          "max_abs_err": s_err,
-         "ms": s_ms, "plain_ms": s_plain,
-         "bound_ms": max(s_bound.values()), "bound_by": max(s_bound, key=s_bound.get),
+         "ms": k3_ms, "first_design_ms": k3_first,
+         "first_design": "row walk (one thread per row, all edges)",
+         "plain_ms": s_plain, **bound(s_bound),
          "library_ms": s_lib, "library_call": "torch.topk over the (M, H, E) candidates"},
     ]
 
@@ -395,14 +459,18 @@ def main(argv) -> int:
 
     from contouring_uncertainty_torch import build
     from contouring_uncertainty_torch.ops import dsnt_kernel
-    from contouring_uncertainty_torch.ops.rasterize import zigzag_contours
+    from contouring_uncertainty_torch.ops.rasterize import (
+        EDGE_CASE_SIZE,
+        selection_edge_cases,
+        zigzag_contours,
+    )
     from contouring_uncertainty_torch.ops.spline import contour_spline
 
     t0 = time.perf_counter()
     libs = build.build_all()
     nvcc_s = time.perf_counter() - t0
     probe = torch.zeros((2, 64 * 64), device="cuda", dtype=torch.bfloat16)
-    dsnt_kernel.dsnt_raw_moments(probe, 64, 64)
+    dsnt_kernel.raw_moments_triton(probe, 64, 64)
     torch.cuda.synchronize()
     print(f"[2] build: nvcc {nvcc_s:.1f} s ({', '.join(p.name for p in libs)}), "
           f"Triton first launch {time.perf_counter() - t0 - nvcc_s:.1f} s")
@@ -410,12 +478,21 @@ def main(argv) -> int:
         print("    " + "\n    ".join(line for line in log.splitlines() if "ptxas info" in line
                                     and ("registers" in line or "spill" in line)))
 
-    print("[3] DSNT moment kernel vs plain f64 (420 heatmaps of 256^2 each)")
-    dsnt_worst = check_dsnt()
+    print("[3] DSNT moment kernels vs plain f64 (420 heatmaps of 256^2, then of 64^2)")
+    worst = [check_dsnt(256), check_dsnt(64)]
+    dsnt_worst = {k: max(w[k] for w in worst) for k in worst[0]}
 
-    print("[4] crossing selection vs plain: zigzag contours (64, 256^2, n=1024)")
+    print("[4] crossing selection vs plain: zigzag contours (64, 256^2, n=1024), "
+          f"edge cases ({EDGE_CASE_SIZE}^2, 256 vertices)")
     zz = torch.as_tensor(zigzag_contours(64, seed=0), device="cuda")
     check_selection(contour_spline(zz, n=1024).contiguous(), 256, 256, "zigzag")
+    n_overflow = sum(
+        check_selection(torch.as_tensor(arr, device="cuda"), EDGE_CASE_SIZE, EDGE_CASE_SIZE,
+                        f"edge case {name}")
+        for name, arr in selection_edge_cases().items())
+    print(f"    rows on the overflow path over the edge cases: {n_overflow}")
+    if n_overflow == 0:
+        raise AssertionError("no edge case exercised the selection's overflow path")
 
     profile_dir = Path("chiprun_out") if "--profile" in argv else None
     print("[5] main path: run_predict, flagship TMI serving configuration")
@@ -442,9 +519,12 @@ def main(argv) -> int:
     print("[8] kernel timings at the main path's shapes")
     kernels = kernel_timings(main_res)
     for kern in kernels:
-        print(f"    {kern['name'].split()[0]}: {kern['ms']:.4f} ms (bound "
+        earlier = (f", first design {kern['first_design_ms']:.4f} ms"
+                   if "first_design_ms" in kern else "")
+        print(f"    {kern['name'].split(' (')[0]}: {kern['ms']:.4f} ms{earlier} (bound "
               f"{kern['bound_ms']:.4f} ms by {kern['bound_by']}), plain "
-              f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}")
+              f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "
+              f"launches {kern['launches']} in {main_res['views']} views")
     print(f"    DSNT worst over the parity inputs: {dsnt_worst}")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -4,9 +4,10 @@ Everything is built at first use into `contouring_uncertainty_torch/_build/`
 (git-ignored), never at import:
 
 - CUDA C++ sources under `csrc/` are compiled by `nvcc` for `sm_90a` into a
-  shared library with a plain C interface, loaded with ctypes. The library's
-  file name carries a hash of its source and flags, so an edited source is
-  rebuilt and a stale library is never loaded.
+  shared library with a plain C interface, loaded with ctypes. Each source
+  has its own flags beside the common ones (`CUDA_SOURCES`). The library's
+  file name carries a hash of its source and flags, so an edited source or
+  flag is rebuilt and a stale library is never loaded.
 - Triton kernels JIT-compile at their first launch; their cache is pointed
   at the same directory (`TRITON_CACHE_DIR`) so nothing is written outside
   the checkout.
@@ -27,16 +28,20 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # Hopper only: `sm_90a` keeps wgmma/setmaxnreg available to later kernels.
-# --fmad=false: no mul-add contraction, so crossing abscissae are rounded
-# exactly like the plain PyTorch version's separate mul and add (bitwise
-# parity); IEEE division stays on (no --use_fast_math).
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# name -> source file under csrc/
-CUDA_SOURCES = {"min_k_crossings": "min_k_crossings.cu"}
+# name -> (source file under csrc/, that source's own nvcc flags).
+# min_k_crossings: --fmad=false (no mul-add contraction) and IEEE division,
+# so crossing abscissae round exactly like the plain PyTorch version's
+# separate mul and add (bitwise parity). dsnt_moments is held to tolerances:
+# contraction into FMAs stays on.
+CUDA_SOURCES = {
+    "min_k_crossings": ("min_k_crossings.cu", ["--fmad=false", "-prec-div=true"]),
+    "dsnt_moments": ("dsnt_moments.cu", ["--fmad=true"]),
+}
 
 # Compiler output (ptxas register/shared-memory report) of the last build.
 BUILD_LOGS: Dict[str, str] = {}
@@ -52,9 +57,14 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> List[str]:
+    """The nvcc flags of one source: the common ones, then its own."""
+    return [*NVCC_FLAGS, *CUDA_SOURCES[name][1]]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / CUDA_SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src = CSRC_DIR / CUDA_SOURCES[name][0]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -65,8 +75,8 @@ def build_cuda_library(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / CUDA_SOURCES[name])]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp),
+           str(CSRC_DIR / CUDA_SOURCES[name][0])]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_LOGS[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:

@@ -6,8 +6,8 @@ reference's scaling (`pixel = 0.5*((c+1)*size - 1)`, second moments times
 (size/2)^2) and the shared positive-definiteness guard.
 
 `logits_to_pixel_gaussians` dispatches on the tensor's device: on the GPU
-every call goes through the Triton moment kernel (ops/dsnt_kernel.py), on
-the CPU through its plain f32 separable version.
+every call goes through the CUDA row moment kernel (ops/dsnt_kernel.py,
+csrc/dsnt_moments.cu), on the CPU through its plain f32 separable version.
 """
 
 from __future__ import annotations
@@ -92,8 +92,8 @@ def logits_to_pixel_gaussians(logits: torch.Tensor, use_covar: bool = True):
     (mu (..., K, 2), sigma (..., K, 2, 2)) without materializing the softmax.
 
     The (rows, H*W) view of the logits goes through `dsnt_raw_moments`: the
-    Triton kernel for CUDA tensors (any dtype, one read of the logits), the
-    plain f32 separable reduction for CPU tensors."""
+    CUDA row kernel for CUDA tensors (bf16, f16 or f32, one read of the
+    logits), the plain f32 separable reduction for CPU tensors."""
     *lead, height, width = logits.shape
     raw = dsnt_raw_moments(logits.reshape(-1, height * width), height, width)
     raw = raw[:, :6].reshape(*lead, 6)

@@ -1,56 +1,55 @@
-"""DSNT raw-moment kernel: online softmax + eight spatial moments, one read.
+"""DSNT raw-moment kernels: online softmax + eight spatial moments, one read.
 
-Replaces the two Pallas kernels of contouring_uncertainty_tpu/ops/pallas_dsnt.py:
-`_raw_moments_pallas_cols` (`_dsnt_kernel_cols`, heatmaps as the columns of
-an (HW, N) tensor, the JAX serving route) and `_raw_moments_pallas`
-(`_dsnt_kernel`, heatmaps as rows of (Rows, HW)). Per heatmap it returns the
-normalised raw moments [1, x, y, x^2, y^2, xy, x^3, y^3] of softmax(logits)
-over the cell-centre grid ((2i+1)/W) - 1.
+Replace the two Pallas kernels of contouring_uncertainty_tpu/ops/pallas_dsnt.py.
+Per heatmap they return the normalised raw moments [1, x, y, x^2, y^2, xy,
+x^3, y^3] of softmax(logits) over the cell-centre grid ((2i+1)/W) - 1.
 
-What bounds it on an H100: by the roofline, device-memory bandwidth. A
-serving view reads 420 heatmaps x 65536 px of bf16 (~55 MB) once and writes
-420 x 8 floats, while the arithmetic (one exp and about twenty f32
-multiply-adds per pixel) needs about as long at the card's f32 rate. The
-design keeps it to that one read:
+- Row layout (`_raw_moments_pallas`, kernel `_dsnt_kernel`; heatmaps as the
+  rows of a (rows, H*W) view with unit pixel stride, the port's serving
+  path): the CUDA C++ kernel csrc/dsnt_moments.cu, wrapper
+  `raw_moments_cuda`. Its source has the design and what bounds it.
+- Column layout (`_raw_moments_pallas_cols`, kernel `_dsnt_kernel_cols`;
+  heatmaps as the columns of an (HW, N) tensor): the stride-generic Triton
+  kernel below, wrapper `raw_moments_triton`, which reads the transpose
+  view in place.
 
-- One stride-generic Triton kernel serves both layouts: it takes the
-  (rows, HW) view with arbitrary (stride_row, stride_px), so the row layout
-  (contiguous NCHW heads, the port's serving path) and the column layout
-  (the transpose of an (HW, N) tensor) launch the same code. Row tiles are
-  (2 heatmaps x 1024 px) so each heatmap streams contiguously; column tiles
-  are (128 heatmaps x 16 px) so a tile row is a contiguous 256-byte segment.
-- Each program loops over pixel chunks with a running max per heatmap and
-  rescale (online softmax), accumulating the eight sums per tile lane in f32
-  registers and reducing across the tile once, after the loop. The basis
-  comes from two tiny (W,) and (H,) tables of the JAX kernel's f32 values
-  (`_basis_cols`), which stay in L1; per-pixel integer and IEEE divisions
-  cost more than the rest of the loop body.
-- When there are too few heatmaps to fill the card (the column tiles, or
-  small batches) the pixel range is split over several programs, which
-  write (max, 8 sums) partials that a few tiny PyTorch ops rescale and sum.
-- No `tl.dot`: its TF32/bf16 operands would break the E[x^2] - E[x]^2
-  cancellation at 256^2 (pallas_dsnt.py:84-92). The sums are f32.
+`_raw_moments` routes on the layout (`moment_route`): a unit pixel stride
+goes to the CUDA kernel, any other stride to the Triton kernel. A row view
+that the CUDA kernel does not take raises; it is not handed to Triton.
 
-What still holds it above the bound (PERF.md has the times): the block-wide
-max of every chunk and the per-pixel rescale of eight accumulators.
+What bounds the Triton kernel on an H100: device-memory bandwidth by the
+roofline (a serving view reads 420 x 65536 bf16 once). Each program loops
+over pixel chunks with a running max per heatmap and rescale (online
+softmax), accumulating the eight sums per tile lane in f32 registers and
+reducing across the tile once, after the loop; the basis comes from two
+tiny (W,) and (H,) tables of the JAX kernel's f32 values (`_basis`). When
+there are too few heatmaps to fill the card (the column tiles, or small
+batches) the pixel range is split over several programs, whose (max, 8
+sums) partials a few tiny PyTorch ops rescale and sum. No `tl.dot`: its
+TF32/bf16 operands would break the E[x^2] - E[x]^2 cancellation at 256^2
+(pallas_dsnt.py:84-92). What holds it above the bound: the block-wide max
+of every chunk and the per-pixel rescale of eight accumulators.
 
 The plain PyTorch version (`raw_moments_plain`) is the separable f32 branch
 of the JAX `ops/dsnt.py:177-207`, extended to the eight moments; the
-wrappers use it for CPU tensors only. `launches` counts kernel launches.
+wrappers use it for CPU tensors only. `cuda_launches` and `triton_launches`
+count the two kernels' launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from contouring_uncertainty_torch.build import import_triton
+from contouring_uncertainty_torch.build import build_cuda_library, import_triton
 from contouring_uncertainty_torch.ops.coords import normalized_linspace
 
 N_MOM = 8  # [1, x, y, x^2, y^2, xy, x^3, y^3]
 
-launches = 0  # kernel launches since the last reset (plain integer)
+cuda_launches = 0  # CUDA row kernel launches since the last reset (plain integer)
+triton_launches = 0  # Triton kernel launches since the last reset
 
 
 def raw_moments_plain(x2d: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -193,9 +192,9 @@ def launch_config(rows: int, hw: int, stride_px: int, n_sm: int):
     return block_r, block_p, splits, chunks_per_split, warps
 
 
-def raw_moments_kernel(x2d: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def raw_moments_triton(x2d: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Launch the Triton kernel on a CUDA (rows, H*W) view (any strides)."""
-    global launches
+    global triton_launches
     if x2d.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise TypeError(f"dsnt moment kernel takes bf16/f16/f32, got {x2d.dtype}")
     if not x2d.is_cuda:
@@ -213,7 +212,7 @@ def raw_moments_kernel(x2d: torch.Tensor, height: int, width: int) -> torch.Tens
     kernel[grid](x2d, _basis(width, x2d.device), _basis(height, x2d.device), out,
                  rows, hw, x2d.stride(0), x2d.stride(1), cps, WIDTH=width,
                  BLOCK_R=block_r, BLOCK_P=block_p, FINAL=final, num_warps=warps)
-    launches += 1
+    triton_launches += 1
     if final:
         return out
     # Combine the split partials: rescale each split's sums to the global max.
@@ -223,20 +222,102 @@ def raw_moments_kernel(x2d: torch.Tensor, height: int, width: int) -> torch.Tens
     return t / t[:, :1]
 
 
+# The CUDA row kernel (csrc/dsnt_moments.cu): its dtype codes, threads per
+# block and largest cluster, and the blocks per SM below which the band
+# split starts. At the serving shape (420 heatmaps of 256^2, 132 SMs) one
+# block per heatmap is faster than a split: the per-band reduction and
+# cluster barriers cost more than the balance gains (chip_smoke.py [8] times
+# the splits beside it; PERF.md has the numbers).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+CUDA_THREADS = 256
+MAX_BANDS = 8
+BLOCKS_PER_SM = 2
+
+
+def moment_route(stride_px: int) -> str:
+    """Which kernel takes a (rows, HW) view on the card: a unit pixel stride
+    (row layout, K2's) the CUDA kernel, any other (column layout) Triton."""
+    return "cuda" if stride_px == 1 else "triton"
+
+
+def row_bands(rows: int, height: int, width: int, itemsize: int, n_sm: int) -> int:
+    """Bands of whole image rows per heatmap for the CUDA row kernel (one
+    block, and one member of the heatmap's cluster, each): doubled from 1
+    while the grid has fewer than BLOCKS_PER_SM blocks per SM and each band
+    keeps at least one full step of CUDA_THREADS 16-byte loads. Raises on a
+    width the kernel does not take."""
+    vec = 16 // itemsize
+    if width < vec or width % vec or CUDA_THREADS % (width // vec):
+        raise ValueError(f"dsnt CUDA kernel takes widths w with {vec} | w and "
+                         f"(w / {vec}) | {CUDA_THREADS}, got {width}")
+    bands = 1
+    while (bands < MAX_BANDS and rows * bands < BLOCKS_PER_SM * n_sm
+           and height % (2 * bands) == 0
+           and height // (2 * bands) * (width // vec) >= CUDA_THREADS):
+        bands *= 2
+    return bands
+
+
+@functools.cache
+def _cuda_library():
+    lib = ctypes.CDLL(str(build_cuda_library("dsnt_moments")))
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    lib.cu_dsnt_moments.argtypes = [ptr, num, num, ctypes.c_longlong, num, num, num,
+                                    ptr, ptr, ptr, ptr]
+    lib.cu_dsnt_moments.restype = num
+    return lib
+
+
+def raw_moments_cuda(x2d: torch.Tensor, height: int, width: int,
+                     bands: int | None = None) -> torch.Tensor:
+    """Launch the CUDA row kernel on a CUDA (rows, H*W) view with unit pixel
+    stride and 16-byte aligned rows. `bands` defaults to `row_bands`."""
+    global cuda_launches
+    if x2d.dtype not in DTYPE_CODES:
+        raise TypeError(f"dsnt moment kernel takes bf16/f16/f32, got {x2d.dtype}")
+    if not x2d.is_cuda:
+        raise ValueError(f"dsnt moment kernel takes a CUDA tensor, got {x2d.device}")
+    rows, hw = x2d.shape
+    if hw != height * width:
+        raise ValueError(f"(rows, HW) view has HW={hw}, expected {height}*{width}")
+    vec = 16 // x2d.element_size()
+    if (x2d.stride(1) != 1 or (rows > 1 and x2d.stride(0) % vec)
+            or x2d.data_ptr() % 16):
+        raise ValueError(f"dsnt CUDA kernel takes 16-byte aligned rows with unit pixel "
+                         f"stride, got strides {x2d.stride()}")
+    if bands is None:
+        n_sm = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+        bands = row_bands(rows, height, width, x2d.element_size(), n_sm)
+    out = torch.empty((rows, N_MOM), dtype=torch.float32, device=x2d.device)
+    stream = torch.cuda.current_stream(x2d.device).cuda_stream
+    err = _cuda_library().cu_dsnt_moments(
+        x2d.data_ptr(), DTYPE_CODES[x2d.dtype], rows, x2d.stride(0) if rows > 1 else hw,
+        height, width, bands, _basis(width, x2d.device).data_ptr(),
+        _basis(height, x2d.device).data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dsnt moment kernel launch failed: CUDA error {err}")
+    cuda_launches += 1
+    return out
+
+
 def _raw_moments(x2d: torch.Tensor, height: int, width: int) -> torch.Tensor:
     if x2d.device.type == "cpu":
         return raw_moments_plain(x2d, height, width)
     if x2d.device.type != "cuda":
         raise RuntimeError(f"no DSNT moment kernel for device {x2d.device}")
-    return raw_moments_kernel(x2d, height, width)
+    if moment_route(x2d.stride(1)) == "cuda":
+        return raw_moments_cuda(x2d, height, width)
+    return raw_moments_triton(x2d, height, width)
 
 
 def dsnt_raw_moments(flat_logits: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Row layout (K2's): flat_logits (Rows, H*W) -> (Rows, 8) f32."""
+    """Row layout (K2's): flat_logits (Rows, H*W) -> (Rows, 8) f32. On the
+    card a contiguous view takes the CUDA kernel."""
     return _raw_moments(flat_logits, height, width)
 
 
 def dsnt_raw_moments_cols(flat_t: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Column layout (K1's): flat_t (H*W, N), one heatmap per column ->
-    (N, 8) f32. The kernel reads the transpose view in place."""
+    (N, 8) f32. On the card the Triton kernel reads the transpose view in
+    place."""
     return _raw_moments(flat_t.t(), height, width)

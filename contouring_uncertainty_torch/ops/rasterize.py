@@ -104,3 +104,69 @@ def zigzag_contours(n_contours: int = 64, seed: int = 0) -> np.ndarray:
     ).astype(np.float32)
     pts += rng.normal(scale=6.0, size=pts.shape).astype(np.float32)
     return pts
+
+
+EDGE_CASE_SIZE = 64  # image height and width of `selection_edge_cases`
+
+
+def _comb(n_teeth: int) -> list:
+    """A comb of n_teeth spikes from y = 50.5 up to y = 3.3 over x in
+    [2, 62]: 2 * n_teeth crossings on each row from 4 to 50."""
+    pts = []
+    for i in range(n_teeth):
+        a = 2.0 + i * 60.0 / n_teeth
+        pts += [(a, 50.5), (a + 0.3 * 60.0 / n_teeth, 3.3)]
+    return pts + [(62.0, 50.5), (62.0, 58.5), (2.0, 58.5)]
+
+
+def selection_edge_cases(n_vertices: int = 256) -> dict:
+    """Closed polygons that make the crossing selection hard, on a
+    64 x 64 image: name -> (M, n_vertices, 2) f32 (x, y), each polygon
+    padded to n_vertices by repeating its last vertex (zero-length edges).
+
+    - integer_rows: vertices exactly on integer rows, so that two edges
+      meet on a row (tied crossings), and a monotone pass through a vertex
+      on a row (one crossing);
+    - horizontal: edges lying on a row (integer and half-integer), and an
+      edge whose rise (2e-13) is under the 1e-12 division guard but
+      straddles row 0;
+    - outside: vertices above, below, left and right of the image, edges
+      spanning it, polygons wholly outside, coordinates of 1e6;
+    - many_crossings: combs with 24 and 40 crossings per row (more than the
+      16 kept, and more than a row's bucket in the CUDA kernel holds).
+    """
+    cases = {
+        "integer_rows": [
+            [(32, 4), (56, 32), (32, 60), (8, 32)],
+            [(4, 10), (8, 20), (12, 10), (16, 20), (20, 10), (24, 20), (28, 10),
+             (32, 20), (36, 10), (40, 20), (44, 10), (60, 10), (60, 50), (40, 40),
+             (30, 50), (20, 40), (4, 50)],
+            [(10, 5), (10, 5), (30, 25), (30, 25), (50, 45), (20, 45), (20, 45)],
+            [(5, 5), (25, 15), (45, 25), (45, 40), (25, 30), (5, 20)],
+        ],
+        "horizontal": [
+            [(10, 12), (50, 12), (50, 40), (10, 40)],
+            [(5, 5), (20, 5), (20, 15), (35, 15), (35, 25), (50, 25), (50, 55), (5, 55)],
+            [(8.25, 30.5), (40.75, 30.5), (40.75, 44.5), (30, 44.5), (30, 60), (8.25, 60)],
+            [(5, -1e-13), (40, 1e-13), (40, 20), (5, 20)],
+        ],
+        "outside": [
+            [(-30, -50), (200, 30), (10, 150)],
+            [(10, -40), (50, -40), (30, -5)],
+            [(10, 70), (50, 70), (30, 95.5)],
+            [(-40, 5), (-5, 30), (-40, 55)],
+            [(70, 5), (100, 30), (70, 55)],
+            [(-1e6, -1e6), (1e6, -1e6), (1e6, 1e6), (-1e6, 1e6)],
+            [(-20, 32), (32, -20), (84, 32), (32, 84)],
+        ],
+        "many_crossings": [_comb(12), _comb(20)],
+    }
+    out = {}
+    for name, polys in cases.items():
+        arr = np.empty((len(polys), n_vertices, 2), np.float32)
+        for i, poly in enumerate(polys):
+            p = np.asarray(poly, np.float32)
+            arr[i, :len(p)] = p
+            arr[i, len(p):] = p[-1]
+        out[name] = arr
+    return out

@@ -6,12 +6,16 @@ each image row y it returns the k = 16 smallest crossing abscissae, sorted
 ascending and padded with +inf, keeping the multiplicity of tied values so
 the even-odd fill parity is exact. The CUDA kernel is batched over masks:
 (M, E, 2) -> (M, H, 16); see its source for the design and what bounds it.
+It enumerates each edge's rows and buckets the crossings per row; a row
+with more crossings than its bucket holds takes the row walk over all
+edges. `min_k_crossings_walk` launches that walk for every row (the first
+design of the kernel), for comparison.
 
 `min_k_crossings_plain` is the JAX package's exact path
 (ops/rasterize.py:86-104): the (H, E) candidates with the same operation
 order, then the k smallest by `torch.topk`. The wrapper uses it for CPU
 tensors only; on a CUDA tensor it launches the kernel or raises.
-`launches` counts kernel launches.
+`launches` counts the kernel's launches, `walk_launches` the row walk's.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from contouring_uncertainty_torch.build import build_cuda_library
 K_CROSSINGS = 16  # crossings kept per row: the kernel's compiled kK
 
 launches = 0  # kernel launches since the last reset (plain integer)
+walk_launches = 0  # launches of the all-rows walk (min_k_crossings_walk)
 
 
 def crossing_candidates(dense: torch.Tensor, height: int) -> torch.Tensor:
@@ -55,29 +60,54 @@ def min_k_crossings_plain(dense: torch.Tensor, height: int) -> torch.Tensor:
 @functools.cache
 def _library():
     lib = ctypes.CDLL(str(build_cuda_library("min_k_crossings")))
-    fn = lib.cu_min_k_crossings
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    lib.cu_min_k_crossings.argtypes = [ptr, ptr, num, num, num, ptr, ptr]
+    lib.cu_min_k_crossings_walk.argtypes = [ptr, ptr, num, num, num, ptr]
+    lib.cu_min_k_crossings.restype = lib.cu_min_k_crossings_walk.restype = num
     return lib
 
 
-def min_k_crossings_kernel(dense: torch.Tensor, height: int) -> torch.Tensor:
-    """Launch the CUDA kernel: (M, E, 2) f32 CUDA tensor -> (M, H, 16)."""
-    global launches
+def _checked(dense: torch.Tensor, height: int):
     if not dense.is_cuda:
         raise ValueError(f"crossing-selection kernel takes a CUDA tensor, got {dense.device}")
     if dense.dtype != torch.float32 or dense.dim() != 3 or dense.shape[-1] != 2:
         raise ValueError(f"expected (M, E, 2) float32, got {tuple(dense.shape)} {dense.dtype}")
     dense = dense.contiguous()
-    m, e, _ = dense.shape
-    out = torch.empty((m, height, K_CROSSINGS), dtype=torch.float32, device=dense.device)
-    lib = _library()
-    stream = torch.cuda.current_stream(dense.device).cuda_stream
-    err = lib.cu_min_k_crossings(dense.data_ptr(), out.data_ptr(), m, e, height, stream)
+    out = torch.empty((dense.shape[0], height, K_CROSSINGS), dtype=torch.float32,
+                      device=dense.device)
+    return dense, out, torch.cuda.current_stream(dense.device).cuda_stream
+
+
+def min_k_crossings_kernel(dense: torch.Tensor, height: int,
+                           overflow_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel: (M, E, 2) f32 CUDA tensor -> (M, H, 16).
+    `overflow_rows`, a one-element int32 CUDA tensor, is incremented on the
+    device by the number of rows that took the row walk."""
+    global launches
+    dense, out, stream = _checked(dense, height)
+    counter = None
+    if overflow_rows is not None:
+        if overflow_rows.dtype != torch.int32 or overflow_rows.device != dense.device:
+            raise ValueError("overflow_rows must be an int32 tensor on the input's device")
+        counter = overflow_rows.data_ptr()
+    err = _library().cu_min_k_crossings(dense.data_ptr(), out.data_ptr(), dense.shape[0],
+                                        dense.shape[1], height, counter, stream)
     if err != 0:
         raise RuntimeError(f"min_k_crossings kernel launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+def min_k_crossings_walk(dense: torch.Tensor, height: int) -> torch.Tensor:
+    """Launch the row walk for every row (one thread per row tests all E
+    edges): the same function as the kernel, by its first design."""
+    global walk_launches
+    dense, out, stream = _checked(dense, height)
+    err = _library().cu_min_k_crossings_walk(dense.data_ptr(), out.data_ptr(), dense.shape[0],
+                                             dense.shape[1], height, stream)
+    if err != 0:
+        raise RuntimeError(f"min_k_crossings walk launch failed: CUDA error {err}")
+    walk_launches += 1
     return out
 
 

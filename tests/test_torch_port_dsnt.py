@@ -129,10 +129,10 @@ def test_moment_wrappers_dispatch_cpu_tensors_to_the_plain_version():
     input is accumulated in f64 (the reference chip_smoke holds the kernel
     against)."""
     x = torch.as_tensor(_heatmaps("random", (5,), 32, seed=4).reshape(5, -1))
-    before = dsnt_kernel.launches
+    before = (dsnt_kernel.cuda_launches, dsnt_kernel.triton_launches)
     rows = dsnt_kernel.dsnt_raw_moments(x, 32, 32)
     cols = dsnt_kernel.dsnt_raw_moments_cols(x.t(), 32, 32)
-    assert dsnt_kernel.launches == before
+    assert (dsnt_kernel.cuda_launches, dsnt_kernel.triton_launches) == before
     torch.testing.assert_close(rows, cols, rtol=0, atol=0)
     f64 = dsnt_kernel.raw_moments_plain(x.double(), 32, 32)
     assert f64.dtype == torch.float64
@@ -156,3 +156,43 @@ def test_moment_kernel_launch_config(rows, stride_px, expect_split):
     assert (splits - 1) * cps < n_chunks <= splits * cps
     if expect_split:
         assert -(-rows // block_r) * splits >= 132
+
+
+def test_moment_route_by_layout():
+    """On the card a unit pixel stride (row layout, contiguous NCHW heads)
+    goes to the CUDA kernel and any other stride (the column layout's
+    transpose view) to the Triton kernel."""
+    x = torch.zeros(420, 256 * 256)
+    assert dsnt_kernel.moment_route(x.stride(1)) == "cuda"
+    assert dsnt_kernel.moment_route(x.t().contiguous().t().stride(1)) == "triton"
+    assert dsnt_kernel.moment_route(torch.zeros(256 * 256, 1).t().stride(1)) == "cuda"
+
+
+@pytest.mark.parametrize("rows,size,itemsize,bands", [
+    (420, 256, 2, 1),  # serving view, bf16: one block per heatmap
+    (420, 256, 4, 1),  # the same in f32
+    (100, 256, 2, 4),  # split until two blocks per SM
+    (21, 256, 2, 8),   # one frame's heatmaps: up to the cluster limit
+    (42, 64, 2, 2),    # 64^2 bf16: one step of 256 loads covers 32 rows
+    (42, 64, 4, 4),    # 64^2 f32: 16 rows per step
+])
+def test_cuda_moment_kernel_bands(rows, size, itemsize, bands):
+    """The CUDA row kernel's band split: a power of two up to the cluster
+    limit, dividing the image rows, each band at least one full step of 256
+    16-byte loads, and doubled only while the grid is under BLOCKS_PER_SM
+    blocks per SM (132 SMs)."""
+    got = dsnt_kernel.row_bands(rows, size, size, itemsize, 132)
+    assert got == bands
+    vec = 16 // itemsize
+    assert got <= dsnt_kernel.MAX_BANDS and size % got == 0
+    assert size // got * (size // vec) >= dsnt_kernel.CUDA_THREADS
+    if got > 1:
+        assert rows * got // 2 < dsnt_kernel.BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("width,itemsize", [(60, 2), (6, 4), (4, 2), (4096, 4)])
+def test_cuda_moment_kernel_refuses_widths_it_does_not_take(width, itemsize):
+    """A width that does not split into 16-byte loads, or whose loads per
+    image row do not divide the block, raises (no other kernel takes it)."""
+    with pytest.raises(ValueError, match="dsnt CUDA kernel takes widths"):
+        dsnt_kernel.row_bands(10, 64, width, itemsize, 132)

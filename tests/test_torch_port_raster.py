@@ -108,6 +108,45 @@ def test_selection_plain_matches_jax_pallas_kernel_interpret(dense_jax):
         select_kernel.min_k_crossings(torch.as_tensor(dense_jax.copy()).to("meta"), 256)
 
 
+@pytest.mark.parametrize("case", ["integer_rows", "horizontal", "outside", "many_crossings"])
+def test_selection_plain_matches_jax_pallas_kernel_on_edge_cases(case):
+    """The inputs that make the CUDA kernel's edge enumeration hard (the
+    same ones chip_smoke.py holds the kernel to on the card), at H = 64 and
+    E = 256: the plain version against the JAX Pallas kernel in interpret
+    mode, the same crossings in the same slots, each within the one rounding
+    of the FMA of the test above: one ulp of the product tt * (x1 - x0),
+    taken as the ulp of the polygon's largest |x| (crossings near x = 0
+    cancel, so a bound in ulps of the result would not hold); and the
+    even-odd fills pixel-exact against the JAX exact path run op by op. Under `jit` XLA fuses the crossing's
+    multiply-add, and on these integer vertices a crossing at exactly
+    x = 7.0 comes out one ulp above it and flips pixel 7; op by op, JAX
+    rounds the product and the sum separately, as the port does."""
+    size = tr.EDGE_CASE_SIZE
+    dense = tr.selection_edge_cases()[case]
+    assert dense.shape[1:] == (256, 2)
+    sel = jax.jit(jax.vmap(lambda p: j_min_k(p, size, 16, interpret=True)))
+    ref = np.asarray(sel(jnp.asarray(dense)))
+    got = select_kernel.min_k_crossings(torch.as_tensor(dense), size).numpy()
+    assert got.shape == ref.shape == (len(dense), size, 16)
+    finite = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(got), finite)
+    ulp = np.broadcast_to(np.spacing(np.abs(dense[..., 0]).max(axis=1))[:, None, None], got.shape)
+    assert (np.abs(got[finite] - ref[finite]) <= ulp[finite]).all()
+    assert finite.sum() > 0
+    per_row = np.isfinite(select_kernel.crossing_candidates(torch.as_tensor(dense), size)
+                          .numpy()).sum(-1)
+    ties = ((got[..., 1:] == got[..., :-1]) & np.isfinite(got[..., 1:])).sum()
+    if case == "integer_rows":
+        assert ties > 0
+    if case == "many_crossings":
+        assert (per_row > 32).any() and (per_row[per_row > 0] <= 32).any()
+        np.testing.assert_array_equal(finite.sum(-1), np.minimum(per_row, 16))
+    fill = jax.vmap(lambda d: jr.polygon_fill(d, size, size, True, exact_topk=True))
+    np.testing.assert_array_equal(
+        tr.polygon_fill(torch.as_tensor(dense), size, size).numpy(),
+        np.asarray(fill(jnp.asarray(dense))))
+
+
 @pytest.mark.parametrize("include_boundary", [True, False])
 def test_polygon_fill_pixel_exact_vs_jax(dense_jax, include_boundary):
     """polygon_fill on the same dense polygons: 0 mismatched pixels against
