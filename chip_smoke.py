@@ -18,15 +18,17 @@ result line):
    contouring_uncertainty_torch/_build/;
 3. DSNT moment kernels against their plain version in f64: the CUDA row
    kernel (K2) and the Triton column kernel (K1), random and sharp
-   off-centre blob heatmaps, bf16 and f32, at 256^2 and 64^2, and the row
-   kernel's band split (a few heatmaps, one cluster each): mu <= 1e-4 px,
-   sigma relative error <= 1e-3;
+   off-centre blob heatmaps, bf16, f16 and f32, at 256^2 and 64^2, and the
+   row kernel's band split (a few heatmaps, one cluster each): mu <= 1e-4
+   px, sigma relative error <= 1e-3;
 4. crossing-selection kernel (CUDA, K3) against its plain version on the
    zigzag contours of the JAX package's parity check and on the edge cases
    of ops/rasterize.py `selection_edge_cases` (tied crossings, horizontal
    edges, vertices outside the image, rows with more crossings than a
    bucket holds): bitwise-equal crossings, 0 mismatched fill pixels; the
-   rows that took the overflow path are counted and must not be 0;
+   rows that took the overflow path are counted and must not be 0; on
+   polygons with NaN and infinite vertices, equal to the plain selection
+   with NaN candidates dropped (the one place where the two differ);
 5. the main path: `run_predict` on synthetic CAMUS-like views with the
    flagship TMI serving configuration (8-stage UNet at full width, bf16,
    MC dropout T_e=10 x PSM T_a=25, 256^2, K=21) and seed-initialised
@@ -37,7 +39,8 @@ result line):
 7. the GPU path against the CPU path (plain versions) on a small input;
 8. kernel timings beside their bounds, each redesigned kernel beside its
    first design on the same inputs in the same run (K2 against the Triton
-   row tile, K3 against the row walk); the kernels JSON line (K1, K2, K3),
+   row tile, K3 against the row walk); K2's band splits at the row counts
+   of T_e=1, 5 and 10; the kernels JSON line (K1, K2, K3),
    the card line and the final {"ok": true, ...} line.
 
 It imports nothing of JAX or of the JAX package.
@@ -120,7 +123,7 @@ def check_dsnt(size: int, n: int = 420) -> dict:
 
     worst = {"mu_px": 0.0, "sigma_rel": 0.0}
     for name, x in dsnt_inputs(n, size, np.random.default_rng(7)).items():
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             xt = torch.as_tensor(x, device="cuda").to(dtype)
             ref = dsnt_kernel.raw_moments_plain(xt.double(), size, size)
             mu_r, sig_r = raw6_to_pixel_gaussians(ref[:, :6], size, size)
@@ -177,6 +180,36 @@ def check_selection(dense, height: int, width: int, label: str) -> int:
     if unequal or mismatch:
         raise AssertionError(f"crossing selection differs from its plain version ({label})")
     return n_overflow
+
+
+def check_non_finite() -> None:
+    """K3 drops a NaN abscissa, where the plain version keeps it (torch.topk
+    ranks NaN first). On polygons with a NaN or infinite vertex coordinate
+    the kernel must equal the plain selection over the candidates with NaN
+    set to +inf, bitwise."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import select_kernel
+
+    height = 16
+    angle = np.linspace(0.0, 2.0 * np.pi, 32, endpoint=False)
+    circle = np.stack([8.0 + 5.5 * np.cos(angle), 8.0 + 5.5 * np.sin(angle)], -1)
+    polys = np.repeat(circle[None].astype(np.float32), 4, axis=0)
+    polys[0, 3, 1] = np.nan
+    polys[1, 9, 0] = np.nan
+    polys[2, 20, 1] = np.inf
+    polys[3, 27, 0] = -np.inf
+    dense = torch.as_tensor(polys, device="cuda")
+    cand = select_kernel.crossing_candidates(dense, height)
+    ref = -torch.topk(-torch.where(cand.isnan(), float("inf"), cand),
+                      select_kernel.K_CROSSINGS, dim=-1).values
+    got = select_kernel.min_k_crossings_kernel(dense, height)
+    plain_nan = int(select_kernel.min_k_crossings_plain(dense, height).isnan().any(-1).sum())
+    unequal = int((got != ref).sum().item())
+    print(f"  selection non-finite vertices: crossings differing from the NaN-dropping "
+          f"selection {unequal}; rows where the plain version keeps NaN {plain_nan}")
+    if unequal:
+        raise AssertionError("crossing selection on non-finite vertices differs")
 
 
 def main_path(profile_dir=None) -> dict:
@@ -373,10 +406,18 @@ def kernel_timings(main: dict) -> list:
     k1_ms = cuda_ms(lambda: dsnt_kernel.dsnt_raw_moments_cols(cols_in, size, size))
     d_plain = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows_in, size, size))
     d_plain_cols = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(cols_in.t(), size, size))
-    band_ms = {b: cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(rows_in, size, size, bands=b))
-               for b in (1, 2, 4, 8)}
-    print(f"    K2 band splits (ms): {band_ms}; default "
-          f"{dsnt_kernel.row_bands(rows, size, size, rows_in.element_size(), n_sm())}")
+    # K2's band split at the heatmap counts of the task's configurations:
+    # T_e=1 (its default, deterministic) at N=1 and N=2 frames, T_e=5 and the
+    # main path's T_e=10 at N=2; each split against one block per heatmap.
+    band_ms = {}
+    for r in (c["k"], 2 * c["k"], 10 * c["k"], rows):
+        part = rows_in[:r]
+        chosen = dsnt_kernel.row_bands(r, size, size, part.element_size(), n_sm())
+        times = {b: cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(part, size, size, bands=b))
+                 for b in (1, 2, 4, 8)}
+        band_ms[r] = {"chosen": chosen, "ms": times}
+        print(f"    K2 at {r} heatmaps, ms by bands: "
+              f"{', '.join(f'{b}: {t:.4f}' for b, t in times.items())}; row_bands {chosen}")
     d_bytes = rows * hw * rows_in.element_size() + rows * 8 * 4
     # max, subtract, exp, 8 multiplies and 8 adds per pixel
     d_ops = rows * hw * 19
@@ -425,7 +466,7 @@ def kernel_timings(main: dict) -> list:
          "shape": [rows, hw], "dtype": str(rows_in.dtype),
          "max_abs_err": (raw_k2.double() - raw_ref).abs().max().item(),
          "ms": k2_ms, "first_design_ms": k2_first,
-         "first_design": "Triton row tile (2 x 1024 px)",
+         "first_design": "Triton row tile (2 x 1024 px)", "bands_ms": band_ms,
          "plain_ms": d_plain, **bound(d_bound), "library_ms": None},
         {"name": "K3 min_k_crossings (exact min-16 scanline crossing selection)",
          "route": "cuda", "source": "contouring_uncertainty_torch/csrc/min_k_crossings.cu",
@@ -493,6 +534,7 @@ def main(argv) -> int:
     print(f"    rows on the overflow path over the edge cases: {n_overflow}")
     if n_overflow == 0:
         raise AssertionError("no edge case exercised the selection's overflow path")
+    check_non_finite()
 
     profile_dir = Path("chiprun_out") if "--profile" in argv else None
     print("[5] main path: run_predict, flagship TMI serving configuration")

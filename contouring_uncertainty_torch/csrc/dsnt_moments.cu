@@ -32,12 +32,14 @@
 //   and so resident blocks.
 // - Balance over 132 SMs. With enough heatmaps (420 on the serving path)
 //   there is one block per heatmap and all of them are resident at once,
-//   sharing the memory bandwidth. With few heatmaps each is split into
-//   `bands` bands of whole image rows, one block each. The bands of one
-//   heatmap form one thread-block cluster: each block leaves its partial
-//   (max, 8 sums) in its shared memory and the cluster's first block
-//   combines them through distributed shared memory. One launch, no
-//   partials in device memory, no second kernel.
+//   sharing the memory bandwidth. With fewer heatmaps than SMs each is
+//   split into `bands` bands of whole image rows, one block each. The
+//   bands of one heatmap form one thread-block cluster: each block leaves
+//   its partial (max, 8 sums) in its shared memory and the cluster's first
+//   block combines them through distributed shared memory. One launch, no
+//   partials in device memory, no second kernel. Only below one block per
+//   SM does the split pay (1.5-1.8x at 21 and 42 heatmaps of 256^2); at
+//   210 and 420 it is slower (PERF.md, chip_smoke.py [8]).
 //
 // The basis values are the JAX kernel's f32 values, read from two small
 // tables (xs: W values, ys: H values). The exponential is ex2.approx on

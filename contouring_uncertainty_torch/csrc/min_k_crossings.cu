@@ -49,7 +49,11 @@
 //
 // A crossing whose abscissa is NaN or +inf is no crossing: it never enters
 // the list, whose padding is +inf (an edge with a NaN end point straddles no
-// row in the enumeration, and gives a NaN abscissa in the walk).
+// row in the enumeration, and gives a NaN abscissa in the walk). Here alone
+// the kernel and its plain version differ: the plain version keeps a NaN
+// candidate, which torch.topk ranks first. On such input the kernel equals
+// the plain selection over the candidates with NaN set to +inf
+// (chip_smoke.py [4] checks it); the serving path's splines are finite.
 //
 // Bitwise parity with the plain PyTorch version (ops/select_kernel.py): the
 // library is built with --fmad=false and IEEE division (no --use_fast_math),

@@ -223,15 +223,14 @@ def raw_moments_triton(x2d: torch.Tensor, height: int, width: int) -> torch.Tens
 
 
 # The CUDA row kernel (csrc/dsnt_moments.cu): its dtype codes, threads per
-# block and largest cluster, and the blocks per SM below which the band
-# split starts. At the serving shape (420 heatmaps of 256^2, 132 SMs) one
-# block per heatmap is faster than a split: the per-band reduction and
-# cluster barriers cost more than the balance gains (chip_smoke.py [8] times
-# the splits beside it; PERF.md has the numbers).
+# block and largest cluster. The band split pays only while there are fewer
+# heatmaps than SMs: at 21 and 42 heatmaps of 256^2 (T_e=1) it is 1.5-1.8x
+# faster than one block per heatmap, at 210 (T_e=5) and 420 (T_e=10) it is
+# slower (chip_smoke.py [8] times every split at these counts; PERF.md has
+# the numbers).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 CUDA_THREADS = 256
 MAX_BANDS = 8
-BLOCKS_PER_SM = 2
 
 
 def moment_route(stride_px: int) -> str:
@@ -243,15 +242,15 @@ def moment_route(stride_px: int) -> str:
 def row_bands(rows: int, height: int, width: int, itemsize: int, n_sm: int) -> int:
     """Bands of whole image rows per heatmap for the CUDA row kernel (one
     block, and one member of the heatmap's cluster, each): doubled from 1
-    while the grid has fewer than BLOCKS_PER_SM blocks per SM and each band
-    keeps at least one full step of CUDA_THREADS 16-byte loads. Raises on a
+    while the grid has fewer blocks than SMs and each band keeps at least
+    one full step of CUDA_THREADS 16-byte loads. Raises on a
     width the kernel does not take."""
     vec = 16 // itemsize
     if width < vec or width % vec or CUDA_THREADS % (width // vec):
         raise ValueError(f"dsnt CUDA kernel takes widths w with {vec} | w and "
                          f"(w / {vec}) | {CUDA_THREADS}, got {width}")
     bands = 1
-    while (bands < MAX_BANDS and rows * bands < BLOCKS_PER_SM * n_sm
+    while (bands < MAX_BANDS and rows * bands < n_sm
            and height % (2 * bands) == 0
            and height // (2 * bands) * (width // vec) >= CUDA_THREADS):
         bands *= 2

@@ -14,7 +14,10 @@ design of the kernel), for comparison.
 `min_k_crossings_plain` is the JAX package's exact path
 (ops/rasterize.py:86-104): the (H, E) candidates with the same operation
 order, then the k smallest by `torch.topk`. The wrapper uses it for CPU
-tensors only; on a CUDA tensor it launches the kernel or raises.
+tensors only; on a CUDA tensor it launches the kernel or raises. The two
+agree bitwise on finite vertices. A NaN candidate (from a NaN or infinite
+vertex coordinate) is kept by the plain version, where `torch.topk` ranks
+it first, and dropped by the kernel.
 `launches` counts the kernel's launches, `walk_launches` the row walk's.
 """
 
