@@ -42,7 +42,7 @@
 //   half a sector per lane.
 // - A row with more than kCap crossings cannot be held in its bucket; it
 //   takes the exact row walk over all E edges (the first design of this
-//   kernel, exported whole as cu_min_k_crossings_walk for comparison).
+//   kernel, which walked every row; PERF.md keeps the two designs' times).
 // - Shared memory is 44 KB at E = 1024 and H = 256 (vertices 8 KB,
 //   buckets 32 KB, counts and the long-edge list), so that five blocks are
 //   resident per SM and all 500 masks of a view run in one wave.
@@ -102,7 +102,7 @@ __device__ __forceinline__ float4 edge_at(const float2* __restrict__ poly, int e
   return make_float4(p0.y, p1.y, p0.x, p1.x);
 }
 
-// The row walk: every edge tested against row yf.
+// The row walk: every edge tested against row yf (an overflowing row).
 template <typename Edges>
 __device__ __forceinline__ void walk_row(Edges edges, int E, float yf, float (&v)[kK]) {
   for (int e = 0; e < E; ++e) {
@@ -144,14 +144,6 @@ __device__ __forceinline__ void add_crossing(float4 ed, int y, int* count, float
 // float4 j of eight consecutive rows hit eight distinct bank groups.
 __device__ __forceinline__ int tile_at(int r, int j) {
   return r * (kK / 4) + (j ^ ((r >> 1) & 3));
-}
-
-__device__ __forceinline__ void store_row(float* out, int H, int y, const float (&v)[kK]) {
-  float4* o = reinterpret_cast<float4*>(out + (static_cast<size_t>(blockIdx.x) * H + y) * kK);
-#pragma unroll
-  for (int j = 0; j < kK / 4; ++j) {
-    o[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads) min_k_crossings_kernel(
@@ -228,24 +220,6 @@ __global__ void __launch_bounds__(kThreads) min_k_crossings_kernel(
   }
 }
 
-// The row walk over every row (the first design): the block stages the
-// mask's edges in shared memory as float4 (y0, y1, x0, x1); one thread per
-// row tests all E edges.
-__global__ void __launch_bounds__(kThreads) min_k_crossings_walk_kernel(
-    const float* __restrict__ dense, float* __restrict__ out, int E, int H) {
-  extern __shared__ float4 edges[];
-  const float2* poly = reinterpret_cast<const float2*>(dense) + static_cast<size_t>(blockIdx.x) * E;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) edges[e] = edge_at(poly, e, E);
-  __syncthreads();
-  for (int y = threadIdx.x; y < H; y += blockDim.x) {
-    float v[kK];
-#pragma unroll
-    for (int j = 0; j < kK; ++j) v[j] = INFINITY;
-    walk_row([&](int e) { return edges[e]; }, E, static_cast<float>(y), v);
-    store_row(out, H, y, v);
-  }
-}
-
 // Dynamic shared memory above 48 KB, and the largest shared-memory carveout
 // of the SM's 256 KB, so that as many blocks are resident as the shared
 // memory allows.
@@ -276,18 +250,5 @@ extern "C" int cu_min_k_crossings(const float* dense, float* out, int M, int E,
   if (err != 0) return err;
   min_k_crossings_kernel<<<M, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       dense, out, E, H, overflow_rows);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The row walk for every row (the first design), same arguments.
-extern "C" int cu_min_k_crossings_walk(const float* dense, float* out, int M, int E,
-                                       int H, void* stream) {
-  if (M == 0 || H == 0) return 0;
-  const size_t smem = static_cast<size_t>(E) * sizeof(float4);
-  const int err = set_smem(min_k_crossings_walk_kernel, smem);
-  if (err != 0) return err;
-  const int threads = H < kThreads ? ((H + 31) / 32) * 32 : kThreads;
-  min_k_crossings_walk_kernel<<<M, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      dense, out, E, H);
   return static_cast<int>(cudaGetLastError());
 }

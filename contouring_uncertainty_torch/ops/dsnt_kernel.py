@@ -40,6 +40,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -48,7 +50,8 @@ from contouring_uncertainty_torch.ops.coords import normalized_linspace
 
 N_MOM = 8  # [1, x, y, x^2, y^2, xy, x^3, y^3]
 
-cuda_launches = 0  # CUDA row kernel launches since the last reset (plain integer)
+row_launches = 0  # K2 launches since the last reset (plain integer)
+col_launches = 0  # K1 launches since the last reset
 triton_launches = 0  # Triton kernel launches since the last reset
 
 
@@ -222,29 +225,50 @@ def raw_moments_triton(x2d: torch.Tensor, height: int, width: int) -> torch.Tens
     return t / t[:, :1]
 
 
-# The CUDA row kernel (csrc/dsnt_moments.cu): its dtype codes, threads per
+# K2, the row kernel of csrc/dsnt_moments.cu: its dtype codes, threads per
 # block and largest cluster. The band split pays only while there are fewer
 # heatmaps than SMs: at 21 and 42 heatmaps of 256^2 (T_e=1) it is 1.5-1.8x
 # faster than one block per heatmap, at 210 (T_e=5) and 420 (T_e=10) it is
-# slower (chip_smoke.py [8] times every split at these counts; PERF.md has
-# the numbers).
+# slower (PERF.md has the numbers).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 CUDA_THREADS = 256
 MAX_BANDS = 8
 
+# K1, the column kernel of csrc/dsnt_moments.cu: threads per block (its
+# kColsMaxThreads) and columns per thread (kColsMaxCols) at most; threads
+# per block aimed at; vectors of a pixel row one block takes at most (more
+# are split into column tiles); blocks per SM aimed at by the band split
+# (one block per SM measured as fast as two, with half the partials:
+# PERF.md).
+COLS_MAX_THREADS = 448
+COLS_MAX_COLS = 4
+COLS_THREADS = 448
+COLS_MAX_TILE = 256
+COLS_BLOCKS_PER_SM = 1
+# Bytes a thread loads per run of pixels (kColsLoadBytes), in at most
+# COLS_MAX_RUN pixels (kColsMaxRun).
+COLS_LOAD_BYTES = 64
+COLS_MAX_RUN = 16
 
-def moment_route(stride_px: int) -> str:
-    """Which kernel takes a (rows, HW) view on the card: a unit pixel stride
-    (row layout, K2's) the CUDA kernel, any other (column layout) Triton."""
-    return "cuda" if stride_px == 1 else "triton"
+
+def moment_route(x2d: torch.Tensor) -> str:
+    """Which kernel takes a (rows, HW) view on the card: "rows" (K2) for a
+    unit pixel stride, "cols" (K1) for a unit heatmap stride (the transpose
+    of an (HW, N) tensor). Any other layout raises: no kernel takes it."""
+    rows, hw = x2d.shape
+    if x2d.stride(1) == 1 or hw == 1:
+        return "rows"
+    if x2d.stride(0) == 1 or rows == 1:
+        return "cols"
+    raise ValueError(f"no DSNT moment kernel takes a (rows, HW) view with strides "
+                     f"{x2d.stride()}: one of them must be 1")
 
 
 def row_bands(rows: int, height: int, width: int, itemsize: int, n_sm: int) -> int:
-    """Bands of whole image rows per heatmap for the CUDA row kernel (one
-    block, and one member of the heatmap's cluster, each): doubled from 1
-    while the grid has fewer blocks than SMs and each band keeps at least
-    one full step of CUDA_THREADS 16-byte loads. Raises on a
-    width the kernel does not take."""
+    """Bands of whole image rows per heatmap for K2 (one block, and one
+    member of the heatmap's cluster, each): doubled from 1 while the grid
+    has fewer blocks than SMs and each band keeps at least one full step of
+    CUDA_THREADS 16-byte loads. Raises on a width the kernel does not take."""
     vec = 16 // itemsize
     if width < vec or width % vec or CUDA_THREADS % (width // vec):
         raise ValueError(f"dsnt CUDA kernel takes widths w with {vec} | w and "
@@ -257,28 +281,88 @@ def row_bands(rows: int, height: int, width: int, itemsize: int, n_sm: int) -> i
     return bands
 
 
+class ColsLayout(NamedTuple):
+    """K1's launch: vector bytes per thread, vectors per pixel row, column
+    tiles of `tile_vecs` vectors (grid y), pixel lanes per vector (a power
+    of two up to 32; block = tile_vecs x lanes threads, lanes fastest,
+    rounded up to whole warps), pixels per run of a lane (one image row:
+    step i of lane j is pixels i*lanes*run + j*run .. + run - 1 of the band)
+    and bands of whole image rows (grid x; band b holds rows b*H//bands ..
+    (b+1)*H//bands - 1)."""
+
+    vec_bytes: int
+    n_vec: int
+    tile_vecs: int
+    tiles: int
+    lanes: int
+    run: int
+    bands: int
+
+
+def cols_layout(hw: int, n: int, height: int, width: int, itemsize: int,
+                strides: tuple, address: int, n_sm: int,
+                bands: int | None = None, lanes: int | None = None) -> ColsLayout:
+    """K1's launch for an (HW, N) tensor with these strides at this byte
+    address. The vector is the largest of 16, 8, 4 and 2 bytes that divides
+    the address, N and the row stride in bytes, and holds at most
+    COLS_MAX_COLS columns. A run is COLS_LOAD_BYTES of vectors (at most
+    COLS_MAX_RUN pixels) where it divides the width, else one pixel.
+    `lanes` defaults to the most that keep a block within COLS_THREADS
+    threads, `bands` to COLS_BLOCKS_PER_SM blocks per SM. Raises on a
+    layout the kernel does not take."""
+    row_stride, col_stride = strides
+    ld = row_stride if hw > 1 else n
+    if (col_stride != 1 and n > 1) or ld < n:
+        raise ValueError(f"dsnt column kernel takes (HW, N) views with unit column stride "
+                         f"and row stride >= N, got shape ({hw}, {n}), strides {strides}")
+    if hw != height * width:
+        raise ValueError(f"(HW, N) view has HW={hw}, expected {height}*{width}")
+    g = math.gcd(address, n * itemsize, ld * itemsize)
+    vec_bytes = min(g & -g, 16, COLS_MAX_COLS * itemsize)
+    n_vec = n * itemsize // vec_bytes
+    tiles = -(-n_vec // COLS_MAX_TILE)
+    tile_vecs = -(-n_vec // tiles)
+    run = min(COLS_LOAD_BYTES // vec_bytes, COLS_MAX_RUN)
+    if width % run:
+        run = 1
+    if lanes is None:
+        lanes = 1 << min(5, max(0, (COLS_THREADS // tile_vecs).bit_length() - 1))
+    if bands is None:
+        bands = min(height, -(-COLS_BLOCKS_PER_SM * n_sm // tiles))
+    if not (lanes in (1, 2, 4, 8, 16, 32) and -(-tile_vecs * lanes // 32) * 32 <= COLS_MAX_THREADS
+            and 1 <= bands <= height):
+        raise ValueError(f"dsnt column kernel: {lanes} lanes x {tile_vecs} vectors, "
+                         f"{bands} bands out of range for {height}x{width}")
+    return ColsLayout(vec_bytes, n_vec, tile_vecs, tiles, lanes, run, bands)
+
+
 @functools.cache
 def _cuda_library():
     lib = ctypes.CDLL(str(build_cuda_library("dsnt_moments")))
-    ptr, num = ctypes.c_void_p, ctypes.c_int
-    lib.cu_dsnt_moments.argtypes = [ptr, num, num, ctypes.c_longlong, num, num, num,
-                                    ptr, ptr, ptr, ptr]
-    lib.cu_dsnt_moments.restype = num
+    ptr, num, big = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.cu_dsnt_moments.argtypes = [ptr, num, num, big, num, num, num, ptr, ptr, ptr, ptr]
+    lib.cu_dsnt_moments_cols.argtypes = [ptr, num, num, num, big, num, num, num, num, num, num,
+                                         num, ptr, ptr, ptr, ptr, ptr]
+    lib.cu_dsnt_moments.restype = lib.cu_dsnt_moments_cols.restype = num
     return lib
+
+
+def _check_input(x: torch.Tensor, height: int, width: int, hw: int) -> None:
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"dsnt moment kernel takes bf16/f16/f32, got {x.dtype}")
+    if not x.is_cuda:
+        raise ValueError(f"dsnt moment kernel takes a CUDA tensor, got {x.device}")
+    if hw != height * width:
+        raise ValueError(f"view has HW={hw}, expected {height}*{width}")
 
 
 def raw_moments_cuda(x2d: torch.Tensor, height: int, width: int,
                      bands: int | None = None) -> torch.Tensor:
-    """Launch the CUDA row kernel on a CUDA (rows, H*W) view with unit pixel
-    stride and 16-byte aligned rows. `bands` defaults to `row_bands`."""
-    global cuda_launches
-    if x2d.dtype not in DTYPE_CODES:
-        raise TypeError(f"dsnt moment kernel takes bf16/f16/f32, got {x2d.dtype}")
-    if not x2d.is_cuda:
-        raise ValueError(f"dsnt moment kernel takes a CUDA tensor, got {x2d.device}")
+    """Launch K2 on a CUDA (rows, H*W) view with unit pixel stride and
+    16-byte aligned rows. `bands` defaults to `row_bands`."""
+    global row_launches
     rows, hw = x2d.shape
-    if hw != height * width:
-        raise ValueError(f"(rows, HW) view has HW={hw}, expected {height}*{width}")
+    _check_input(x2d, height, width, hw)
     vec = 16 // x2d.element_size()
     if (x2d.stride(1) != 1 or (rows > 1 and x2d.stride(0) % vec)
             or x2d.data_ptr() % 16):
@@ -295,7 +379,35 @@ def raw_moments_cuda(x2d: torch.Tensor, height: int, width: int,
         _basis(height, x2d.device).data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dsnt moment kernel launch failed: CUDA error {err}")
-    cuda_launches += 1
+    row_launches += 1
+    return out
+
+
+def raw_moments_cols_cuda(flat_t: torch.Tensor, height: int, width: int,
+                          bands: int | None = None, lanes: int | None = None) -> torch.Tensor:
+    """Launch K1 on a CUDA (H*W, N) tensor with unit column stride (any row
+    stride >= N): (N, 8) f32. `bands` and `lanes` default to `cols_layout`'s."""
+    global col_launches
+    hw, n = flat_t.shape
+    _check_input(flat_t, height, width, hw)
+    out = torch.empty((n, N_MOM), dtype=torch.float32, device=flat_t.device)
+    if n == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(flat_t.device).multi_processor_count
+    lay = cols_layout(hw, n, height, width, flat_t.element_size(), flat_t.stride(),
+                      flat_t.data_ptr(), n_sm, bands, lanes)
+    part = (torch.empty((lay.bands, N_MOM + 1, n), dtype=torch.float32, device=flat_t.device)
+            if lay.bands > 1 else None)
+    stream = torch.cuda.current_stream(flat_t.device).cuda_stream
+    err = _cuda_library().cu_dsnt_moments_cols(
+        flat_t.data_ptr(), DTYPE_CODES[flat_t.dtype], hw, n,
+        flat_t.stride(0) if hw > 1 else n, height, width, lay.vec_bytes, lay.tile_vecs,
+        lay.lanes, lay.run, lay.bands, _basis(width, flat_t.device).data_ptr(),
+        _basis(height, flat_t.device).data_ptr(),
+        None if part is None else part.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"dsnt column moment kernel launch failed: CUDA error {err}")
+    col_launches += 1
     return out
 
 
@@ -304,19 +416,17 @@ def _raw_moments(x2d: torch.Tensor, height: int, width: int) -> torch.Tensor:
         return raw_moments_plain(x2d, height, width)
     if x2d.device.type != "cuda":
         raise RuntimeError(f"no DSNT moment kernel for device {x2d.device}")
-    if moment_route(x2d.stride(1)) == "cuda":
+    if moment_route(x2d) == "rows":
         return raw_moments_cuda(x2d, height, width)
-    return raw_moments_triton(x2d, height, width)
+    return raw_moments_cols_cuda(x2d.t(), height, width)
 
 
 def dsnt_raw_moments(flat_logits: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Row layout (K2's): flat_logits (Rows, H*W) -> (Rows, 8) f32. On the
-    card a contiguous view takes the CUDA kernel."""
+    """Row layout (K2's): flat_logits (Rows, H*W) -> (Rows, 8) f32."""
     return _raw_moments(flat_logits, height, width)
 
 
 def dsnt_raw_moments_cols(flat_t: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Column layout (K1's): flat_t (H*W, N), one heatmap per column ->
-    (N, 8) f32. On the card the Triton kernel reads the transpose view in
-    place."""
+    (N, 8) f32."""
     return _raw_moments(flat_t.t(), height, width)

@@ -8,8 +8,7 @@ the even-odd fill parity is exact. The CUDA kernel is batched over masks:
 (M, E, 2) -> (M, H, 16); see its source for the design and what bounds it.
 It enumerates each edge's rows and buckets the crossings per row; a row
 with more crossings than its bucket holds takes the row walk over all
-edges. `min_k_crossings_walk` launches that walk for every row (the first
-design of the kernel), for comparison.
+edges.
 
 `min_k_crossings_plain` is the JAX package's exact path
 (ops/rasterize.py:86-104): the (H, E) candidates with the same operation
@@ -18,7 +17,7 @@ tensors only; on a CUDA tensor it launches the kernel or raises. The two
 agree bitwise on finite vertices. A NaN candidate (from a NaN or infinite
 vertex coordinate) is kept by the plain version, where `torch.topk` ranks
 it first, and dropped by the kernel.
-`launches` counts the kernel's launches, `walk_launches` the row walk's.
+`launches` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ from contouring_uncertainty_torch.build import build_cuda_library
 K_CROSSINGS = 16  # crossings kept per row: the kernel's compiled kK
 
 launches = 0  # kernel launches since the last reset (plain integer)
-walk_launches = 0  # launches of the all-rows walk (min_k_crossings_walk)
 
 
 def crossing_candidates(dense: torch.Tensor, height: int) -> torch.Tensor:
@@ -65,8 +63,7 @@ def _library():
     lib = ctypes.CDLL(str(build_cuda_library("min_k_crossings")))
     ptr, num = ctypes.c_void_p, ctypes.c_int
     lib.cu_min_k_crossings.argtypes = [ptr, ptr, num, num, num, ptr, ptr]
-    lib.cu_min_k_crossings_walk.argtypes = [ptr, ptr, num, num, num, ptr]
-    lib.cu_min_k_crossings.restype = lib.cu_min_k_crossings_walk.restype = num
+    lib.cu_min_k_crossings.restype = num
     return lib
 
 
@@ -98,19 +95,6 @@ def min_k_crossings_kernel(dense: torch.Tensor, height: int,
     if err != 0:
         raise RuntimeError(f"min_k_crossings kernel launch failed: CUDA error {err}")
     launches += 1
-    return out
-
-
-def min_k_crossings_walk(dense: torch.Tensor, height: int) -> torch.Tensor:
-    """Launch the row walk for every row (one thread per row tests all E
-    edges): the same function as the kernel, by its first design."""
-    global walk_launches
-    dense, out, stream = _checked(dense, height)
-    err = _library().cu_min_k_crossings_walk(dense.data_ptr(), out.data_ptr(), dense.shape[0],
-                                             dense.shape[1], height, stream)
-    if err != 0:
-        raise RuntimeError(f"min_k_crossings walk launch failed: CUDA error {err}")
-    walk_launches += 1
     return out
 
 

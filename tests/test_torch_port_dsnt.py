@@ -129,10 +129,10 @@ def test_moment_wrappers_dispatch_cpu_tensors_to_the_plain_version():
     input is accumulated in f64 (the reference chip_smoke holds the kernel
     against)."""
     x = torch.as_tensor(_heatmaps("random", (5,), 32, seed=4).reshape(5, -1))
-    before = (dsnt_kernel.cuda_launches, dsnt_kernel.triton_launches)
+    before = (dsnt_kernel.row_launches, dsnt_kernel.col_launches)
     rows = dsnt_kernel.dsnt_raw_moments(x, 32, 32)
     cols = dsnt_kernel.dsnt_raw_moments_cols(x.t(), 32, 32)
-    assert (dsnt_kernel.cuda_launches, dsnt_kernel.triton_launches) == before
+    assert (dsnt_kernel.row_launches, dsnt_kernel.col_launches) == before
     torch.testing.assert_close(rows, cols, rtol=0, atol=0)
     f64 = dsnt_kernel.raw_moments_plain(x.double(), 32, 32)
     assert f64.dtype == torch.float64
@@ -141,31 +141,81 @@ def test_moment_wrappers_dispatch_cpu_tensors_to_the_plain_version():
         dsnt_kernel.dsnt_raw_moments(x.to("meta"), 32, 32)
 
 
-@pytest.mark.parametrize("rows,stride_px,expect_split", [
-    (420, 1, False),   # serving row layout: one pass, direct output
-    (420, 420, True),  # column layout of the same heatmaps: pixel splits
-    (42, 1, True),     # small batch: pixel splits fill the card
-])
-def test_moment_kernel_launch_config(rows, stride_px, expect_split):
-    """The grid covers every pixel chunk exactly once and, when the pixel
-    range is split, gives at least one program per SM (132 SMs, 256^2)."""
-    hw = 256 * 256
-    block_r, block_p, splits, cps, _ = dsnt_kernel.launch_config(rows, hw, stride_px, 132)
-    n_chunks = -(-hw // block_p)
-    assert (splits > 1) == expect_split
-    assert (splits - 1) * cps < n_chunks <= splits * cps
-    if expect_split:
-        assert -(-rows // block_r) * splits >= 132
-
-
 def test_moment_route_by_layout():
     """On the card a unit pixel stride (row layout, contiguous NCHW heads)
-    goes to the CUDA kernel and any other stride (the column layout's
-    transpose view) to the Triton kernel."""
+    goes to K2 and a unit heatmap stride (the transpose view of an (HW, N)
+    tensor, the column layout) to K1."""
     x = torch.zeros(420, 256 * 256)
-    assert dsnt_kernel.moment_route(x.stride(1)) == "cuda"
-    assert dsnt_kernel.moment_route(x.t().contiguous().t().stride(1)) == "triton"
-    assert dsnt_kernel.moment_route(torch.zeros(256 * 256, 1).t().stride(1)) == "cuda"
+    assert dsnt_kernel.moment_route(x) == "rows"
+    assert dsnt_kernel.moment_route(x.t().contiguous().t()) == "cols"
+    assert dsnt_kernel.moment_route(torch.zeros(256 * 256, 1).t()) == "rows"
+
+
+@pytest.mark.parametrize("view", ["every_other_pixel", "every_other_column"])
+def test_moment_route_refuses_other_layouts(view):
+    """A (rows, HW) view with neither a unit pixel nor a unit heatmap stride
+    raises: no kernel takes it, and nothing copies it silently."""
+    if view == "every_other_pixel":
+        bad = torch.zeros(42, 2 * 64 * 64)[:, ::2]
+    else:
+        bad = torch.zeros(64 * 64, 84)[:, ::2].t()
+    assert bad.shape == (42, 64 * 64) and 1 not in bad.stride()
+    with pytest.raises(ValueError, match="no DSNT moment kernel takes"):
+        dsnt_kernel.moment_route(bad)
+
+
+ADDRESS = 1 << 40  # a 256-byte aligned allocation, as the caching allocator gives
+
+
+@pytest.mark.parametrize("hw,n,size,itemsize,vec_bytes", [
+    (65536, 420, 256, 2, 8),   # serving view, bf16: 840-byte rows, 8-byte vectors
+    (65536, 420, 256, 4, 16),  # the same in f32: 1680-byte rows
+    (65536, 21, 256, 2, 2),    # T_e=1, one frame: 42-byte rows, 2-byte vectors
+    (4096, 84, 64, 2, 8),      # 64^2, T_e=2 at two frames
+])
+def test_cols_kernel_layout(hw, n, size, itemsize, vec_bytes):
+    """K1's grid: every pixel is in exactly one band (whole image rows) and
+    one lane's run, every column in exactly one thread's vector; a vector's
+    lanes share a warp, the block fits and the grid has at least one block
+    per SM (132 SMs)."""
+    lay = dsnt_kernel.cols_layout(hw, n, size, size, itemsize, (n, 1), ADDRESS, 132)
+    assert lay.vec_bytes == vec_bytes
+    assert lay.n_vec * lay.vec_bytes == n * itemsize
+    cols_per_vec = vec_bytes // itemsize
+    assert cols_per_vec <= dsnt_kernel.COLS_MAX_COLS
+    # Columns: vector t of tile y holds the columns of vector y*tile_vecs + t.
+    vecs = [y * lay.tile_vecs + t for y in range(lay.tiles) for t in range(lay.tile_vecs)]
+    owned = [v * cols_per_vec + c for v in vecs if v < lay.n_vec for c in range(cols_per_vec)]
+    assert sorted(owned) == list(range(n))
+    # Pixels: band b holds rows b*H//bands .. (b+1)*H//bands - 1; at step i
+    # lane j takes the run of pixels i*lanes*run + j*run .. + run - 1 of the
+    # band, which lies in one image row.
+    bounds = [b * size // lay.bands for b in range(lay.bands + 1)]
+    step = lay.lanes * lay.run
+    runs = [(bounds[b] * size + q, bounds[b] * size + q + lay.run)
+            for b in range(lay.bands) for i in range(-(-(bounds[b + 1] - bounds[b]) * size // step))
+            for j in range(lay.lanes) for q in [i * step + j * lay.run]
+            if q < (bounds[b + 1] - bounds[b]) * size]
+    pixels = np.concatenate([np.arange(lo, hi) for lo, hi in runs])
+    assert np.array_equal(np.sort(pixels), np.arange(hw))
+    assert all(lo // size == (hi - 1) // size for lo, hi in runs)
+    # Widths of 256 and 64 take whole runs of COLS_LOAD_BYTES (at most COLS_MAX_RUN px).
+    assert lay.run == min(dsnt_kernel.COLS_LOAD_BYTES // vec_bytes, dsnt_kernel.COLS_MAX_RUN)
+    assert lay.lanes in (1, 2, 4, 8, 16, 32)
+    assert -(-lay.tile_vecs * lay.lanes // 32) * 32 <= dsnt_kernel.COLS_MAX_THREADS
+    assert lay.bands * lay.tiles >= 132 or lay.bands == size
+
+
+@pytest.mark.parametrize("shape,strides,size,message", [
+    ((4096, 84), (1, 4096), 64, "unit column stride"),  # the row layout handed to K1
+    ((4096, 84), (42, 1), 64, "row stride >= N"),       # overlapping pixel rows
+    ((4096, 84), (84, 1), 32, "expected 32\\*32"),      # HW that is not H*W
+])
+def test_cols_kernel_refuses_layouts_it_does_not_take(shape, strides, size, message):
+    """K1 raises on an (HW, N) view it does not take: a non-unit column
+    stride, a row stride below N, or a pixel count other than H*W."""
+    with pytest.raises(ValueError, match=message):
+        dsnt_kernel.cols_layout(*shape, size, size, 2, strides, ADDRESS, 132)
 
 
 @pytest.mark.parametrize("rows,size,itemsize,bands", [
