@@ -13,14 +13,13 @@ result line):
 1. card check: CUDA present; the card's name and power limit; TF32 off for
    matmuls and cuDNN convolutions;
 2. build: nvcc for the two CUDA sources (csrc/min_k_crossings.cu,
-   csrc/dsnt_moments.cu, in parallel), Triton JIT for the column-layout DSNT
-   kernel, from the sources in this checkout into
-   contouring_uncertainty_torch/_build/;
-3. DSNT moment kernels against their plain version in f64: the CUDA row
-   kernel (K2) and the Triton column kernel (K1), random and sharp
-   off-centre blob heatmaps, bf16, f16 and f32, at 256^2 and 64^2, and the
-   row kernel's band split (a few heatmaps, one cluster each): mu <= 1e-4
-   px, sigma relative error <= 1e-3;
+   csrc/dsnt_moments.cu, in parallel) from the sources in this checkout
+   into contouring_uncertainty_torch/_build/, with ptxas's register report;
+3. DSNT moment kernels against their plain version in f64: the row kernel
+   (K2; 420 heatmaps, and 21 split into bands, one cluster each) and the
+   column kernel (K1; 420 columns, 21 columns, and 420 columns of a
+   512-wide buffer), random and sharp off-centre blob heatmaps, bf16, f16
+   and f32, at 256^2 and 64^2: mu <= 1e-4 px, sigma relative error <= 1e-3;
 4. crossing-selection kernel (CUDA, K3) against its plain version on the
    zigzag contours of the JAX package's parity check and on the edge cases
    of ops/rasterize.py `selection_edge_cases` (tied crossings, horizontal
@@ -37,11 +36,11 @@ result line):
    busy time per view from a profiled pass, and the top kernels;
 6. the crossing selection again on one view's 500 sampled contours;
 7. the GPU path against the CPU path (plain versions) on a small input;
-8. kernel timings beside their bounds, each redesigned kernel beside its
-   first design on the same inputs in the same run (K2 against the Triton
-   row tile, K3 against the row walk); K2's band splits at the row counts
-   of T_e=1, 5 and 10; the kernels JSON line (K1, K2, K3),
-   the card line and the final {"ok": true, ...} line.
+8. kernel timings beside their bounds and plain versions at the main
+   path's shapes; K2's band splits at the row counts of T_e=1, 5 and 10;
+   K1's lanes and bands at the serving shape and K1 at 21 and 42 columns;
+   the kernels JSON line (K1, K2, K3), the card line and the final
+   {"ok": true, ...} line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -76,7 +75,7 @@ def card_line() -> str:
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() in ms: `iters` calls captured in one CUDA
     graph and replayed between two CUDA events, so the host's launch cost
-    (Python, the Triton launcher) does not pad the kernel's time."""
+    (Python, ctypes) does not pad the kernel's time."""
     import torch
 
     side = torch.cuda.Stream()
@@ -373,13 +372,6 @@ def small_reference_check():
         raise AssertionError("GPU path disagrees with the CPU path")
 
 
-def in_turns(first, second) -> tuple:
-    """Device times of two versions of one function, taken in turns (first,
-    second, second, first) so that drift hits both alike; means of each."""
-    a0, b0, b1, a1 = cuda_ms(first), cuda_ms(second), cuda_ms(second), cuda_ms(first)
-    return (a0 + a1) / 2.0, (b0 + b1) / 2.0
-
-
 def kernel_timings(main: dict) -> list:
     import torch
 
@@ -407,9 +399,7 @@ def kernel_timings(main: dict) -> list:
     raw_k2 = dsnt_kernel.dsnt_raw_moments(rows_in, size, size)
     raw_k1 = dsnt_kernel.dsnt_raw_moments_cols(cols_in, size, size)
     k2_ms = cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(rows_in, size, size))
-    k1_triton, k1_ms = in_turns(
-        lambda: dsnt_kernel.raw_moments_triton(cols_in.t(), size, size),
-        lambda: dsnt_kernel.raw_moments_cols_cuda(cols_in, size, size))
+    k1_ms = cuda_ms(lambda: dsnt_kernel.raw_moments_cols_cuda(cols_in, size, size))
     d_plain = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows_in, size, size))
     d_plain_cols = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(cols_in.t(), size, size))
     # K2's band split at the heatmap counts of the task's configurations:
@@ -481,7 +471,7 @@ def kernel_timings(main: dict) -> list:
          "launches_per_view": launches["K1 dsnt (column layout)"] / n_views,
          "shape": [hw, rows], "dtype": str(rows_in.dtype),
          "max_abs_err": (raw_k1.double() - raw_ref).abs().max().item(),
-         "ms": k1_ms, "triton_ms": k1_triton, "layout": lay._asdict(),
+         "ms": k1_ms, "layout": lay._asdict(),
          "lanes_x_bands_ms": launch_ms, "few_columns": few_ms,
          "plain_ms": d_plain_cols, **bound(d_bound), "library_ms": None},
         {"name": "K2 dsnt_moments (online-softmax DSNT moments, row layout)",
@@ -581,8 +571,7 @@ def main(argv) -> int:
     print("[8] kernel timings at the main path's shapes")
     kernels = kernel_timings(main_res)
     for kern in kernels:
-        earlier = f", Triton {kern['triton_ms']:.4f} ms" if "triton_ms" in kern else ""
-        print(f"    {kern['name'].split(' (')[0]}: {kern['ms']:.4f} ms{earlier} (bound "
+        print(f"    {kern['name'].split(' (')[0]}: {kern['ms']:.4f} ms (bound "
               f"{kern['bound_ms']:.4f} ms by {kern['bound_by']}), plain "
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "
               f"launches {kern['launches']} in {main_res['views']} views")

@@ -3,14 +3,11 @@
 Everything is built at first use into `contouring_uncertainty_torch/_build/`
 (git-ignored), never at import:
 
-- CUDA C++ sources under `csrc/` are compiled by `nvcc` for `sm_90a` into a
-  shared library with a plain C interface, loaded with ctypes. Each source
-  has its own flags beside the common ones (`CUDA_SOURCES`). The library's
-  file name carries a hash of its source and flags, so an edited source or
-  flag is rebuilt and a stale library is never loaded.
-- Triton kernels JIT-compile at their first launch; their cache is pointed
-  at the same directory (`TRITON_CACHE_DIR`) so nothing is written outside
-  the checkout.
+CUDA C++ sources under `csrc/` are compiled by `nvcc` for `sm_90a` into a
+shared library with a plain C interface, loaded with ctypes. Each source has
+its own flags beside the common ones (`CUDA_SOURCES`). The library's file
+name carries a hash of its source and flags, so an edited source or flag is
+rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -90,11 +87,3 @@ def build_all() -> List[Path]:
     with ThreadPoolExecutor(max_workers=len(CUDA_SOURCES)) as pool:
         futures = [pool.submit(build_cuda_library, n) for n in CUDA_SOURCES]
         return [f.result() for f in futures]
-
-
-def import_triton():
-    """Import Triton with its kernel cache inside the build directory."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-
-    return triton

@@ -1,2 +1,2 @@
-"""Device ops: DSNT heads, splines, rasterization and the two kernels
-(ops/dsnt_kernel.py, Triton; ops/select_kernel.py, CUDA C++)."""
+"""Device ops: DSNT heads, splines, rasterization and the wrappers of the
+CUDA C++ kernels (ops/dsnt_kernel.py, ops/select_kernel.py)."""

@@ -6,7 +6,7 @@ reference's scaling (`pixel = 0.5*((c+1)*size - 1)`, second moments times
 (size/2)^2) and the shared positive-definiteness guard.
 
 `logits_to_pixel_gaussians` dispatches on the tensor's device: on the GPU
-every call goes through the CUDA row moment kernel (ops/dsnt_kernel.py,
+every call goes through the row-layout moment kernel K2 (ops/dsnt_kernel.py,
 csrc/dsnt_moments.cu), on the CPU through its plain f32 separable version.
 """
 
