@@ -38,7 +38,7 @@ result line):
 7. the GPU path against the CPU path (plain versions) on a small input;
 8. kernel timings beside their bounds and plain versions at the main
    path's shapes; K2's band splits at the row counts of T_e=1, 5 and 10;
-   K1's lanes and bands at the serving shape and K1 at 21 and 42 columns;
+   K1's launch at the serving shape and K1 at 21 and 42 columns;
    the kernels JSON line (K1, K2, K3), the card line and the final
    {"ok": true, ...} line.
 
@@ -414,18 +414,11 @@ def kernel_timings(main: dict) -> list:
         band_ms[r] = {"chosen": chosen, "ms": times}
         print(f"    K2 at {r} heatmaps, ms by bands: "
               f"{', '.join(f'{b}: {t:.4f}' for b, t in times.items())}; row_bands {chosen}")
-    # K1's launch at the main path's shape: pixel lanes per vector (105
-    # vectors a pixel row) by bands of image rows (half, one and two blocks
-    # per SM), against cols_layout's choice; then K1 at the column counts of
+    # K1's launch at the main path's shape, then K1 at the column counts of
     # T_e=1 (21 heatmaps, one frame; 42, two).
     lay = dsnt_kernel.cols_layout(hw, rows, size, size, cols_in.element_size(),
                                   cols_in.stride(), cols_in.data_ptr(), n_sm())
-    launch_ms = {f"{lanes}x{bands}": cuda_ms(lambda: dsnt_kernel.raw_moments_cols_cuda(
-                     cols_in, size, size, bands=bands, lanes=lanes))
-                 for lanes in (2, 4) for bands in (n_sm() // 2, n_sm(), min(size, 2 * n_sm()))}
-    print(f"    K1 at {rows} columns, ms by lanes x bands: "
-          f"{', '.join(f'{k}: {t:.4f}' for k, t in launch_ms.items())}; cols_layout "
-          f"{lay.lanes}x{lay.bands}")
+    print(f"    K1 at {rows} columns: {lay}")
     few_ms = {}
     for r in (c["k"], 2 * c["k"]):
         few = cols_in[:, :r].contiguous()
@@ -471,8 +464,7 @@ def kernel_timings(main: dict) -> list:
          "launches_per_view": launches["K1 dsnt (column layout)"] / n_views,
          "shape": [hw, rows], "dtype": str(rows_in.dtype),
          "max_abs_err": (raw_k1.double() - raw_ref).abs().max().item(),
-         "ms": k1_ms, "layout": lay._asdict(),
-         "lanes_x_bands_ms": launch_ms, "few_columns": few_ms,
+         "ms": k1_ms, "layout": lay._asdict(), "few_columns": few_ms,
          "plain_ms": d_plain_cols, **bound(d_bound), "library_ms": None},
         {"name": "K2 dsnt_moments (online-softmax DSNT moments, row layout)",
          "route": "cuda", "source": "contouring_uncertainty_torch/csrc/dsnt_moments.cu",

@@ -88,14 +88,12 @@ CUDA_THREADS = 256
 MAX_BANDS = 8
 
 # K1, the column kernel of csrc/dsnt_moments.cu: threads per block (its
-# kColsMaxThreads) and columns per thread (kColsMaxCols) at most; threads
-# per block aimed at; vectors of a pixel row one block takes at most (more
-# are split into column tiles); blocks per SM aimed at by the band split
-# (one block per SM measured as fast as two, with half the partials:
-# PERF.md).
+# kColsMaxThreads) and columns per thread (kColsMaxCols) at most; vectors
+# of a pixel row one block takes at most (more are split into column
+# tiles); blocks per SM aimed at by the band split (one block per SM
+# measured as fast as two, with half the partials: PERF.md).
 COLS_MAX_THREADS = 448
 COLS_MAX_COLS = 4
-COLS_THREADS = 448
 COLS_MAX_TILE = 256
 COLS_BLOCKS_PER_SM = 1
 # Bytes a thread loads per run of pixels (kColsLoadBytes), in at most
@@ -153,16 +151,15 @@ class ColsLayout(NamedTuple):
 
 
 def cols_layout(hw: int, n: int, height: int, width: int, itemsize: int,
-                strides: tuple, address: int, n_sm: int,
-                bands: int | None = None, lanes: int | None = None) -> ColsLayout:
+                strides: tuple, address: int, n_sm: int) -> ColsLayout:
     """K1's launch for an (HW, N) tensor with these strides at this byte
     address. The vector is the largest of 16, 8, 4 and 2 bytes that divides
     the address, N and the row stride in bytes, and holds at most
     COLS_MAX_COLS columns. A run is COLS_LOAD_BYTES of vectors (at most
-    COLS_MAX_RUN pixels) where it divides the width, else one pixel.
-    `lanes` defaults to the most that keep a block within COLS_THREADS
-    threads, `bands` to COLS_BLOCKS_PER_SM blocks per SM. Raises on a
-    layout the kernel does not take."""
+    COLS_MAX_RUN pixels) where it divides the width, else one pixel. Lanes
+    are the most (a power of two up to 32) that keep a block within
+    COLS_MAX_THREADS threads; bands give COLS_BLOCKS_PER_SM blocks per SM.
+    Raises on a layout the kernel does not take."""
     row_stride, col_stride = strides
     ld = row_stride if hw > 1 else n
     if (col_stride != 1 and n > 1) or ld < n:
@@ -178,14 +175,8 @@ def cols_layout(hw: int, n: int, height: int, width: int, itemsize: int,
     run = min(COLS_LOAD_BYTES // vec_bytes, COLS_MAX_RUN)
     if width % run:
         run = 1
-    if lanes is None:
-        lanes = 1 << min(5, max(0, (COLS_THREADS // tile_vecs).bit_length() - 1))
-    if bands is None:
-        bands = min(height, -(-COLS_BLOCKS_PER_SM * n_sm // tiles))
-    if not (lanes in (1, 2, 4, 8, 16, 32) and -(-tile_vecs * lanes // 32) * 32 <= COLS_MAX_THREADS
-            and 1 <= bands <= height):
-        raise ValueError(f"dsnt column kernel: {lanes} lanes x {tile_vecs} vectors, "
-                         f"{bands} bands out of range for {height}x{width}")
+    lanes = 1 << min(5, (COLS_MAX_THREADS // tile_vecs).bit_length() - 1)
+    bands = min(height, -(-COLS_BLOCKS_PER_SM * n_sm // tiles))
     return ColsLayout(vec_bytes, n_vec, tile_vecs, tiles, lanes, run, bands)
 
 
@@ -236,10 +227,9 @@ def raw_moments_cuda(x2d: torch.Tensor, height: int, width: int,
     return out
 
 
-def raw_moments_cols_cuda(flat_t: torch.Tensor, height: int, width: int,
-                          bands: int | None = None, lanes: int | None = None) -> torch.Tensor:
+def raw_moments_cols_cuda(flat_t: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Launch K1 on a CUDA (H*W, N) tensor with unit column stride (any row
-    stride >= N): (N, 8) f32. `bands` and `lanes` default to `cols_layout`'s."""
+    stride >= N): (N, 8) f32, launched as `cols_layout` says."""
     global col_launches
     hw, n = flat_t.shape
     _check_input(flat_t, height, width, hw)
@@ -248,7 +238,7 @@ def raw_moments_cols_cuda(flat_t: torch.Tensor, height: int, width: int,
         return out
     n_sm = torch.cuda.get_device_properties(flat_t.device).multi_processor_count
     lay = cols_layout(hw, n, height, width, flat_t.element_size(), flat_t.stride(),
-                      flat_t.data_ptr(), n_sm, bands, lanes)
+                      flat_t.data_ptr(), n_sm)
     part = (torch.empty((lay.bands, N_MOM + 1, n), dtype=torch.float32, device=flat_t.device)
             if lay.bands > 1 else None)
     stream = torch.cuda.current_stream(flat_t.device).cuda_stream

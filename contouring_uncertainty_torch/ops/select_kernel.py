@@ -67,7 +67,12 @@ def _library():
     return lib
 
 
-def _checked(dense: torch.Tensor, height: int):
+def min_k_crossings_kernel(dense: torch.Tensor, height: int,
+                           overflow_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel: (M, E, 2) f32 CUDA tensor -> (M, H, 16).
+    `overflow_rows`, a one-element int32 CUDA tensor, is incremented on the
+    device by the number of rows that took the row walk."""
+    global launches
     if not dense.is_cuda:
         raise ValueError(f"crossing-selection kernel takes a CUDA tensor, got {dense.device}")
     if dense.dtype != torch.float32 or dense.dim() != 3 or dense.shape[-1] != 2:
@@ -75,16 +80,7 @@ def _checked(dense: torch.Tensor, height: int):
     dense = dense.contiguous()
     out = torch.empty((dense.shape[0], height, K_CROSSINGS), dtype=torch.float32,
                       device=dense.device)
-    return dense, out, torch.cuda.current_stream(dense.device).cuda_stream
-
-
-def min_k_crossings_kernel(dense: torch.Tensor, height: int,
-                           overflow_rows: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel: (M, E, 2) f32 CUDA tensor -> (M, H, 16).
-    `overflow_rows`, a one-element int32 CUDA tensor, is incremented on the
-    device by the number of rows that took the row walk."""
-    global launches
-    dense, out, stream = _checked(dense, height)
+    stream = torch.cuda.current_stream(dense.device).cuda_stream
     counter = None
     if overflow_rows is not None:
         if overflow_rows.dtype != torch.int32 or overflow_rows.device != dense.device:
