@@ -40,7 +40,21 @@ result line):
    path's shapes; K2's band splits at the row counts of T_e=1, 5 and 10;
    K1's launch at the serving shape and K1 at 21 and 42 columns;
    the kernels JSON line (K1, K2, K3), the card line and the final
-   {"ok": true, ...} line.
+   {"ok": true, ...} line;
+9. the training path, before the kernels line: `runner.run` at the
+   flagship training configuration (8-stage UNet at full width, f32,
+   `drop_block`, batch 32, 256^2, K=21, AdamW lr 1e-3 wd 1e-3, augmentation
+   on) on 60 synthetic patients (4 batches per epoch), 3 epochs, then the
+   test metrics and predict at T_e=1; every loss finite, checkpoints and CSV
+   written; ms/step and images/s, peak memory, launches per train step,
+   val/test batch and predict view (K2 1, 1, 1; K3 0, 1, 1), and the idle
+   share and top device rows of a profiled pass over 3 train steps. Then an
+   overfit check (one fixed batch, 10 steps, the loss must fall); both
+   moment Functions' gradients at (672, 65536) f32 against autograd of the
+   plain version in f64, with K2's f32 forward and the plain backward timed;
+   one SGD step on the GPU against the CPU (64^2, 4 stages); and the
+   crossing selection against its plain version on one validation batch's
+   linear polygons (E=168).
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -48,9 +62,11 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +80,33 @@ DSNT_BARS = {"mu_px": 1e-4, "sigma_rel": 1e-3}
 
 MAIN_CFG = dict(t_e=10, t_a=25, size=256, k=21, n_patients=8, seed=0)
 STEADY_PASSES = 5  # timed passes over the test views after the first
+
+# The training path: the flagship `runner.py data=camus-cont task=dsnt-al`
+# run at full width, on the synthetic source (60 patients: 144 training
+# frames, 4 batches of 32 per epoch; 48 validation and 48 test frames).
+TRAIN_CFG = dict(n_patients=60, epochs=3, batch=32, seed=0)
+TRAIN_DIR = Path("outputs") / "chip_smoke_train"  # git-ignored, removed at the end
+TRAIN_OVERRIDES = [
+    "data=synthetic", f"data.n_patients={TRAIN_CFG['n_patients']}", "data.image_size=256",
+    "task=dsnt-al", "task/model=unet2", "task.model.drop_block=true",
+    "task.optim.name=adamw", "task.optim.lr=1e-3", "task.optim.weight_decay=1e-3",
+    f"trainer.batch_size={TRAIN_CFG['batch']}", f"trainer.max_epochs={TRAIN_CFG['epochs']}",
+    "trainer.augment=true", f"trainer.save_every={TRAIN_CFG['epochs']}",
+    f"seed={TRAIN_CFG['seed']}", f"save_path={TRAIN_DIR}",
+    f"task.psm_path={TRAIN_DIR / 'psm.npz'}",
+]
+# K2's gradient against autograd of the plain version in f64, relative to
+# the largest gradient: the adjoint recomputes p in f32 (CPU: 1.8e-7).
+GRAD_BAR = 1e-5
+# One optimizer step, GPU against CPU (f32 convolutions, TF32 off): each
+# gradient leaf within 1e-2 of its largest value in f64 plus 1e-5 of the
+# largest gradient of all, each weight within the learning rate times that
+# gradient bar plus 2e-7 (f32 rounding of weights of order 1). cuDNN's f32
+# algorithms (FFT among them) put some weight gradients 3.3e-3 of their
+# leaf's largest from f64, where the CPU's are within 1e-6 (PERF.md). The
+# conv biases ahead of an instance norm have an exact gradient of 0: theirs
+# is rounding noise, held under 1e-3 of the largest gradient on each device.
+STEP_BARS = {"grad_leaf": 1e-2, "grad_all": 1e-5, "param_round": 2e-7, "zero_grad": 1e-3}
 
 
 def card_line() -> str:
@@ -488,6 +531,302 @@ def kernel_timings(main: dict) -> list:
     ]
 
 
+@contextmanager
+def launch_ledger():
+    """Per call of a train step, a val/test batch (`val_metrics`) and a
+    predicted view, the (K2, K1, K3) launches it made; the class methods are
+    wrapped while the block runs."""
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.predict import AleatoricPredictor
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+    from contouring_uncertainty_torch.train import Trainer
+
+    def counts():
+        return (dsnt_kernel.row_launches, dsnt_kernel.col_launches, select_kernel.launches)
+
+    ledger = {"train step": [], "val/test batch": [], "predict view": []}
+    targets = [(Trainer, "train_step", "train step"),
+               (DSNTAleatoric, "val_metrics", "val/test batch"),
+               (AleatoricPredictor, "__call__", "predict view")]
+    originals = [getattr(cls, name) for cls, name, _ in targets]
+
+    def counted(fn, label):
+        def wrapper(*args, **kwargs):
+            before = counts()
+            out = fn(*args, **kwargs)
+            ledger[label].append(tuple(a - b for a, b in zip(counts(), before)))
+            return out
+        return wrapper
+
+    for (cls, name, label), fn in zip(targets, originals):
+        setattr(cls, name, counted(fn, label))
+    try:
+        yield ledger
+    finally:
+        for (cls, name, _), fn in zip(targets, originals):
+            setattr(cls, name, fn)
+
+
+def training_run() -> dict:
+    """runner.run at the flagship training configuration, launches counted."""
+    import torch
+
+    from contouring_uncertainty_torch import runner
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dsnt_kernel.row_launches = dsnt_kernel.col_launches = 0
+    select_kernel.launches = 0
+    t0 = time.perf_counter()
+    with launch_ledger() as ledger:
+        result = runner.run(TRAIN_OVERRIDES)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    totals = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
+              "K3": select_kernel.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # Gates: finite losses, the files a run leaves, launches where expected.
+    history = result["history"]
+    if len(history) != TRAIN_CFG["epochs"]:
+        raise AssertionError(f"trained {len(history)} epochs, expected {TRAIN_CFG['epochs']}")
+    for row in history:
+        bad = {k: v for k, v in row.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite training log at epoch {row['epoch']}: {bad}")
+    if "test_error" in result or not all(np.isfinite(v) for v in result["test_metrics"].values()):
+        raise AssertionError(f"test pass failed: {result.get('test_error', result.get('test_metrics'))}")
+    name = Path(result["ckpt_path"]).name[:-len(".ckpt")]
+    run_dir = Path(result["ckpt_path"]).parent
+    for path in (run_dir / f"{name}.ckpt" / "state.pt", run_dir / f"{name}.ckpt" / "meta.json",
+                 run_dir / f"{name}_last.ckpt" / "state.pt", run_dir / f"{name}_metrics.csv",
+                 run_dir / f"{name}_phases.json", run_dir / "train_complete"):
+        if not path.exists():
+            raise AssertionError(f"the training run did not write {path}")
+    csv_rows = (run_dir / f"{name}_metrics.csv").read_text().strip().splitlines()
+    if len(csv_rows) != 1 + TRAIN_CFG["epochs"]:
+        raise AssertionError(f"metrics CSV has {len(csv_rows)} lines")
+    k = 21
+    for res in result["predict"]:
+        n = res.img.shape[0]
+        if res.mu.shape != (n, k, 2) or res.contour_samples.shape != (n, 1, 25, k, 2):
+            raise AssertionError(f"predict shapes {res.mu.shape} {res.contour_samples.shape}")
+        if not (np.isfinite(res.mu).all() and np.isfinite(res.cov).all()
+                and np.isfinite(res.uncertainty_map).all()):
+            raise AssertionError("predict output has non-finite values")
+    expected = {"train step": (1, 0, 0), "val/test batch": (1, 0, 1), "predict view": (1, 0, 1)}
+    for label, calls in ledger.items():
+        if not calls or any(c != expected[label] for c in calls):
+            raise AssertionError(f"launches (K2, K1, K3) per {label}: {calls}, expected "
+                                 f"{expected[label]} in every call")
+    summed = [sum(c[i] for calls in ledger.values() for c in calls) for i in range(3)]
+    if summed != [totals["K2"], totals["K1"], totals["K3"]]:
+        raise AssertionError(f"launches outside the counted calls: totals {totals}, "
+                             f"counted {summed}")
+
+    phases = json.loads((run_dir / f"{name}_phases.json").read_text())
+    steps = phases["train_step"]["samples_ms"]
+    per_epoch = len(steps) // TRAIN_CFG["epochs"]
+    later = sorted(steps[per_epoch:])
+    median_ms = later[len(later) // 2]
+    return {"history": history, "test": result["test_metrics"], "wall_s": wall_s,
+            "ckpt": result["ckpt_path"], "views": len(result["predict"]),
+            "ledger": {label: len(calls) for label, calls in ledger.items()},
+            "per_call": expected, "totals": totals, "peak_gib": peak_gib,
+            "step_ms": median_ms, "step_ms_range": (later[0], later[-1]),
+            "first_step_ms": steps[0], "images_per_s": TRAIN_CFG["batch"] / median_ms * 1e3,
+            "eval_ms": phases.get("eval_step", {}).get("median_ms")}
+
+
+def train_profile_and_overfit(profile_dir=None) -> dict:
+    """The flagship configuration's train step on one batch: 2 warm-up
+    steps, 3 timed steps (host clock, synchronised), 3 steps under
+    torch.profiler for the device time; then the overfit check: 10 more
+    steps on the same batch without augmentation, the loss must fall."""
+    import torch
+
+    from contouring_uncertainty_torch.config import compose
+    from contouring_uncertainty_torch.data.config import Tags
+    from contouring_uncertainty_torch.factory import build_data, build_task, build_trainer
+    from contouring_uncertainty_torch.train.trainer import _iterate, _to_device
+
+    cfg = compose(TRAIN_OVERRIDES)
+    data = build_data(cfg)
+    task = build_task(cfg, data.data_params)
+    trainer = build_trainer(cfg, task)
+    trainer.init_state()
+    arrays = data.train_arrays("train")
+    batch = _to_device(next(_iterate(arrays, TRAIN_CFG["batch"], np.random.default_rng(1))),
+                       trainer.device)
+    for step in range(2):
+        trainer.train_step(batch, step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(2, 5):
+        trainer.train_step(batch, step)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms, copy_ms, table = profile_run(
+        lambda: [trainer.train_step(batch, step) for step in range(5, 8)],
+        profile_dir / "train" if profile_dir is not None else None)
+    trainer.config.augment = False
+    losses = [float(trainer.train_step(batch, step)["loss"]) for step in range(8, 18)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss on one fixed batch did not fall: {losses}")
+    return {"kernel_ms": kernel_ms / 3, "copy_ms": copy_ms / 3, "wall_ms": wall_ms / 3,
+            "table": table, "losses": losses, "img_shape": tuple(batch[Tags.img].shape)}
+
+
+def moment_gradients() -> dict:
+    """Both moment Functions at the training head's shape, (32*21, 256^2)
+    f32: their gradients on the card against autograd of the plain version
+    in f64; K2's f32 forward, the plain forward and the plain backward
+    timed."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel
+    from contouring_uncertainty_torch.ops.dsnt import logits_to_pixel_gaussians
+
+    size, rows = 256, TRAIN_CFG["batch"] * 21
+    x_np = np.concatenate(list(dsnt_inputs(rows // 2, size, np.random.default_rng(3)).values()))
+    x = torch.as_tensor(x_np, device="cuda")
+    g = torch.as_tensor(np.random.default_rng(4).normal(size=(rows, 8)).astype(np.float32),
+                        device="cuda")
+    xd = x.double().requires_grad_()
+    dsnt_kernel.raw_moments_plain(xd, size, size).backward(g.double())
+    ref = xd.grad
+    del xd
+    errs = {}
+    before = (dsnt_kernel.row_launches, dsnt_kernel.col_launches)
+    for name, view in (("K2 rows", x), ("K1 cols", x.t().contiguous())):
+        leaf = view.clone().requires_grad_()
+        fn = dsnt_kernel.dsnt_raw_moments if name.startswith("K2") else dsnt_kernel.dsnt_raw_moments_cols
+        out = fn(leaf, size, size)
+        if out.grad_fn is None:
+            raise AssertionError(f"{name}: no grad_fn on the card")
+        (grad,) = torch.autograd.grad(out, leaf, g)
+        grad = grad if name.startswith("K2") else grad.t()
+        errs[name] = ((grad.double() - ref).abs().max() / ref.abs().max()).item()
+    launched = (dsnt_kernel.row_launches - before[0], dsnt_kernel.col_launches - before[1])
+    if launched != (1, 1):
+        raise AssertionError(f"the Functions launched (K2, K1) {launched}, expected (1, 1)")
+    mu, sigma = logits_to_pixel_gaussians(x[:42].reshape(2, 21, size, size).requires_grad_())
+    if mu.grad_fn is None or sigma.grad_fn is None:
+        raise AssertionError("logits_to_pixel_gaussians carries no gradient on the card")
+    if max(errs.values()) > GRAD_BAR:
+        raise AssertionError(f"moment gradients off by {errs} (bar {GRAD_BAR})")
+    fwd_ms = cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(x, size, size))
+    plain_ms = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(x, size, size), iters=5)
+    bwd_ms = cuda_ms(lambda: dsnt_kernel.moments_adjoint(x, g, size, size), iters=5)
+    n_bytes = x.numel() * 4 + rows * 8 * 4
+    bound = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": rows * size * size * 19 / F32_OPS_PER_S * 1e3}
+    # The adjoint reads the logits and the cotangents and writes the
+    # gradient once; per pixel a max, exp, the basis polynomial (8 terms)
+    # and two products and sums.
+    bwd_bound = {"bytes": (2 * x.numel() * 4 + rows * 8 * 4) / HBM_BYTES_PER_S * 1e3,
+                 "operations": rows * size * size * 24 / F32_OPS_PER_S * 1e3}
+    return {"shape": [rows, size * size], "grad_rel_err": errs, "fwd_ms": fwd_ms,
+            "fwd_bound_ms": max(bound.values()), "fwd_bound_by": max(bound, key=bound.get),
+            "plain_fwd_ms": plain_ms, "plain_bwd_ms": bwd_ms,
+            "bwd_bound_ms": max(bwd_bound.values()),
+            "bwd_bound_by": max(bwd_bound, key=bwd_bound.get)}
+
+
+def gpu_vs_cpu_step() -> dict:
+    """One SGD update on the GPU against the CPU: 64^2, 4 stages,
+    drop_block off, augmentation off, the same seed-initialised weights and
+    batch; the gradients of both also against the CPU in f64. SGD, not the
+    slice's AdamW: AdamW's first step is lr * sign(g) wherever |g| >> eps,
+    so on the biases whose gradient is rounding noise of either sign it
+    sets the two devices' weights 2 lr apart; SGD keeps the update
+    proportional to the gradient."""
+    import torch
+
+    from contouring_uncertainty_torch.data.config import DataParams, Tags
+    from contouring_uncertainty_torch.data.synthetic import make_arrays
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+    from contouring_uncertainty_torch.train import Trainer, TrainerConfig
+
+    imgs, gts, contours = make_arrays(8, size=64, seed=2)
+    task = DSNTAleatoric(
+        data_params=DataParams(in_shape=(1, 64, 64), out_shape=(21, 2)),
+        model_kwargs=dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3,
+                          drop_block=False))
+    cfg = TrainerConfig(optimizer="sgd", augment=False, seed=5)
+
+    def batch_on(device, dtype=torch.float32):
+        return {Tags.img: torch.as_tensor(imgs, device=device, dtype=dtype),
+                Tags.gt: torch.as_tensor(gts, device=device),
+                Tags.contour: torch.as_tensor(contours, device=device, dtype=dtype)}
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(task, cfg, device=device)
+        trainer.init_state()
+        loss = float(trainer.train_step(batch_on(device), 0)["loss"])
+        out[device] = (loss, {n: (p.grad.detach().cpu().double(), p.detach().cpu())
+                              for n, p in trainer.model.named_parameters()})
+    model64 = task.build_model(device="cpu",
+                               generator=torch.Generator().manual_seed(cfg.seed)).double()
+    task.loss(model64, batch_on("cpu", torch.float64), train=True)[0].backward()
+    ref = {n: p.grad for n, p in model64.named_parameters()}
+    cpu, gpu = out["cpu"][1], out["cuda"][1]
+    grad_all = max(float(g.abs().max()) for g in ref.values())
+    rows = []
+    for name, g64 in ref.items():
+        g_cpu, g_gpu = cpu[name][0], gpu[name][0]
+        if name.endswith("Conv_0.bias"):  # ahead of an instance norm: exactly 0
+            bar = STEP_BARS["zero_grad"] * grad_all
+            rows.append((max(float(g_cpu.abs().max()), float(g_gpu.abs().max())) / bar, name,
+                         "zero", 0.0))
+            continue
+        grad_bar = STEP_BARS["grad_leaf"] * float(g64.abs().max()) + STEP_BARS["grad_all"] * grad_all
+        param_bar = cfg.lr * grad_bar + STEP_BARS["param_round"]
+        rows.append((float((g_gpu - g_cpu).abs().max()) / grad_bar, name, "grad",
+                     float((gpu[name][1] - cpu[name][1]).abs().max()) / param_bar))
+        rows.append((float((g_gpu - g64).abs().max()) / grad_bar, name, "gpu-f64", 0.0))
+        rows.append((float((g_cpu - g64).abs().max()) / grad_bar, name, "cpu-f64", 0.0))
+    rows.sort(reverse=True)
+    for ratio, name, kind, param_ratio in rows[:6]:
+        print(f"      {kind:8s} {name}: {ratio:.3f} of its bar; weights {param_ratio:.3f}")
+    worst = {kind: max([r[0] for r in rows if r[2] == kind] + [0.0])
+             for kind in ("grad", "gpu-f64", "cpu-f64", "zero")}
+    worst["param"] = max(r[3] for r in rows)
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"GPU step differs from the CPU step: worst differences {worst} "
+                             f"of their bars {STEP_BARS}")
+    return {"of_bar": worst, "loss_abs": loss_err, "loss": out["cpu"][0]}
+
+
+def validation_polygons(ckpt: str) -> None:
+    """The crossing selection on one validation batch's linear polygons
+    (the trained weights' mu, 21 landmarks x 8 sub-edges = 168 edges)."""
+    import torch
+
+    from contouring_uncertainty_torch.config import compose
+    from contouring_uncertainty_torch.data.config import Tags
+    from contouring_uncertainty_torch.factory import build_data, build_task
+    from contouring_uncertainty_torch.ops.rasterize import _densify_linear
+    from contouring_uncertainty_torch.train.checkpoint import restore_checkpoint
+
+    cfg = compose(TRAIN_OVERRIDES)
+    data = build_data(cfg)
+    task = build_task(cfg, data.data_params)
+    model = task.build_model()
+    model.load_state_dict(restore_checkpoint(ckpt, map_location="cuda")["params"])
+    img = torch.as_tensor(data.train_arrays("val")[Tags.img][:TRAIN_CFG["batch"]], device="cuda")
+    with torch.no_grad():
+        mu, _ = task.forward_gaussians(model, img)
+    dense = _densify_linear(mu, 8).contiguous()
+    if dense.shape[1] != 168:
+        raise AssertionError(f"validation polygons have {dense.shape[1]} edges, expected 168")
+    check_selection(dense, 256, 256, f"validation polygons (E={dense.shape[1]})")
+
+
 def main(argv) -> int:
     import torch
 
@@ -568,6 +907,51 @@ def main(argv) -> int:
               f"{kern['plain_ms']:.4f} ms, library {kern['library_ms']}, "
               f"launches {kern['launches']} in {main_res['views']} views")
     print(f"    DSNT worst over the parity inputs: {dsnt_worst}")
+
+    print("[9] training path: runner.run, flagship training configuration "
+          "(8-stage UNet, f32, drop_block, batch 32, 256^2, AdamW; TF32 off)")
+    train = training_run()
+    for row in train["history"]:
+        print("    epoch {epoch}: train/loss {train/loss:.4f}, val/loss {val/loss:.4f}, "
+              "val/dice {val/dice:.4f}, {time:.1f} s".format(**row))
+    print(f"    test: {', '.join(f'{k} {v:.4f}' for k, v in train['test'].items())}; "
+          f"{train['views']} views predicted at T_e=1; run {train['wall_s']:.1f} s")
+    lo, hi = train["step_ms_range"]
+    print(f"    train step: median {train['step_ms']:.1f} ms over the steps after the first "
+          f"epoch (range {lo:.1f}-{hi:.1f}; first step {train['first_step_ms']:.1f}), "
+          f"{train['images_per_s']:.1f} images/s; val/test batch median "
+          f"{train['eval_ms']} ms; peak memory {train['peak_gib']:.2f} GiB on {card}")
+    print(f"    launches (K2, K1, K3) per call, every call: {train['per_call']}; calls "
+          f"{train['ledger']}; totals {train['totals']}")
+    prof = train_profile_and_overfit(profile_dir)
+    busy = (prof["kernel_ms"] + prof["copy_ms"]) / prof["wall_ms"]
+    print(f"    profiled train steps ({prof['img_shape']}): {prof['wall_ms']:.1f} ms/step, "
+          f"kernels {prof['kernel_ms']:.1f} ms + copies {prof['copy_ms']:.2f} ms = "
+          f"{busy:.1%} busy; idle share {1 - busy:.1%}")
+    print(prof["table"])
+    print(f"    overfit, one batch, 10 steps: loss {prof['losses'][0]:.4f} -> "
+          f"{prof['losses'][-1]:.4f}")
+    grads = moment_gradients()
+    print(f"    moment gradients at {grads['shape']} f32 vs plain f64: "
+          f"{grads['grad_rel_err']} (bar {GRAD_BAR}); K2 f32 forward {grads['fwd_ms']:.4f} ms "
+          f"(bound {grads['fwd_bound_ms']:.4f} ms by {grads['fwd_bound_by']}), plain forward "
+          f"{grads['plain_fwd_ms']:.4f} ms, plain backward {grads['plain_bwd_ms']:.4f} ms "
+          f"(bound {grads['bwd_bound_ms']:.4f} ms by {grads['bwd_bound_by']})")
+    step = gpu_vs_cpu_step()
+    print(f"    one SGD step, GPU vs CPU (64^2, 4 stages): worst differences, each as a "
+          f"share of its bar: {step['of_bar']} (bars {STEP_BARS}); loss {step['loss']:.6f} "
+          f"differs by {step['loss_abs']:.2e}")
+    validation_polygons(train["ckpt"])
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    for kern in kernels:
+        short = kern["name"].split(" ")[0]
+        per_call = {label: calls[{"K2": 0, "K1": 1, "K3": 2}[short]]
+                    for label, calls in train["per_call"].items()}
+        kern["training"] = {"launches": train["totals"][short], "launches_per_call": per_call}
+        if short == "K2":
+            kern["training"].update({k: grads[k] for k in (
+                "shape", "fwd_ms", "fwd_bound_ms", "fwd_bound_by", "plain_fwd_ms",
+                "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "grad_rel_err")})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

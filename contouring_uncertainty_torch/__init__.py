@@ -13,8 +13,10 @@ of the JAX package is a hand-written Hopper kernel here:
   selection (replaces ops/pallas_select.py), bound with ctypes through
   ops/select_kernel.py.
 
-Public entry points run on the GPU (`device="cuda"`) unless the caller asks
-for the CPU; on the CPU every kernel wrapper uses its plain PyTorch version.
+Two slices of the flagship run are ported: serving (`predict.run_predict`)
+and DSNT-AL training (`runner.run`, `train.Trainer`). Public entry points
+run on the GPU (`device="cuda"`) unless the caller asks for the CPU; on the
+CPU every kernel wrapper uses its plain PyTorch version.
 """
 
 __version__ = "0.1.0"

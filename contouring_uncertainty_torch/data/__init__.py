@@ -1,4 +1,5 @@
-"""Data layer: tags/contracts and the in-memory synthetic CAMUS-like source."""
+"""Data layer: tags/contracts, the in-memory synthetic CAMUS-like source and
+the training augmentation."""
 
 from contouring_uncertainty_torch.data.config import (
     BatchResult,

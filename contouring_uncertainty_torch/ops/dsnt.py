@@ -8,6 +8,9 @@ reference's scaling (`pixel = 0.5*((c+1)*size - 1)`, second moments times
 `logits_to_pixel_gaussians` dispatches on the tensor's device: on the GPU
 every call goes through the row-layout moment kernel K2 (ops/dsnt_kernel.py,
 csrc/dsnt_moments.cu), on the CPU through its plain f32 separable version.
+On both it carries gradients to the logits (the moments' autograd Function),
+so the training loss (`gaussian_nll`, `euclidean_error`) backpropagates
+through it.
 """
 
 from __future__ import annotations

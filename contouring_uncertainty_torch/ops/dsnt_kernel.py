@@ -22,6 +22,15 @@ The plain PyTorch version (`raw_moments_plain`) is the separable f32 branch
 of the JAX `ops/dsnt.py:177-207`, extended to the eight moments; the
 wrappers use it for CPU tensors only. `row_launches` and `col_launches`
 count the two kernels' launches.
+
+Gradients: `dsnt_raw_moments` and `dsnt_raw_moments_cols` go through one
+`torch.autograd.Function` per layout on every device (the counterparts of
+the JAX custom VJPs `dsnt_raw_moments` and `dsnt_raw_moments_cols`,
+pallas_dsnt.py:241-317). The kernels write their moments through ctypes,
+which records no graph, so without the Functions no gradient would reach
+the logits on the card. The backward is the softmax-moment adjoint of the
+JAX `_bwd`/`_bwd_cols` (XLA there, plain PyTorch here): p recomputed from
+the saved logits, the separable basis instead of an (HW, 8) matmul.
 """
 
 from __future__ import annotations
@@ -254,22 +263,82 @@ def raw_moments_cols_cuda(flat_t: torch.Tensor, height: int, width: int) -> torc
     return out
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (a kernel takes it), False for a CPU tensor
+    (the plain version takes it); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no DSNT moment kernel for device {x.device}")
+    return x.device.type == "cuda"
+
+
 def _raw_moments(x2d: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    if x2d.device.type == "cpu":
+    if not _on_card(x2d):
         return raw_moments_plain(x2d, height, width)
-    if x2d.device.type != "cuda":
-        raise RuntimeError(f"no DSNT moment kernel for device {x2d.device}")
     if moment_route(x2d) == "rows":
         return raw_moments_cuda(x2d, height, width)
     return raw_moments_cols_cuda(x2d.t(), height, width)
 
 
+def moments_adjoint(x2d: torch.Tensor, g: torch.Tensor, height: int,
+                    width: int) -> torch.Tensor:
+    """Gradient of the normalised raw moments with respect to the logits:
+    (rows, HW) logits and (rows, 8) cotangents -> (rows, HW) in the logits'
+    dtype. dx = p * (B g - sum_i p_i (B g)_i), with p recomputed in f32 (f64
+    for f64 logits) and B g = g0 + g1 x + g2 y + g3 x^2 + g4 y^2 + g5 x y +
+    g6 x^3 + g7 y^3 built from its separable (rows, W) and (rows, H) parts."""
+    acc = torch.float64 if x2d.dtype == torch.float64 else torch.float32
+    p = torch.softmax(x2d.to(acc), dim=-1).reshape(-1, height, width)
+    g = g.to(acc)
+    xs = normalized_linspace(width, dtype=acc, device=x2d.device)
+    ys = normalized_linspace(height, dtype=acc, device=x2d.device)
+    gx = g[:, 0:1] + xs * (g[:, 1:2] + xs * (g[:, 3:4] + xs * g[:, 6:7]))  # (rows, W)
+    gy = ys * (g[:, 2:3] + ys * (g[:, 4:5] + ys * g[:, 7:8]))  # (rows, H)
+    bg = gx[:, None, :] + (gy[:, :, None] + (g[:, 5, None, None] * ys[:, None]) * xs)
+    inner = (p * bg).sum(dim=(-2, -1), keepdim=True)
+    return (p * (bg - inner)).reshape(x2d.shape).to(x2d.dtype)
+
+
+class RowMoments(torch.autograd.Function):
+    """Row layout (K2's): (Rows, H*W) logits -> (Rows, 8); the counterpart
+    of the JAX custom VJP `dsnt_raw_moments` (`_fwd`/`_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, flat_logits, height, width):
+        ctx.save_for_backward(flat_logits)
+        ctx.size = (height, width)
+        return _raw_moments(flat_logits, height, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat_logits,) = ctx.saved_tensors
+        return moments_adjoint(flat_logits, g, *ctx.size), None, None
+
+
+class ColMoments(torch.autograd.Function):
+    """Column layout (K1's): (H*W, N) logits -> (N, 8); the counterpart of
+    the JAX custom VJP `dsnt_raw_moments_cols` (`_fwd_cols`/`_bwd_cols`).
+    The gradient is the row adjoint of the transposed view, returned as an
+    (H*W, N) view."""
+
+    @staticmethod
+    def forward(ctx, flat_t, height, width):
+        ctx.save_for_backward(flat_t)
+        ctx.size = (height, width)
+        return _raw_moments(flat_t.t(), height, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat_t,) = ctx.saved_tensors
+        return moments_adjoint(flat_t.t(), g, *ctx.size).t(), None, None
+
+
 def dsnt_raw_moments(flat_logits: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Row layout (K2's): flat_logits (Rows, H*W) -> (Rows, 8) f32."""
-    return _raw_moments(flat_logits, height, width)
+    """Row layout (K2's): flat_logits (Rows, H*W) -> (Rows, 8) f32,
+    differentiable on every device."""
+    return RowMoments.apply(flat_logits, height, width)
 
 
 def dsnt_raw_moments_cols(flat_t: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Column layout (K1's): flat_t (H*W, N), one heatmap per column ->
-    (N, 8) f32."""
-    return _raw_moments(flat_t.t(), height, width)
+    (N, 8) f32, differentiable on every device."""
+    return ColMoments.apply(flat_t, height, width)

@@ -1,3 +1,3 @@
-"""Tasks: the method layer (DSNT-AL serving so far)."""
+"""Tasks: the method layer (DSNT-AL: serving and training)."""
 
 from contouring_uncertainty_torch.tasks.dsnt_al import DSNTAleatoric

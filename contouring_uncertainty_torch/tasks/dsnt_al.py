@@ -1,8 +1,14 @@
 """DSNT-AL task: U-Net heatmaps -> DSNT -> per-point bivariate Gaussians.
 
-Counterpart of contouring_uncertainty_tpu/tasks/dsnt_al.py, serving half:
-`build_model`, `forward_gaussians`, `predict` and `mc_dropout_apply`
-(the training `loss` and `val_metrics` come with the training slice).
+Counterpart of contouring_uncertainty_tpu/tasks/dsnt_al.py: `build_model`,
+`forward_gaussians`, `predict` and `mc_dropout_apply` (serving), `loss` and
+`val_metrics` (training: the per-point Gaussian NLL, and the validation Dice
+of the linear contour reconstruction, rasterized through the crossing
+selection). `val_figure` (matplotlib) is not ported.
+
+Where the JAX task takes `variables` and an rng key, the port takes the
+model (its parameters are the module's) and a `torch.Generator` for the
+dropout masks.
 """
 
 from __future__ import annotations
@@ -12,10 +18,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from contouring_uncertainty_torch.data.config import DataParams
+from contouring_uncertainty_torch.data.config import DataParams, Label, Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.models.unet import UNet
 from contouring_uncertainty_torch.ops import dsnt as dsnt_ops
+from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+from contouring_uncertainty_torch.utils.metrics import dice_binary
 
 
 def mc_dropout_apply(model: UNet, img: torch.Tensor, t_e: int,
@@ -72,6 +80,43 @@ class DSNTAleatoric:
         """img (N, C, H, W) -> (mu (N,K,2), sigma (N,K,2,2)) in pixel space."""
         return self._gaussians_from_out(
             model(img, deterministic=not mc_dropout, generator=generator))
+
+    def _forward_loss(self, model, batch, generator: Optional[torch.Generator], train: bool):
+        """One forward -> (loss, logs, mu); loss and validation share it.
+        `train` turns the dropout on, its masks drawn from `generator`."""
+        y = batch[Tags.contour]
+        out = model(batch[Tags.img], deterministic=not train, generator=generator)
+        mu, sigma = self._gaussians_from_out(out)
+        point_loss, logdet, maha = dsnt_ops.gaussian_nll(
+            mu, sigma, y, log_penalty_weight=self.log_penalty_weight,
+            mse_weight=self.mse_weight)
+        loss = point_loss.mean()
+        logs = {
+            "loss": loss,
+            "distance_loss": dsnt_ops.euclidean_error(mu, y).mean(),
+            "loss_term1": (self.log_penalty_weight * logdet).mean(),
+            "loss_term2": (self.mse_weight * maha).mean(),
+        }
+        return loss, logs, mu
+
+    def loss(self, model, batch, generator: Optional[torch.Generator] = None,
+             train: bool = True):
+        """(loss, logs) of one batch; logs hold `loss`, `distance_loss`,
+        `loss_term1` (log|Sigma|) and `loss_term2` (Mahalanobis)."""
+        loss, logs, _ = self._forward_loss(model, batch, generator, train)
+        return loss, logs
+
+    def val_metrics(self, model, batch) -> Dict[str, torch.Tensor]:
+        """Validation loss and the Dice of the linear contour reconstruction
+        against the LV label, from one deterministic forward.
+
+        As in the JAX task, the Dice rasterizes the whole landmark vector as
+        one closed polygon: exact for single-structure data (CAMUS LV)."""
+        _, logs, mu = self._forward_loss(model, batch, None, train=False)
+        h, w = batch[Tags.img].shape[-2:]
+        pred = rasterize_batch(mu, h, w, linear=True)
+        gt_bin = (batch[Tags.gt] == int(Label.LV)).to(torch.float32)
+        return {**logs, "dice": dice_binary(pred, gt_bin).mean()}
 
     def predict(self, model, img, generator: Optional[torch.Generator] = None):
         """Epistemic-sampling forward: (N, C, H, W) -> mu (N, T_e, K, 2),

@@ -1,1 +1,2 @@
-"""Uncertainty projection and uncertainty-map utilities."""
+"""Uncertainty projection and uncertainty maps, the Dice metric, phase timing
+and the model summary."""

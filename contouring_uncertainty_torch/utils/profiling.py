@@ -1,0 +1,68 @@
+"""Phase timing and the model summary of a training run.
+
+Counterpart of contouring_uncertainty_tpu/utils/profiling.py:
+
+- `PhaseTimer`: accumulating wall-clock phases, each duration kept, with a
+  `torch.cuda.synchronize()` at the end of each phase when `sync` is set (so
+  a phase's time includes the device work it queued); written to
+  `{name}_phases.json` beside the metrics CSV;
+- `model_summary`: a parameter table (module, shape, count, total), the
+  counterpart of the flax `tabulate` dump in `summary.txt`.
+
+The JAX `device_trace` has no counterpart here: `torch.profiler` is used
+directly where a trace is wanted.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+
+class PhaseTimer:
+    def __init__(self, sync: bool = False):
+        self.samples: Dict[str, List[float]] = defaultdict(list)
+        self.sync = sync
+
+    @contextmanager
+    def phase(self, name: str):
+        start = time.perf_counter()
+        yield
+        if self.sync:
+            torch.cuda.synchronize()
+        self.samples[name].append(time.perf_counter() - start)
+
+    def summary(self) -> Dict[str, Dict]:
+        """Per phase: total seconds, count, mean and median ms, and every
+        duration in ms in the order they were taken."""
+        return {
+            name: {
+                "total_s": round(sum(s), 4),
+                "count": len(s),
+                "mean_ms": round(1000 * sum(s) / len(s), 3),
+                "median_ms": round(1000 * statistics.median(s), 3),
+                "samples_ms": [round(1000 * t, 3) for t in s],
+            }
+            for name, s in self.samples.items()
+        }
+
+    def dump(self, path: str | Path):
+        Path(path).write_text(json.dumps(self.summary(), indent=2))
+
+
+def model_summary(model: torch.nn.Module, input_shape) -> str:
+    """One line per parameter (name, shape, count), then the total."""
+    rows = [(name, tuple(p.shape), p.numel()) for name, p in model.named_parameters()]
+    width = max((len(r[0]) for r in rows), default=10)
+    lines = [f"{type(model).__name__}, input (N, {', '.join(map(str, input_shape))})",
+             f"{'parameter':<{width}}  {'shape':<22} count"]
+    lines += [f"{name:<{width}}  {str(shape):<22} {n}" for name, shape, n in rows]
+    lines.append(f"total parameters: {sum(r[2] for r in rows)}")
+    return "\n".join(lines) + "\n"

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports no JAX, nothing of the JAX
-package and neither h5py nor matplotlib; its entry points default to the
-GPU and raise without one instead of carrying on on the CPU; and
-chip_smoke.py refuses to run without a card or outside a checkout.
+package and none of h5py, matplotlib, PyYAML and orbax; its entry points
+default to the GPU and raise without one instead of carrying on on the CPU;
+and chip_smoke.py refuses to run without a card or outside a checkout.
 """
 
 import ast
@@ -15,15 +15,19 @@ import pytest
 import torch
 
 import contouring_uncertainty_torch as port
+from contouring_uncertainty_torch import factory, runner
 from contouring_uncertainty_torch import predict as tpred
+from contouring_uncertainty_torch.config import compose
 from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
 from contouring_uncertainty_torch.device import resolve_device
 from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
+from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = Path(port.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "contouring_uncertainty_tpu", "h5py", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "contouring_uncertainty_tpu", "h5py",
+             "matplotlib", "yaml")
 SMALL = dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3, drop_block=True)
 
 
@@ -68,7 +72,9 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     """Without a GPU, every public entry point called without `device`
-    raises; `device="cpu"` is the only way onto the CPU."""
+    raises (the serving path's, and the trainer, the factory's
+    build_trainer and runner.run of the training path); `device="cpu"` is
+    the only way onto the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = SyntheticContourData(n_patients=5, size=64, seed=0)
     task = DSNTAleatoric(data_params=data.data_params, t_e=1, t_a=2, model_kwargs=SMALL)
@@ -86,6 +92,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         tpred.AleatoricPredictor(task, model, sampler)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpred.run_predict(task, model, data, {"seed": 0})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(task, TrainerConfig())
+    cfg = compose(["data=synthetic", "data.image_size=64", "data.n_patients=5"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        factory.build_trainer(cfg, task)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runner.run(["data=synthetic", "data.image_size=64", "data.n_patients=5"])
+    assert factory.build_trainer(cfg, task, device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])
