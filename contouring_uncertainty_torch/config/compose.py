@@ -6,11 +6,11 @@ groups, composition order and override grammar, over JSON files under
 the same trees as the JAX package's YAML files of the same names.
 
 Override values are parsed as YAML 1.1's `safe_load` parses the scalars and
-flow sequences that a command line gives: booleans (true/yes/on and
-false/no/off, in the three spellings YAML knows), null and ~, decimal,
-octal, hexadecimal and binary integers, floats and .inf/.nan (with Hydra's
-reading of `3e-4` as a float), quoted and plain strings, and
-`[a, b, [c, d]]` lists of these.
+flow sequences that a command line sends: booleans (true/yes/on and
+false/no/off, in the three spellings YAML knows), null and ~, decimal
+integers, floats (with Hydra's reading of `3e-4` as a float), quoted and
+plain strings, and `[a, b, [c, d]]` lists of these. YAML's other integer
+bases, underscores and .inf/.nan are not read: they stay strings.
 """
 
 from __future__ import annotations
@@ -61,15 +61,8 @@ _BOOL = {**{s: True for s in ("true", "True", "TRUE", "yes", "Yes", "YES", "on",
          **{s: False for s in ("false", "False", "FALSE", "no", "No", "NO", "off", "Off",
                                "OFF")}}
 _NULL = ("", "~", "null", "Null", "NULL")
-_INT_RE = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
-_INT_BASES = ((re.compile(r"[-+]?0b[01_]+"), 2), (re.compile(r"[-+]?0x[0-9a-fA-F_]+"), 16),
-              (re.compile(r"[-+]?0[0-7_]+"), 8))
-_FLOAT_RE = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?"
-                       r"|\.[0-9][0-9_]*([eE][-+][0-9]+)?")
-_SPECIAL = {**{f"{sign}.{inf}": float(f"{sign}inf") for sign in ("", "+", "-")
-               for inf in ("inf", "Inf", "INF")},
-            **{f".{nan}": float("nan") for nan in ("nan", "NaN", "NAN")}}
-_NUM_RE = re.compile(r"[+-]?(\d+\.?\d*|\.\d+)[eE][+-]?\d+$")
+_INT_RE = re.compile(r"[-+]?(0|[1-9][0-9]*)")
+_FLOAT_RE = re.compile(r"[-+]?((\d+\.\d*|\.\d+)([eE][-+]?\d+)?|\d+[eE][-+]?\d+)")
 
 
 def _parse_scalar(raw: str) -> Any:
@@ -81,15 +74,8 @@ def _parse_scalar(raw: str) -> Any:
     if text in _BOOL:
         return _BOOL[text]
     if _INT_RE.fullmatch(text):
-        return int(text.replace("_", ""))
-    for pattern, base in _INT_BASES:
-        if pattern.fullmatch(text):
-            return int(text.replace("_", ""), base)
+        return int(text)
     if _FLOAT_RE.fullmatch(text):
-        return float(text.replace("_", ""))
-    if text in _SPECIAL:
-        return _SPECIAL[text]
-    if _NUM_RE.fullmatch(text):
         return float(text)
     return text
 

@@ -15,6 +15,7 @@ the same on every device.
 
 from __future__ import annotations
 
+import hashlib
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -32,15 +33,46 @@ from contouring_uncertainty_torch.utils.umap import uncertainty_map
 
 
 def get_or_fit_prior(data, path: Optional[str]) -> ShapePrior:
-    """Load a shape prior, or fit one from the training contours and cache it."""
-    if path and Path(path).exists():
-        return load_prior(Path(path))
-    prior = fit_shape_prior(np.asarray(data.train_arrays("train")[Tags.contour]))
-    if path:
-        p = Path(path)
+    """Load the shape prior cached at `path`, or fit one from the training
+    contours and cache it there.
+
+    A prior cached here carries the sha256 of the contours it was fit on:
+    one fit on other contours (another data source, image size, patient
+    count or seed) is refit and overwritten. A prior file without that
+    digest (fit elsewhere, e.g. by the JAX package) is loaded only if it has
+    the contours' dimension 2K and its mean contour lies within a tenth of
+    the image's size of theirs; otherwise it raises."""
+    contours = np.ascontiguousarray(data.train_arrays("train")[Tags.contour])
+    digest = hashlib.sha256(f"{contours.shape} {contours.dtype}".encode()
+                            + contours.tobytes()).hexdigest()
+    p = Path(path) if path else None
+    if p is not None and p.exists():
+        with np.load(p) as stored:
+            cached = str(stored["fit_digest"]) if "fit_digest" in stored.files else None
+        if cached == digest:
+            return load_prior(p)
+        if cached is None:
+            prior = load_prior(p)
+            _check_foreign_prior(prior, contours, data.data_params.in_shape[-2:], p)
+            return prior
+        print(f"[predict] the shape prior at {p} was fit on other training contours; refitting")
+    prior = fit_shape_prior(contours)
+    if p is not None:
         p.parent.mkdir(parents=True, exist_ok=True)
-        save_prior(p, prior)
+        save_prior(p, prior, fit_digest=digest)
     return prior
+
+
+def _check_foreign_prior(prior: ShapePrior, contours: np.ndarray, image_hw, path: Path):
+    flat = contours.reshape(len(contours), -1).astype(np.float64)
+    if prior.dim != flat.shape[1]:
+        raise ValueError(f"the shape prior at {path} has dimension {prior.dim}; the training "
+                         f"contours have {flat.shape[1]} (2K)")
+    shift = np.abs(prior.train_mean.double().numpy() - flat.mean(0)).max()
+    if shift > 0.1 * max(image_hw):
+        raise ValueError(f"the shape prior at {path} has its mean contour {shift:.1f} px from "
+                         f"the training contours' mean in a {tuple(image_hw)} image: it was "
+                         "fit on other data; remove it or set task.psm_path")
 
 
 def fuse_epistemic_aleatoric(mu: torch.Tensor, cov: torch.Tensor):

@@ -77,8 +77,11 @@ def fit_shape_prior(contours: np.ndarray, with_std: bool = False) -> ShapePrior:
     )
 
 
-def save_prior(path: Path, prior: ShapePrior):
-    np.savez(path, **{k: v.detach().cpu().numpy() for k, v in prior._asdict().items()})
+def save_prior(path: Path, prior: ShapePrior, fit_digest: Optional[str] = None):
+    """Write the `.npz` prior; `fit_digest`, when given, is stored beside the
+    arrays (a key the loaders of both packages ignore)."""
+    extra = {} if fit_digest is None else {"fit_digest": np.array(fit_digest)}
+    np.savez(path, **extra, **{k: v.detach().cpu().numpy() for k, v in prior._asdict().items()})
 
 
 def load_prior(path: Path) -> ShapePrior:

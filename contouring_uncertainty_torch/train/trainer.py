@@ -80,8 +80,6 @@ class TrainerConfig:
     fast_dev_run: int = 0  # >0: cap batches per epoch and run 1 epoch
     augment: bool = True
     min_epochs: int = 1
-    # Feed the next batch from a background thread while a step runs.
-    overlap_feed: bool = True
     # Ship train images as uint8 (lossless for 8-bit data in [0, 1]); the
     # step dequantises them on the device.
     feed_uint8: bool = False
@@ -296,7 +294,9 @@ class Trainer:
         best_epoch = -1
         epochs_since_best = 0
         max_epochs = 1 if cfg.fast_dev_run else cfg.max_epochs
-        overlap = cfg.overlap_feed and not cfg.fast_dev_run
+        # The next batch is fed by a background thread while a step runs,
+        # except in a fast_dev_run, which stops after a few batches.
+        overlap = not cfg.fast_dev_run
         last_ckpt = run_dir / f"{cfg.name}_last.ckpt"
         try:
             for epoch in range(start_epoch, max_epochs):

@@ -241,3 +241,43 @@ def test_run_predict_on_synthetic_views(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     again = tpred.run_predict(task, model, data, cfg, device="cpu")
     np.testing.assert_array_equal(again[0].contour_samples, results[0].contour_samples)
+
+
+def test_cached_prior_is_keyed_by_the_training_contours(tmp_path, capsys):
+    """The prior cached at task.psm_path holds the digest of the contours it
+    was fit on: a run on other data (another seed, another image size) refits
+    and overwrites it instead of loading the old prior, and an unchanged run
+    loads it. A prior written by the JAX package (no digest) is loaded when
+    it fits the data and refused when its dimension or its image scale does
+    not."""
+    from contouring_uncertainty_tpu.sampler.prior import save_prior as j_save
+
+    path = str(tmp_path / "prior.npz")
+    small = SyntheticContourData(n_patients=5, size=SIZE, seed=1)
+    other = SyntheticContourData(n_patients=5, size=SIZE, seed=2)
+    larger = SyntheticContourData(n_patients=5, size=4 * SIZE, seed=1)
+    tpred.get_or_fit_prior(small, path)
+    capsys.readouterr()
+    for data in (other, larger, small):
+        prior = tpred.get_or_fit_prior(data, path)
+        assert "refitting" in capsys.readouterr().out
+        for a, b in zip(prior, fit_shape_prior(data.train_arrays("train")["contour"])):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    tpred.get_or_fit_prior(small, path)
+    assert "refitting" not in capsys.readouterr().out
+
+    contours = small.train_arrays("train")["contour"]
+    j_save(path, j_fit(contours))
+    prior = tpred.get_or_fit_prior(small, path)
+    # The JAX fit of the same contours: its means and covariance are the
+    # same f64 fit rounded to f32 (its factor q may differ in eigenvector
+    # signs).
+    fitted = fit_shape_prior(contours)
+    for key in ("mean_shape", "train_mean", "train_scale", "x_train_mean", "cov0"):
+        torch.testing.assert_close(getattr(prior, key), getattr(fitted, key),
+                                   rtol=1e-6, atol=1e-4)
+    with pytest.raises(ValueError, match="mean contour"):
+        tpred.get_or_fit_prior(larger, path)
+    j_save(path, j_fit(contours[:, :10]))
+    with pytest.raises(ValueError, match="dimension 20"):
+        tpred.get_or_fit_prior(small, path)
