@@ -25,18 +25,28 @@ result line):
    zigzag contours of the JAX package's parity check and on the edge cases
    of ops/rasterize.py `selection_edge_cases` (tied crossings, horizontal
    edges, vertices outside the image, rows with more crossings than a
-   bucket holds): bitwise-equal crossings, 0 mismatched fill pixels; the
-   rows that took the overflow path are counted and must not be 0; on
-   polygons with NaN and infinite vertices, equal to the plain selection
-   with NaN candidates dropped (the one place where the two differ);
+   bucket holds, NaN and infinite vertices): bitwise-equal crossings with
+   NaN positions matched, 0 mismatched fill pixels; the rows that took the
+   overflow path are counted and must not be 0; then the NaN rule alone
+   (rows with a NaN candidate are all NaN, and the fill counts no crossing
+   there) on a circle with a NaN vertex and on NaN and infinite vertices;
 5. the main path: `run_predict` on synthetic CAMUS-like views with the
    flagship TMI serving configuration (8-stage UNet at full width, bf16,
    MC dropout T_e=10 x PSM T_a=25, 256^2, K=21) and seed-initialised
    weights; launch counters reset just before and read just after; outputs
-   finite with the JAX package's shapes; steady-state views/s; the device's
-   busy time per view from a profiled pass, and the top kernels;
+   finite with the JAX package's shapes; steady-state views/s (without the
+   results processors); the device's busy time per view from a profiled
+   pass, and the top kernels; then the results processors of the flagship
+   data config (point_metrics, calibration, clinical_metrics,
+   instant_metrics, mutual_info) on the 6 views: no processor error, the
+   CSVs and metrics.json written, every value finite where the CPU run of
+   the same processors on the same views is, and the card's values equal
+   to the CPU's (areas and FAC exactly, the rest within PROCESSOR_TOL);
+   their host time per view and the clinical metrics' device time;
 6. the crossing selection again on one view's 500 sampled contours;
 7. the GPU path against the CPU path (plain versions) on a small input;
+   the mask-space GLS functions of utils/clinical.py on the card against
+   the CPU, with tied bottom-most base pixels (the first is taken);
 8. kernel timings beside their bounds and plain versions at the main
    path's shapes; K2's band splits at the row counts of T_e=1, 5 and 10;
    K1's launch at the serving shape and K1 at 21 and 42 columns;
@@ -46,9 +56,10 @@ result line):
    flagship training configuration (8-stage UNet at full width, f32,
    `drop_block`, batch 32, 256^2, K=21, AdamW lr 1e-3 wd 1e-3, augmentation
    on) on 60 synthetic patients (4 batches per epoch), 3 epochs, then the
-   test metrics and predict at T_e=1; every loss finite, checkpoints and CSV
-   written; ms/step and images/s, peak memory, launches per train step,
-   val/test batch and predict view (K2 1, 1, 1; K3 0, 1, 1), and the idle
+   test metrics and predict at T_e=1 with the five results processors;
+   every loss finite, checkpoints and CSV written, no processor error and
+   the clinical CSVs written over the 24 predicted views; ms/step and
+   images/s, peak memory, launches per train step, val/test batch and predict view (K2 1, 1, 1; K3 0, 1, 1), and the idle
    share and top device rows of a profiled pass over 3 train steps. Then an
    overfit check (one fixed batch, 10 steps, the loss must fall); both
    moment Functions at (672, 65536) f32: their moments against the plain
@@ -92,6 +103,16 @@ STEADY_PASSES = 5  # timed passes over the test views after the first
 # frames, 4 batches of 32 per epoch; 48 validation and 48 test frames).
 TRAIN_CFG = dict(n_patients=60, epochs=3, batch=32, seed=0)
 TRAIN_DIR = Path("outputs") / "chip_smoke_train"  # git-ignored, removed at the end
+# The flagship data config's results processors (config/json/data/camus-cont.json).
+PROCESSOR_NAMES = ["point_metrics", "calibration", "clinical_metrics", "instant_metrics",
+                   "mutual_info"]
+# The card's processor outputs against the CPU's on the same views: values
+# downstream of the clinical f32 reductions (spline perimeters, Simpson
+# volumes: GLS, EDV, ESV, EF, Volume and their stds, errors, correlations
+# and UCE) within atol + rtol * |cpu|; all other values, the areas and FAC
+# included, equal.
+PROCESSOR_TOL = {"rtol": 5e-5, "atol": 1e-5}
+DEVICE_REDUCED = ("GLS", "EDV", "ESV", "EF", "Volume")
 TRAIN_OVERRIDES = [
     "data=synthetic", f"data.n_patients={TRAIN_CFG['n_patients']}", "data.image_size=256",
     "task=dsnt-al", "task/model=unet2", "task.model.drop_block=true",
@@ -100,6 +121,7 @@ TRAIN_OVERRIDES = [
     "trainer.augment=true", f"trainer.save_every={TRAIN_CFG['epochs']}",
     f"seed={TRAIN_CFG['seed']}", f"save_path={TRAIN_DIR}",
     f"task.psm_path={TRAIN_DIR / 'psm.npz'}",
+    f"data.results_processors=[{', '.join(PROCESSOR_NAMES)}]",
 ]
 # K2's gradient against autograd of the plain version in f64, relative to
 # the largest gradient: the adjoint recomputes p in f32 (CPU: 1.8e-7).
@@ -245,7 +267,7 @@ def check_selection(dense, height: int, width: int, label: str) -> int:
     xs_k = select_kernel.min_k_crossings_kernel(dense, height, overflow_rows=overflow)
     xs_p = select_kernel.min_k_crossings_plain(dense, height)
     torch.cuda.synchronize()
-    unequal = int((xs_k != xs_p).sum().item())
+    unequal = int(((xs_k != xs_p) & ~(xs_k.isnan() & xs_p.isnan())).sum().item())
     fill_k = fill_from_crossings(xs_k, dense, width)
     fill_p = fill_from_crossings(xs_p, dense, width)
     mismatch = int((fill_k != fill_p).sum().item())
@@ -259,33 +281,45 @@ def check_selection(dense, height: int, width: int, label: str) -> int:
 
 
 def check_non_finite() -> None:
-    """K3 drops a NaN abscissa, where the plain version keeps it (torch.topk
-    ranks NaN first). On polygons with a NaN or infinite vertex coordinate
-    the kernel must equal the plain selection over the candidates with NaN
-    set to +inf, bitwise."""
+    """The NaN rule of the crossing selection (the JAX Pallas kernel's): a
+    row whose candidates hold a NaN comes out all NaN, in the kernel as in
+    the plain version, and the fill counts no crossing there. On a circle
+    of 64 vertices (radius 8 about (16, 16), 32 rows) with vertex 5 NaN,
+    rows 0-20 are NaN; on circles of 32 vertices (16 rows) with a NaN x, a
+    NaN y, an infinite x and an infinite y, each has NaN rows. The kernel
+    equals the plain version bitwise with NaN positions matched, and its
+    fills equal the plain fills."""
     import torch
 
     from contouring_uncertainty_torch.ops import select_kernel
+    from contouring_uncertainty_torch.ops.rasterize import fill_from_crossings, nan_circle
 
-    height = 16
     angle = np.linspace(0.0, 2.0 * np.pi, 32, endpoint=False)
     circle = np.stack([8.0 + 5.5 * np.cos(angle), 8.0 + 5.5 * np.sin(angle)], -1)
     polys = np.repeat(circle[None].astype(np.float32), 4, axis=0)
     polys[0, 3, 1] = np.nan
-    polys[1, 9, 0] = np.nan
+    polys[1, 0, 0] = np.nan
     polys[2, 20, 1] = np.inf
     polys[3, 27, 0] = -np.inf
-    dense = torch.as_tensor(polys, device="cuda")
-    cand = select_kernel.crossing_candidates(dense, height)
-    ref = -torch.topk(-torch.where(cand.isnan(), float("inf"), cand),
-                      select_kernel.K_CROSSINGS, dim=-1).values
-    got = select_kernel.min_k_crossings_kernel(dense, height)
-    plain_nan = int(select_kernel.min_k_crossings_plain(dense, height).isnan().any(-1).sum())
-    unequal = int((got != ref).sum().item())
-    print(f"  selection non-finite vertices: crossings differing from the NaN-dropping "
-          f"selection {unequal}; rows where the plain version keeps NaN {plain_nan}")
-    if unequal:
-        raise AssertionError("crossing selection on non-finite vertices differs")
+    for label, arr, height in (("NaN vertex 5 of a 64-vertex circle", nan_circle()[None], 32),
+                               ("NaN and infinite vertices", polys, 16)):
+        dense = torch.as_tensor(arr, device="cuda")
+        got = select_kernel.min_k_crossings_kernel(dense, height)
+        ref = select_kernel.min_k_crossings_plain(dense, height)
+        nan_rows = ref.isnan().all(-1)
+        unequal = int(((got != ref) & ~(got.isnan() & ref.isnan())).sum().item())
+        nan_unequal = int((got.isnan() != ref.isnan()).sum().item())
+        fills = [fill_from_crossings(xs, dense, height) for xs in (got, ref)]
+        mismatch = int((fills[0] != fills[1]).sum().item())
+        print(f"  selection {label}: rows all NaN per polygon "
+              f"{nan_rows.sum(-1).tolist()}; crossings differing {unequal} (NaN positions "
+              f"differing {nan_unequal}), fill pixels differing {mismatch}")
+        if unequal or mismatch or not nan_rows.any(-1).all():
+            raise AssertionError(f"crossing selection's NaN rule fails ({label})")
+        if not bool((ref.isnan().any(-1) == nan_rows).all()):
+            raise AssertionError(f"the plain selection has partly NaN rows ({label})")
+        if height == 32 and nan_rows[0].nonzero().flatten().tolist() != list(range(21)):
+            raise AssertionError(f"NaN rows of the circle: {nan_rows[0].nonzero().tolist()}")
 
 
 def main_path(profile_dir=None) -> dict:
@@ -393,6 +427,105 @@ def profile_run(fn, out_dir=None):
     return kernel_ms, copy_ms, events.table(sort_by="self_device_time_total", row_limit=12)
 
 
+def read_csv_cells(path: Path):
+    """(header, rows) of a CSV the processors wrote, as strings."""
+    import csv
+
+    with open(path, newline="") as f:
+        header, *rows = list(csv.reader(f))
+    return header, rows
+
+
+def differing(name: str, got, ref) -> int:
+    """1 if a card value differs from the CPU's beyond PROCESSOR_TOL (values
+    downstream of the clinical f32 reductions) or at all (the others), NaN
+    matching NaN; 0 otherwise. Strings are compared as text."""
+    try:
+        g, r = float(got), float(ref)
+    except (TypeError, ValueError):
+        return int(got != ref)
+    if np.isnan(g) or np.isnan(r):
+        return int(np.isnan(g) != np.isnan(r))
+    if any(m in name for m in DEVICE_REDUCED):
+        return int(abs(g - r) > PROCESSOR_TOL["atol"] + PROCESSOR_TOL["rtol"] * abs(r))
+    return int(g != r)
+
+
+PROCESSOR_FILES = ["metrics.json", "instant_metrics.csv", "data_instant.npy", "data_point.npy",
+                   *(f"clinical/{t}_df.csv" for t in ("instant", "view", "patient", "volume"))]
+CSV_FILES = [f for f in PROCESSOR_FILES if f.endswith(".csv")]
+
+
+def processors_check(results, profile_dir=None) -> dict:
+    """The flagship data config's results processors on the main path's
+    views: on the card (checked, then timed; the clinical metrics alone
+    timed and profiled), then on the CPU, whose outputs the card's must
+    equal within PROCESSOR_TOL."""
+    import tempfile
+
+    import torch
+
+    from contouring_uncertainty_torch.results import run_processors
+
+    cfg = {"data": {"results_processors": PROCESSOR_NAMES}}
+    clinical_cfg = {"data": {"results_processors": ["clinical_metrics"]}}
+    n_views = len(results)
+
+    def timed(out_dir, config, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_processors(results, out_dir, config, device=device)
+        torch.cuda.synchronize()
+        return metrics, (time.perf_counter() - t0) * 1e3 / n_views
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        gpu, first_ms = timed(tmp / "gpu", cfg, "cuda")
+        if "processor_errors" in gpu:
+            raise AssertionError(f"processor errors on the card: {gpu['processor_errors']}")
+        missing = [f for f in PROCESSOR_FILES if not (tmp / "gpu" / f).exists()]
+        if missing:
+            raise AssertionError(f"the processors did not write {missing}")
+        _, host_ms = timed(tmp / "gpu2", cfg, "cuda")
+        _, clinical_ms = timed(tmp / "clinical", clinical_cfg, "cuda")
+        kernel_ms, copy_ms, table = profile_run(
+            lambda: run_processors(results, tmp / "clinical2", clinical_cfg, device="cuda"),
+            profile_dir / "processors" if profile_dir is not None else None)
+        cpu, cpu_ms = timed(tmp / "cpu", cfg, "cpu")
+
+        if set(gpu) != set(cpu):
+            raise AssertionError(f"summary keys differ: {sorted(set(gpu) ^ set(cpu))}")
+        bad = {k: (gpu[k], cpu[k]) for k in cpu if differing(k, gpu[k], cpu[k])}
+        cells = 0
+        for name in CSV_FILES:
+            header, rows = read_csv_cells(tmp / "gpu" / name)
+            ref_header, ref_rows = read_csv_cells(tmp / "cpu" / name)
+            if header != ref_header or [r[0] for r in rows] != [r[0] for r in ref_rows]:
+                raise AssertionError(f"{name}: the card's columns or rows differ from the CPU's")
+            for row, ref_row in zip(rows, ref_rows):
+                for col, got, ref in zip(header[1:], row[1:], ref_row[1:]):
+                    cells += 1
+                    if differing(col, got, ref):
+                        bad[f"{name}:{row[0]}:{col}"] = (got, ref)
+        floats = [v for v in gpu.values() if isinstance(v, float)]
+        non_finite = sorted(k for k, v in gpu.items() if isinstance(v, float)
+                            and not np.isfinite(v))
+        if bad:
+            raise AssertionError(f"the card's processor outputs differ from the CPU's "
+                                 f"(tolerance {PROCESSOR_TOL}): {dict(list(bad.items())[:10])}")
+        for key in ("clinical_metrics/instant/Area_error", "clinical_metrics/view/FAC_error",
+                    "clinical_metrics/view/GLS_error", "clinical_metrics/patient/EF_error",
+                    "clinical_metrics/patient/EDV_error", "clinical_metrics/Volume_uce"):
+            if not np.isfinite(gpu[key]):
+                raise AssertionError(f"{key} is not finite: {gpu[key]}")
+        patients = len(read_csv_cells(tmp / "gpu" / "clinical/patient_df.csv")[1])
+    return {"keys": len(gpu), "floats": len(floats), "non_finite": non_finite, "cells": cells,
+            "patients": patients, "first_ms_per_view": first_ms, "host_ms_per_view": host_ms,
+            "clinical_host_ms_per_view": clinical_ms, "cpu_ms_per_view": cpu_ms,
+            "clinical_kernel_ms_per_view": kernel_ms / n_views,
+            "clinical_copy_ms_per_view": copy_ms / n_views, "clinical_profile": table}
+
+
 def small_reference_check():
     """The GPU path (kernels) against the CPU path (plain versions) on one
     small view: same weights, same CPU-generator draws."""
@@ -441,6 +574,47 @@ def small_reference_check():
     if (mu_err > 1e-3 or cov_err > 1e-3 or sample_dev > 1e-2 or pop_diff > 2e-2
             or fill_diff > 1e-4):
         raise AssertionError("GPU path disagrees with the CPU path")
+
+
+def clinical_mask_check() -> None:
+    """The mask-space GLS of utils/clinical.py on the card against the CPU:
+    base markers (equal, on frontiers whose bottom row ties, where the first
+    pixel is taken as `jnp.argmax` takes it) and longitudinal lengths
+    (1e-6 relative), on LV and myocardium label maps and on a flat-bottomed
+    LV alone."""
+    import torch
+
+    from contouring_uncertainty_torch.utils import clinical as C
+
+    size = 64
+    yy, xx = np.mgrid[0:size, 0:size]
+    segs = np.zeros((4, size, size), np.float32)
+    for i, scale in enumerate((1.0, 0.9, 0.8)):
+        ry, rx = 23 * scale, 13 * scale
+        lv = (((yy - 40) / ry) ** 2 + ((xx - 32) / rx) ** 2 <= 1) & (yy <= 40)
+        outer = (((yy - 40) / (ry + 5)) ** 2 + ((xx - 32) / (rx + 5)) ** 2 <= 1) & (yy <= 40)
+        segs[i][outer & ~lv] = 2
+        segs[i][lv] = 1
+    segs[3, 10:30, 12:40] = 1  # flat bottom: ties along row 29
+    for use_myo in (True, False):
+        cpu = C.mask_endo_base(torch.as_tensor(segs), use_myo=use_myo)
+        gpu = C.mask_endo_base(torch.as_tensor(segs, device="cuda"), use_myo=use_myo)
+        flat = [(a.cpu(), b) for a, b in zip(
+            (gpu[0][0], gpu[0][1], gpu[1][0], gpu[1][1], gpu[2]),
+            (cpu[0][0], cpu[0][1], cpu[1][0], cpu[1][1], cpu[2]))]
+        len_gpu = C.mask_longitudinal_length(torch.as_tensor(segs, device="cuda"),
+                                             use_myo=use_myo).cpu()
+        len_cpu = C.mask_longitudinal_length(torch.as_tensor(segs), use_myo=use_myo)
+        print(f"    mask GLS, use_myo={use_myo}: base markers (y, x) left "
+              f"{list(zip(gpu[0][0].tolist(), gpu[0][1].tolist()))}, right "
+              f"{list(zip(gpu[1][0].tolist(), gpu[1][1].tolist()))}; lengths "
+              f"{[round(v, 3) for v in len_gpu.tolist()]}")
+        if not all(torch.equal(a, b) for a, b in flat):
+            raise AssertionError(f"base markers differ on the card (use_myo={use_myo})")
+        torch.testing.assert_close(len_gpu, len_cpu, rtol=1e-6, atol=0, equal_nan=True)
+    left = (gpu[0][0][3].item(), gpu[0][1][3].item())
+    if left != (29.0, 12.0):
+        raise AssertionError(f"tied base pixels: the first is (29, 12), the card took {left}")
 
 
 def kernel_timings(main: dict) -> list:
@@ -636,6 +810,16 @@ def training_run() -> dict:
     csv_rows = (run_dir / f"{name}_metrics.csv").read_text().strip().splitlines()
     if len(csv_rows) != 1 + TRAIN_CFG["epochs"]:
         raise AssertionError(f"metrics CSV has {len(csv_rows)} lines")
+    if "processor_errors" in result:
+        raise AssertionError(f"processor errors in the training run: {result['processor_errors']}")
+    n_views = len(result["predict"])
+    clinical = TRAIN_DIR / "results" / "clinical"
+    expected_rows = {"instant": 2 * n_views, "view": n_views, "patient": n_views // 2,
+                     "volume": n_views}
+    for table, n_rows in expected_rows.items():
+        path = clinical / f"{table}_df.csv"
+        if not path.exists() or len(read_csv_cells(path)[1]) != n_rows:
+            raise AssertionError(f"{path} is missing or has not {n_rows} rows")
     k = 21
     for res in result["predict"]:
         n = res.img.shape[0]
@@ -661,6 +845,7 @@ def training_run() -> dict:
     median_ms = later[len(later) // 2]
     return {"history": history, "test": result["test_metrics"], "wall_s": wall_s,
             "ckpt": result["ckpt_path"], "views": len(result["predict"]),
+            "clinical_rows": expected_rows,
             "ledger": {label: len(calls) for label, calls in ledger.items()},
             "per_call": expected, "totals": totals, "peak_gib": peak_gib,
             "step_ms": median_ms, "step_ms_range": (later[0], later[-1]),
@@ -1004,6 +1189,20 @@ def main(argv) -> int:
           f"{copy_ms:.2f} ms = {busy:.1%} of the steady-state view time; idle share "
           f"{1 - busy:.1%}")
     print(main_res["profile"])
+    proc = processors_check(main_res["results"], profile_dir)
+    print(f"    results processors {PROCESSOR_NAMES} on the {main_res['views']} views "
+          f"({proc['patients']} patients with both views): {proc['keys']} summary keys, "
+          f"{proc['floats']} floats, {len(proc['non_finite'])} not finite (as on the CPU: "
+          f"{', '.join(k.split('/', 1)[1] for k in proc['non_finite'])}); "
+          f"card vs CPU: {proc['cells']} CSV cells and every summary key within "
+          f"{PROCESSOR_TOL} (areas and FAC equal)")
+    print(f"    processors' host time per view (synchronised): "
+          f"{proc['host_ms_per_view']:.1f} ms on the card (first call "
+          f"{proc['first_ms_per_view']:.1f} ms), {proc['cpu_ms_per_view']:.1f} ms on the CPU; "
+          f"clinical_metrics alone {proc['clinical_host_ms_per_view']:.1f} ms, of which device "
+          f"time (profiled pass) kernels {proc['clinical_kernel_ms_per_view']:.2f} ms + copies "
+          f"{proc['clinical_copy_ms_per_view']:.2f} ms, on {card}")
+    print(proc["clinical_profile"])
 
     print("[6] crossing selection vs plain: one view's sampled contours")
     samples = torch.as_tensor(main_res["results"][0].contour_samples, device="cuda")
@@ -1012,6 +1211,7 @@ def main(argv) -> int:
 
     print("[7] reference check on a small input")
     small_reference_check()
+    clinical_mask_check()
 
     print("[8] kernel timings at the main path's shapes")
     kernels = kernel_timings(main_res)
@@ -1030,6 +1230,8 @@ def main(argv) -> int:
               "val/dice {val/dice:.4f}, {time:.1f} s".format(**row))
     print(f"    test: {', '.join(f'{k} {v:.4f}' for k, v in train['test'].items())}; "
           f"{train['views']} views predicted at T_e=1; run {train['wall_s']:.1f} s")
+    print(f"    results processors {PROCESSOR_NAMES}: no processor error; clinical rows "
+          f"{train['clinical_rows']}")
     lo, hi = train["step_ms_range"]
     print(f"    train step: median {train['step_ms']:.1f} ms over the steps after the first "
           f"epoch (range {lo:.1f}-{hi:.1f}; first step {train['first_step_ms']:.1f}), "

@@ -9,8 +9,10 @@ Override values are parsed as YAML 1.1's `safe_load` parses the scalars and
 flow sequences that a command line sends: booleans (true/yes/on and
 false/no/off, in the three spellings YAML knows), null and ~, decimal
 integers, floats (with Hydra's reading of `3e-4` as a float), quoted and
-plain strings, and `[a, b, [c, d]]` lists of these. YAML's other integer
-bases, underscores and .inf/.nan are not read: they stay strings.
+plain strings, `[a, b, [c, d]]` lists of these and `{key: value, ...}`
+mappings of them (`data.transform.transforms=[{name: normalizesample}]`).
+YAML's other integer bases, underscores and .inf/.nan are not read: they
+stay strings.
 """
 
 from __future__ import annotations
@@ -83,9 +85,9 @@ def _parse_scalar(raw: str) -> Any:
 def _split_top_level(body: str) -> List[str]:
     items, depth, start = [], 0, 0
     for i, ch in enumerate(body):
-        if ch == "[":
+        if ch in "[{":
             depth += 1
-        elif ch == "]":
+        elif ch in "]}":
             depth -= 1
         elif ch == "," and depth == 0:
             items.append(body[start:i])
@@ -101,6 +103,14 @@ def _parse_value(raw: str) -> Any:
         if not body.strip():
             return []
         return [_parse_value(item) for item in _split_top_level(body)]
+    if text.startswith("{") and text.endswith("}"):
+        body = text[1:-1]
+        if not body.strip():
+            return {}
+        pairs = [item.split(":", 1) for item in _split_top_level(body)]
+        if any(len(pair) != 2 for pair in pairs):
+            raise ValueError(f"Cannot parse the mapping {text!r}: each item must be key: value")
+        return {str(_parse_scalar(k)): _parse_value(v) for k, v in pairs}
     return _parse_scalar(text)
 
 

@@ -47,13 +47,19 @@
 //   buckets 32 KB, counts and the long-edge list), so that five blocks are
 //   resident per SM and all 500 masks of a view run in one wave.
 //
-// A crossing whose abscissa is NaN or +inf is no crossing: it never enters
-// the list, whose padding is +inf (an edge with a NaN end point straddles no
-// row in the enumeration, and gives a NaN abscissa in the walk). Here alone
-// the kernel and its plain version differ: the plain version keeps a NaN
-// candidate, which torch.topk ranks first. On such input the kernel equals
-// the plain selection over the candidates with NaN set to +inf
-// (chip_smoke.py [4] checks it); the serving path's splines are finite.
+// Non-finite vertices follow the reference's Pallas kernel, whose running
+// minimum turns NaN at a NaN candidate and then retires nothing: a row with
+// a NaN candidate comes out all NaN. A row is marked by a flag bit in its
+// count (kNanRow), which sends it to an all-NaN output in the selection:
+// - an edge with both y finite or infinite: its rows are enumerated as
+//   above, and a straddled row whose abscissa is NaN (a NaN x, or inf - inf
+//   from an infinite coordinate) is marked there;
+// - an edge with one NaN y straddles, by the predicate, exactly the rows
+//   y < the other end's y, each with a NaN abscissa: ceilf bounds them as
+//   in row_range, and all are marked;
+// - an edge with both y NaN straddles no row.
+// So a row is marked iff the plain version's candidates hold a NaN there.
+// A +inf abscissa never enters the list, whose padding is +inf.
 //
 // Bitwise parity with the plain PyTorch version (ops/select_kernel.py): the
 // library is built with --fmad=false and IEEE division (no --use_fast_math),
@@ -70,6 +76,7 @@ constexpr int kCap = 32;        // crossings a row's shared-memory bucket holds
 constexpr int kShort = 8;       // rows an edge's own thread enumerates
 constexpr int kLong = 128;      // long edges the block shares out
 constexpr int kThreads = 256;   // edges, then rows, per block pass
+constexpr int kNanRow = 1 << 30;  // count flag: the row has a NaN candidate
 
 __device__ __forceinline__ float crossing(float4 ed, float yf) {
   const float denom = ed.y - ed.x;
@@ -113,8 +120,9 @@ __device__ __forceinline__ void walk_row(Edges edges, int E, float yf, float (&v
 
 // Rows first..last that straddle the edge: lo <= y < hi, i.e.
 // ceil(lo) .. ceil(hi) - 1, clipped to the image in float before any int
-// cast. False for a horizontal edge or a NaN end point, which straddle no
-// row, and for an edge outside the image.
+// cast. False for a horizontal edge or two NaN end points, which straddle
+// no row, and for an edge outside the image (an edge with one NaN end point
+// goes to mark_nan_rows before this).
 __device__ __forceinline__ bool row_range(float4 ed, int H, int& first, int& last) {
   const float lo = fminf(ed.x, ed.y);
   const float hi = fmaxf(ed.x, ed.y);
@@ -130,14 +138,28 @@ __device__ __forceinline__ int bucket_at(int y, int j) {
   return (y / kThreads) * (kCap * kThreads) + j * kThreads + y % kThreads;
 }
 
-// Append the edge's crossing of row y, if it straddles it, to y's bucket.
+// Append the edge's crossing of row y, if it straddles it, to y's bucket;
+// a NaN crossing marks the row instead. A marked row's slots are >= kCap.
 __device__ __forceinline__ void add_crossing(float4 ed, int y, int* count, float* bucket) {
   const float yf = static_cast<float>(y);
   if ((ed.x > yf) == (ed.y > yf)) return;
   const float c = crossing(ed, yf);
+  if (isnan(c)) {
+    atomicOr(&count[y], kNanRow);
+    return;
+  }
   if (!(c < INFINITY)) return;
   const int slot = atomicAdd(&count[y], 1);
   if (slot < kCap) bucket[bucket_at(y, slot)] = c;
+}
+
+// An edge with one NaN end point: the predicate selects the rows y < the
+// other end's y (0 .. ceil(other) - 1, clipped to the image in float), and
+// each of their abscissae is NaN.
+__device__ __forceinline__ void mark_nan_rows(float other, int H, int* count) {
+  const float last_row = static_cast<float>(H - 1);
+  const int last = static_cast<int>(fmaxf(fminf(ceilf(other) - 1.0f, last_row), -1.0f));
+  for (int y = 0; y <= last; ++y) atomicOr(&count[y], kNanRow);
 }
 
 // Float4 j of the tile's row r, swizzled so that eight threads storing
@@ -167,6 +189,10 @@ __global__ void __launch_bounds__(kThreads) min_k_crossings_kernel(
   const int e_end = min(E, (threadIdx.x + 1) * run);
   for (int e = threadIdx.x * run; e < e_end; ++e) {
     const float4 ed = edge_at(verts, e, E);
+    if (isnan(ed.x) != isnan(ed.y)) {
+      mark_nan_rows(isnan(ed.x) ? ed.y : ed.x, H, count);
+      continue;
+    }
     int first, last;
     if (!row_range(ed, H, first, last)) continue;
     if (last - first >= kShort) {
@@ -200,7 +226,10 @@ __global__ void __launch_bounds__(kThreads) min_k_crossings_kernel(
     for (int j = 0; j < kK; ++j) v[j] = INFINITY;
     if (y < H) {
       const int c = count[y];
-      if (c <= kCap) {
+      if (c & kNanRow) {
+#pragma unroll
+        for (int j = 0; j < kK; ++j) v[j] = __int_as_float(0x7fc00000);  // quiet NaN
+      } else if (c <= kCap) {
         for (int j = 0; j < c; ++j) insert(v, bucket[bucket_at(y, j)]);
       } else {
         walk_row([&](int e) { return edge_at(verts, e, E); }, E, static_cast<float>(y), v);

@@ -14,7 +14,7 @@ re-extracts them from the label masks).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -118,10 +118,15 @@ class SyntheticContourData:
     """In-memory CAMUS-like contour data: `n_patients` patients with a 2CH
     and a 4CH view of two frames (ED, ES) each, split train/val/test by the
     same rule and drawn in the same order as the JAX package's
-    `write_camus_hdf5`. Single contour group: the LV, label 1."""
+    `write_camus_hdf5`. Single contour group: the LV, label 1.
+
+    `transform` (data/transforms.py `build_transform`) is applied once to
+    each view's (frames, H, W) image stack, as the JAX package's CAMUS
+    reader applies it at load time, so training arrays and predicted views
+    both hold the transformed images."""
 
     def __init__(self, n_patients: int = 8, k: int = 21, size: int = 256,
-                 seed: int = 0):
+                 seed: int = 0, transform: Optional[Callable] = None):
         self.k = k
         self.size = size
         rng = np.random.default_rng(seed)
@@ -137,9 +142,12 @@ class SyntheticContourData:
         for pid in patients:
             for view in ("2CH", "4CH"):
                 frames = [make_sample(rng, k, size) for _ in range(2)]  # ED, ES
+                img = np.stack([f[0] for f in frames])
+                if transform is not None:
+                    img = np.asarray(transform(img), np.float32)
                 self._views[f"{pid}/{view}"] = {
                     Tags.id: f"{pid}/{view}",
-                    Tags.img: np.stack([f[0] for f in frames])[:, None],
+                    Tags.img: img[:, None],
                     Tags.gt: np.stack([f[1] for f in frames]),
                     Tags.contour: np.stack([f[2] for f in frames]),
                     Tags.voxelspacing: np.array([1.0, 0.62, 0.42]),

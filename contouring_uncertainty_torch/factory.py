@@ -16,13 +16,14 @@ from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
 # Config names the JAX factory builds and the port does not yet, with
 # where ROADMAP.md Queue 1 lists them.
-_DATA_NOT_PORTED = {"camus-cont": 3, "camus": 3, "lung": 10, "lung-cont": 10}
-_TASKS_NOT_PORTED = {"dsnt-skew": 5, "dsnt-skew5": 5, "dsnt-skew9": 5, "epistemic": 7,
+_DATA_NOT_PORTED = {"camus-cont": 2, "camus": 2, "lung": 10, "lung-cont": 10}
+_TASKS_NOT_PORTED = {"dsnt-skew": 6, "dsnt-skew5": 6, "dsnt-skew9": 6, "epistemic": 7,
                      "mcdropout": 8, "aleatoric": 8, "tta": 8, "ssn": 8}
 
 
 def build_data(cfg: Dict):
     from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+    from contouring_uncertainty_torch.data.transforms import build_transform
 
     data_cfg = cfg["data"]
     name = data_cfg.get("name", "camus-cont")
@@ -38,7 +39,8 @@ def build_data(cfg: Dict):
         n_patients=data_cfg.get("n_patients", 16),
         k=2 * data_cfg.get("points_per_side", 11) - 1,
         size=data_cfg.get("image_size", 256),
-        seed=cfg.get("seed", 10))
+        seed=cfg.get("seed", 10),
+        transform=build_transform(data_cfg.get("transform")))
 
 
 def model_kwargs_from_cfg(model_cfg: Dict) -> Dict:

@@ -7,9 +7,11 @@ Counterpart of contouring_uncertainty_tpu/ops/rasterize.py:
 2. per image row keep the 16 smallest crossing abscissae of the row's
    pixel-centre line (ops/select_kernel.py: the CUDA kernel on the
    GPU, its plain top-k version on the CPU);
-3. a pixel is inside iff an odd number of kept crossings lie to its left;
+3. a pixel is inside iff an odd number of kept crossings lie to its left
+   (none in a row whose crossings are NaN, as in the JAX package);
 4. the rounded dense vertices are marked as boundary pixels (what the
-   reference's scipy binary_fill_holes also keeps).
+   reference's scipy binary_fill_holes also keeps); a vertex with a NaN
+   coordinate marks none.
 
 The JAX package's `CUTPU_EXACT_TOPK` switch has no counterpart: on a CUDA
 tensor the selection always goes through the kernel.
@@ -54,12 +56,18 @@ def fill_from_crossings(xs: torch.Tensor, dense: torch.Tensor, width: int,
     counts = torch.searchsorted(xs.reshape(m * height, -1),
                                 cols.expand(m * height, width).contiguous(),
                                 right=True, out_int32=True)
-    mask = (counts & 1).to(torch.float32).reshape(m, height * width)
+    # An all-NaN row (a NaN candidate, see ops/select_kernel.py) counts no
+    # crossing: cols >= NaN is false.
+    odd = (counts & 1).reshape(m, height, width) * ~torch.isnan(xs[..., :1])
+    mask = odd.to(torch.float32).reshape(m, height * width)
     if include_boundary:
         xi = torch.clamp(torch.round(dense[..., 0]), 0.0, float(width - 1))
         yi = torch.clamp(torch.round(dense[..., 1]), 0.0, float(height - 1))
-        idx = (yi * width + xi).to(torch.int64)
-        mask.scatter_(1, idx, 1.0)  # every write is 1.0: order-independent
+        flat = yi * width + xi
+        painted = ~torch.isnan(flat)
+        idx = torch.where(painted, flat, 0.0).to(torch.int64)
+        # max with 1 where painted and 0 elsewhere: order-independent
+        mask.scatter_reduce_(1, idx, painted.to(torch.float32), reduce="amax")
     return mask.reshape(m, height, width)
 
 
@@ -109,6 +117,20 @@ def zigzag_contours(n_contours: int = 64, seed: int = 0) -> np.ndarray:
 EDGE_CASE_SIZE = 64  # image height and width of `selection_edge_cases`
 
 
+def nan_circle(n_points: int = 64, radius: float = 8.0, centre: float = 16.0,
+               nan_vertex=5) -> np.ndarray:
+    """A closed polygon of n_points on a circle about (centre, centre), with
+    both coordinates of vertex `nan_vertex` set to NaN (none if None):
+    (n_points, 2) f32 (x, y). The rows above the vertex's neighbours come
+    out of the crossing selection all NaN."""
+    angle = np.arange(n_points) * (2.0 * np.pi / n_points)
+    pts = np.stack([centre + radius * np.cos(angle), centre + radius * np.sin(angle)], -1)
+    pts = pts.astype(np.float32)
+    if nan_vertex is not None:
+        pts[nan_vertex] = np.nan
+    return pts
+
+
 def _comb(n_teeth: int) -> list:
     """A comb of n_teeth spikes from y = 50.5 up to y = 3.3 over x in
     [2, 62]: 2 * n_teeth crossings on each row from 4 to 50."""
@@ -133,8 +155,20 @@ def selection_edge_cases(n_vertices: int = 256) -> dict:
     - outside: vertices above, below, left and right of the image, edges
       spanning it, polygons wholly outside, coordinates of 1e6;
     - many_crossings: combs with 24 and 40 crossings per row (more than the
-      16 kept, and more than a row's bucket in the CUDA kernel holds).
+      16 kept, and more than a row's bucket in the CUDA kernel holds);
+    - non_finite: NaN and infinite vertex coordinates, whose rows come out
+      all NaN (`nan_circle`'s, with a NaN x or y alone, an infinite x or
+      y, a long edge to a vertex with a NaN x, and a polygon of NaN
+      vertices only, which crosses no row).
     """
+    nan = float("nan")
+    inf = float("inf")
+
+    def circle_with(i, xy):
+        pts = [tuple(p) for p in nan_circle(n_points=32, nan_vertex=None)]
+        pts[i] = xy
+        return pts
+
     cases = {
         "integer_rows": [
             [(32, 4), (56, 32), (32, 60), (8, 32)],
@@ -160,6 +194,16 @@ def selection_edge_cases(n_vertices: int = 256) -> dict:
             [(-20, 32), (32, -20), (84, 32), (32, 84)],
         ],
         "many_crossings": [_comb(12), _comb(20)],
+        "non_finite": [
+            [tuple(p) for p in nan_circle()],
+            circle_with(3, (nan, 20.0)),
+            circle_with(9, (22.0, nan)),
+            circle_with(20, (10.0, inf)),
+            circle_with(27, (-inf, 12.0)),
+            circle_with(14, (inf, -inf)),
+            [(5.0, 5.0), (50.0, 5.0), (nan, 60.0), (5.0, 40.0)],
+            [(nan, nan)] * 6,
+        ],
     }
     out = {}
     for name, polys in cases.items():

@@ -14,9 +14,13 @@ edges.
 (ops/rasterize.py:86-104): the (H, E) candidates with the same operation
 order, then the k smallest by `torch.topk`. The wrapper uses it for CPU
 tensors only; on a CUDA tensor it launches the kernel or raises. The two
-agree bitwise on finite vertices. A NaN candidate (from a NaN or infinite
-vertex coordinate) is kept by the plain version, where `torch.topk` ranks
-it first, and dropped by the kernel.
+agree bitwise.
+
+Non-finite vertices follow the reference's Pallas kernel: a row whose
+candidates hold a NaN (a NaN or infinite vertex coordinate on an edge that
+the row's predicate selects) comes out all NaN there, because its running
+minimum is NaN and then retires no candidate (pallas_select.py:67-73).
+The fill counts no crossing in such a row (`x >= NaN` is false).
 `launches` counts the kernel's launches.
 """
 
@@ -53,9 +57,12 @@ def crossing_candidates(dense: torch.Tensor, height: int) -> torch.Tensor:
 
 
 def min_k_crossings_plain(dense: torch.Tensor, height: int) -> torch.Tensor:
-    """(M, E, 2) -> (M, H, 16), plain PyTorch (materialises (M, H, E))."""
-    neg_topk, _ = torch.topk(-crossing_candidates(dense, height), K_CROSSINGS, dim=-1)
-    return -neg_topk
+    """(M, E, 2) -> (M, H, 16), plain PyTorch (materialises (M, H, E));
+    rows with a NaN candidate are all NaN."""
+    cand = crossing_candidates(dense, height)
+    neg_topk, _ = torch.topk(-cand, K_CROSSINGS, dim=-1)
+    nan_row = torch.isnan(cand).any(dim=-1, keepdim=True)
+    return torch.where(nan_row, float("nan"), -neg_topk)
 
 
 @functools.cache

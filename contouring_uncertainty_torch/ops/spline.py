@@ -9,16 +9,26 @@ JAX package vmaps a (K, 2) version instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def linspace(start: float, stop: float, num: int, dtype=torch.float32,
-             device=None) -> torch.Tensor:
-    """`jnp.linspace` with its own rounding: start*(1-s) + stop*s with
-    s = i/(num-1) in f32, and the endpoint appended exactly."""
-    div = num - 1
-    step = torch.arange(div, dtype=dtype, device=device) / div
+             device=None, endpoint: bool = True) -> torch.Tensor:
+    """`jnp.linspace`'s formula: start*(1-s) + stop*s with s = i * (1/div)
+    in f32, where div = num-1 and the endpoint is appended exactly, or
+    (endpoint=False) div = num and no endpoint.
+
+    s multiplies by the f32 reciprocal, as XLA compiles jnp.linspace's
+    division by a constant, and as PyTorch's CUDA division by a scalar
+    does: the values are the same on the CPU and the GPU, and equal to
+    JAX's from 0 to 1. (XLA on the CPU also fuses the last multiply-add,
+    which moves some values of other ranges by one ulp.)"""
+    div = num - 1 if endpoint else num
+    step = torch.arange(div, dtype=dtype, device=device) * float(np.float32(1) / np.float32(div))
     out = start * (1 - step) + stop * step
+    if not endpoint:
+        return out
     return torch.cat([out, torch.full((1,), stop, dtype=dtype, device=device)])
 
 

@@ -198,14 +198,28 @@ def _run_predictor(predictor: AleatoricPredictor, views, seed: int) -> List[Dict
             for vi, v in enumerate(views)]
 
 
+def check_predict_options(task_cfg: Dict):
+    """Raise on the task options of the JAX predict path that the port does
+    not have yet, instead of predicting without them."""
+    for key in ("sequence_sampler", "soft_mask"):
+        if task_cfg.get(key, False):
+            raise NotImplementedError(f"task.{key}=true is not ported yet "
+                                      "(ROADMAP.md Queue 1, item 4)")
+
+
 def run_predict(task, model, data, cfg, split: str = "test",
-                device: DeviceLike = None) -> List[BatchResult]:
-    """Predict every view of the split and assemble BatchResults.
+                device: DeviceLike = None,
+                metrics_out: Optional[Dict] = None) -> List[BatchResult]:
+    """Predict every view of the split and assemble BatchResults, then run
+    the results processors when `cfg` has `results_dir` or `save_path`.
 
     `model` is the task's backbone with its weights (task.build_model());
-    `cfg` is a dict with optional "seed" and "task": {"psm_path": ...}."""
+    `cfg` is a dict with optional "seed", "task": {"psm_path": ...} and the
+    processors' "data": {"results_processors": [...]}. The processors'
+    summary, `processor_errors` included, is merged into `metrics_out`."""
     device = resolve_device(device)
     task_cfg = cfg.get("task", {})
+    check_predict_options(task_cfg)
     prior = get_or_fit_prior(data, task_cfg.get("psm_path"))
     sampler = PosteriorShapeModelSampler(prior, device=device)
     predictor = AleatoricPredictor(task, model, sampler,
@@ -239,4 +253,15 @@ def run_predict(task, model, data, cfg, split: str = "test",
             instants=view.get(Tags.instants),
             image_quality=view.get(Tags.image_quality),
         ))
+    _maybe_run_processors(results, cfg, metrics_out, device)
     return results
+
+
+def _maybe_run_processors(results, cfg, metrics_out=None, device: DeviceLike = None):
+    if cfg.get("results_dir") or cfg.get("save_path"):
+        out_dir = Path(cfg.get("results_dir") or Path(cfg["save_path"]) / "results")
+        from contouring_uncertainty_torch.results import run_processors
+
+        metrics = run_processors(results, out_dir, cfg, device=device)
+        if metrics_out is not None:
+            metrics_out.update(metrics)

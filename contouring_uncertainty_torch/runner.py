@@ -8,12 +8,16 @@ Counterpart of contouring_uncertainty_tpu/runner.py on one device:
 `run` trains (or, with `train=false`, loads a port checkpoint from
 `weights`, `ckpt` or the run's own best checkpoint), takes the best
 weights, computes the test-split metrics through the task's `val_metrics`,
-and runs the serving path (`predict.run_predict`) on them. The device is
-cuda unless `device="cpu"` (`--device=cpu` on the command line) is given.
+and runs the serving path (`predict.run_predict`) on them, which then runs
+the data config's results processors into `<save_path>/results/`. The
+device is cuda unless `device="cpu"` (`--device=cpu` on the command line)
+is given. A processor that fails is recorded in `result["processor_errors"]`;
+an eval-only run (`train=false`) with a failed processor or test pass exits
+non-zero from `main`.
 
 Not ported (ROADMAP.md Queue 1): `train_ensemble` and ensemble
 directories, several devices (`predict_mesh`, `predict_sample_parallel`),
-`predict_batch_views` > 1, results processors.
+`predict_batch_views` > 1, the sequence sampler and soft masks.
 """
 
 from __future__ import annotations
@@ -34,15 +38,18 @@ from contouring_uncertainty_torch.factory import (
     build_trainer,
     experiment_name,
 )
+from contouring_uncertainty_torch.predict import check_predict_options, run_predict
 from contouring_uncertainty_torch.train.checkpoint import resolve_checkpoint, restore_checkpoint
 
 
 def _check_ported(cfg: Dict):
     if int(cfg.get("task", {}).get("train_ensemble", 0) or 0) > 1:
-        raise NotImplementedError("deep ensembles are not ported yet (ROADMAP.md Queue 1)")
+        raise NotImplementedError("deep ensembles are not ported yet "
+                                  "(ROADMAP.md Queue 1, item 5)")
     if int(cfg.get("predict_batch_views", 1) or 1) > 1:
         raise NotImplementedError("predict_batch_views > 1 is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 2)")
+                                  "(ROADMAP.md Queue 1, item 3)")
+    check_predict_options(cfg.get("task", {}))
     if int(cfg.get("predict_sample_parallel", 1) or 1) > 1:
         raise NotImplementedError("multi-device predict is not ported yet "
                                   "(ROADMAP.md Queue 1, item 11)")
@@ -87,9 +94,11 @@ def run(overrides: Optional[List[str]] = None, device: DeviceLike = None) -> Dic
             print(f"[runner] test pass failed: {result['test_error']}")
 
     if cfg.get("predict", True):
-        from contouring_uncertainty_torch.predict import run_predict
-
-        result["predict"] = run_predict(task, model, data, cfg, device=device)
+        proc_metrics: Dict = {}
+        result["predict"] = run_predict(task, model, data, cfg, device=device,
+                                        metrics_out=proc_metrics)
+        if proc_metrics.get("processor_errors"):
+            result["processor_errors"] = proc_metrics["processor_errors"]
     return result
 
 
@@ -116,9 +125,15 @@ def main(argv: Optional[List[str]] = None):
         last = result["history"][-1]
         print({k: round(v, 4) for k, v in last.items() if isinstance(v, float)})
     print(f"checkpoint: {result['ckpt_path']}")
-    # Eval-only runs exist to produce results: a failed test pass is an error.
-    if not result["cfg"].get("train", True) and result.get("test_error"):
-        print(f"[runner] evaluation produced errors: {result['test_error']}")
+    # Eval-only runs exist to produce results: a failed processor or test
+    # pass means the run did not deliver them.
+    failures = {}
+    if result.get("processor_errors"):
+        failures["processors"] = result["processor_errors"]
+    if result.get("test_error"):
+        failures["test"] = result["test_error"]
+    if not result["cfg"].get("train", True) and failures:
+        print(f"[runner] evaluation produced errors: {failures}")
         sys.exit(1)
 
 

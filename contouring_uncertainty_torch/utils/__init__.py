@@ -1,2 +1,2 @@
-"""Uncertainty projection and uncertainty maps, the Dice metric, phase timing
-and the model summary."""
+"""Uncertainty projection and uncertainty maps, the Dice metric, the
+clinical metrics, phase timing and the model summary."""

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports no JAX, nothing of the JAX
-package and none of h5py, matplotlib, PyYAML and orbax; its entry points
+package and none of h5py, matplotlib, pandas, PyYAML and orbax; its entry points
 default to the GPU and raise without one instead of carrying on on the CPU;
 and chip_smoke.py refuses to run without a card or outside a checkout.
 """
@@ -20,6 +20,7 @@ from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.config import compose
 from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
 from contouring_uncertainty_torch.device import resolve_device
+from contouring_uncertainty_torch.results import run_processors
 from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 from contouring_uncertainty_torch.train import Trainer, TrainerConfig
@@ -27,7 +28,7 @@ from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = Path(port.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "contouring_uncertainty_tpu", "h5py",
-             "matplotlib", "yaml")
+             "matplotlib", "yaml", "pandas")
 SMALL = dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3, drop_block=True)
 
 
@@ -54,7 +55,7 @@ def test_no_forbidden_import_statement(path):
 def test_importing_the_port_loads_no_jax():
     """In a fresh interpreter (this one has JAX loaded by tests/conftest.py),
     importing every module of the package and chip_smoke leaves JAX, the
-    JAX package, h5py and matplotlib out of sys.modules."""
+    JAX package, h5py, matplotlib and pandas out of sys.modules."""
     modules = sorted(
         "contouring_uncertainty_torch." + ".".join(p.relative_to(PACKAGE).with_suffix("").parts)
         for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
@@ -70,11 +71,11 @@ def test_importing_the_port_loads_no_jax():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
     """Without a GPU, every public entry point called without `device`
-    raises (the serving path's, and the trainer, the factory's
-    build_trainer and runner.run of the training path); `device="cpu"` is
-    the only way onto the CPU."""
+    raises (the serving path's, the trainer, the factory's build_trainer
+    and runner.run of the training path, and the results processors'
+    run_processors); `device="cpu"` is the only way onto the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = SyntheticContourData(n_patients=5, size=64, seed=0)
     task = DSNTAleatoric(data_params=data.data_params, t_e=1, t_a=2, model_kwargs=SMALL)
@@ -100,6 +101,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         runner.run(["data=synthetic", "data.image_size=64", "data.n_patients=5"])
     assert factory.build_trainer(cfg, task, device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_processors([], tmp_path, {"data": {"results_processors": ["instant_metrics"]}})
+    assert run_processors([], tmp_path, {"data": {"results_processors": []}}, device="cpu") == {}
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])

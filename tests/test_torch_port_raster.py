@@ -108,7 +108,8 @@ def test_selection_plain_matches_jax_pallas_kernel_interpret(dense_jax):
         select_kernel.min_k_crossings(torch.as_tensor(dense_jax.copy()).to("meta"), 256)
 
 
-@pytest.mark.parametrize("case", ["integer_rows", "horizontal", "outside", "many_crossings"])
+@pytest.mark.parametrize("case", ["integer_rows", "horizontal", "outside", "many_crossings",
+                                  "non_finite"])
 def test_selection_plain_matches_jax_pallas_kernel_on_edge_cases(case):
     """The inputs that make the CUDA kernel's edge enumeration hard (the
     same ones chip_smoke.py holds the kernel to on the card), at H = 64 and
@@ -120,7 +121,10 @@ def test_selection_plain_matches_jax_pallas_kernel_on_edge_cases(case):
     even-odd fills pixel-exact against the JAX exact path run op by op. Under `jit` XLA fuses the crossing's
     multiply-add, and on these integer vertices a crossing at exactly
     x = 7.0 comes out one ulp above it and flips pixel 7; op by op, JAX
-    rounds the product and the sum separately, as the port does."""
+    rounds the product and the sum separately, as the port does. With NaN
+    and infinite vertices (`non_finite`), the NaN rows of the Pallas kernel
+    are matched by position and the fills are held to the JAX fill through
+    the Pallas kernel (the exact top-k path ranks NaN elsewhere)."""
     size = tr.EDGE_CASE_SIZE
     dense = tr.selection_edge_cases()[case]
     assert dense.shape[1:] == (256, 2)
@@ -130,7 +134,9 @@ def test_selection_plain_matches_jax_pallas_kernel_on_edge_cases(case):
     assert got.shape == ref.shape == (len(dense), size, 16)
     finite = np.isfinite(ref)
     np.testing.assert_array_equal(np.isfinite(got), finite)
-    ulp = np.broadcast_to(np.spacing(np.abs(dense[..., 0]).max(axis=1))[:, None, None], got.shape)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    largest_x = np.where(np.isfinite(dense[..., 0]), np.abs(dense[..., 0]), 0).max(axis=1)
+    ulp = np.broadcast_to(np.spacing(largest_x)[:, None, None], got.shape)
     assert (np.abs(got[finite] - ref[finite]) <= ulp[finite]).all()
     assert finite.sum() > 0
     per_row = np.isfinite(select_kernel.crossing_candidates(torch.as_tensor(dense), size)
@@ -141,10 +147,46 @@ def test_selection_plain_matches_jax_pallas_kernel_on_edge_cases(case):
     if case == "many_crossings":
         assert (per_row > 32).any() and (per_row[per_row > 0] <= 32).any()
         np.testing.assert_array_equal(finite.sum(-1), np.minimum(per_row, 16))
-    fill = jax.vmap(lambda d: jr.polygon_fill(d, size, size, True, exact_topk=True))
+    if case == "non_finite":
+        nan_rows = np.isnan(ref).all(-1)
+        assert nan_rows.sum() > 100 and (np.isnan(ref).any(-1) == nan_rows).all()
+        assert not nan_rows[-1].any() and not finite[-1].any()  # NaN vertices only
+    exact = case != "non_finite"
+    fill = jax.vmap(lambda d: jr.polygon_fill(d, size, size, True, exact_topk=exact))
     np.testing.assert_array_equal(
         tr.polygon_fill(torch.as_tensor(dense), size, size).numpy(),
         np.asarray(fill(jnp.asarray(dense))))
+
+
+@pytest.mark.parametrize("include_boundary", [True, False])
+def test_nan_vertex_follows_the_jax_pallas_kernel(include_boundary):
+    """ROADMAP's input: a 64-vertex circle of radius 8 px about (16, 16) in
+    a 32-row image, vertex 5 NaN. Every row whose candidates hold a NaN (the
+    rows above the NaN vertex's neighbours, 0-20) comes out all NaN, as the
+    JAX Pallas kernel gives them in interpret mode, and the fill counts no
+    crossing there; the boundary pixels of the finite vertices are still
+    painted. The plain selection once put the NaNs first and kept the
+    finite crossings after them."""
+    circle = tr.nan_circle()
+    assert circle.shape == (64, 2) and np.isnan(circle[5]).all()
+    ref = np.asarray(j_min_k(jnp.asarray(circle), 32, 16, interpret=True))
+    got = select_kernel.min_k_crossings(torch.as_tensor(circle)[None], 32)[0].numpy()
+    nan_rows = np.isnan(ref).all(-1)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_array_equal(np.nonzero(nan_rows)[0], np.arange(21))
+    finite = np.isfinite(ref)
+    # the one rounding of the fused multiply-add (see the edge-case test)
+    ulp = np.spacing(np.nanmax(np.abs(circle[:, 0])))
+    assert np.abs(got[finite] - ref[finite]).max() <= ulp and finite.sum() > 0
+    fill_ref = np.asarray(jr.polygon_fill(jnp.asarray(circle), 32, 32, include_boundary,
+                                          exact_topk=False))
+    fill_got = tr.polygon_fill(torch.as_tensor(circle), 32, 32, include_boundary).numpy()
+    np.testing.assert_array_equal(fill_got, fill_ref)
+    assert fill_got[21:].sum() > 0
+    boundary = np.zeros((32, 32), np.float32)
+    ok = np.isfinite(circle).all(-1)
+    boundary[np.round(circle[ok, 1]).astype(int), np.round(circle[ok, 0]).astype(int)] = 1
+    np.testing.assert_array_equal(fill_got[:21], boundary[:21] * include_boundary)
 
 
 @pytest.mark.parametrize("include_boundary", [True, False])

@@ -78,10 +78,10 @@ def _jax_trainer_config(cfg):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("data.name=camus-cont", "item 3"), ("data.name=lung", "item 10"),
-    ("task.name=dsnt-skew", "item 5"), ("task.name=epistemic", "item 7"),
+    ("data.name=camus-cont", "item 2"), ("data.name=lung", "item 10"),
+    ("task.name=dsnt-skew", "item 6"), ("task.name=epistemic", "item 7"),
     ("task.name=tta", "item 8"), ("comet=true", "Queue 1"),
-    ("predict_batch_views=4", "item 2"), ("task.train_ensemble=3", "Queue 1"),
+    ("predict_batch_views=4", "item 3"), ("task.train_ensemble=3", "item 5"),
 ])
 def test_unported_configurations_raise_naming_the_roadmap(override, item, tmp_path):
     """Data sources, tasks, loggers and run modes the port does not have yet
