@@ -1,17 +1,20 @@
-"""JAX (flax) UNet parameters -> the port's `state_dict`.
+"""JAX (flax) UNet and SkewUNet parameters -> the port's `state_dict`.
 
 Takes the flax parameter tree as a nested dict of numpy arrays (a
 `variables` dict with a top-level "params" key is accepted too) and returns
-tensors keyed like the port's UNet, whose submodules keep the flax names
+tensors keyed like the port's model, whose submodules keep the flax names
 (ConvBlock_i / UpsampleBlock_j / OutputBlock_0 / ConvLayer_0 / Conv_0 /
-InstanceNorm_0 / ConvTranspose_0). The mapping is the one the JAX package's
+InstanceNorm_0 / ConvTranspose_0; a SkewUNet's `unet` and `confidence_net`
+with Conv_0..2 and Dense_0). The mapping is the one the JAX package's
 reference-model parity test uses:
 
 - conv kernels (kh, kw, ci, co) -> (co, ci, kh, kw);
 - ConvTranspose kernels are flipped in both spatial dims (flax's transposed
   conv mirrors the kernel relative to torch's ConvTranspose2d), then
   permuted to (ci, co, kh, kw);
-- InstanceNorm scale/bias -> weight/bias; conv bias -> bias.
+- Dense kernels (in, out) -> Linear weights (out, in) (the port's
+  ConfidenceNet flattens in flax's NHWC order, so the inputs line up);
+- InstanceNorm scale/bias -> weight/bias; conv and Dense bias -> bias.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ def flax_to_torch_state(params: Mapping) -> Dict[str, torch.Tensor]:
             if name == "kernel":
                 if path[-1].startswith("ConvTranspose"):
                     t = t.flip(0).flip(1).permute(2, 3, 0, 1)
+                elif path[-1].startswith("Dense"):
+                    t = t.t()
                 else:
                     t = t.permute(3, 2, 0, 1)
                 state[f"{prefix}.weight"] = t.contiguous()
@@ -49,3 +54,4 @@ def flax_to_torch_state(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, [])
     return state
+

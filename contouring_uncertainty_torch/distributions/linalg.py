@@ -67,6 +67,13 @@ def sym_matrix_pow(mat: torch.Tensor, p: float, eps: float = 0.0) -> torch.Tenso
     return out1 + out2
 
 
+def cov2corr(cov: torch.Tensor):
+    """Covariance -> (correlation matrix, per-axis std). Batched over (..., 2, 2)."""
+    std = torch.sqrt(torch.diagonal(cov, dim1=-2, dim2=-1))
+    corr = cov / (std[..., :, None] * std[..., None, :])
+    return corr, std
+
+
 def rotation_matrix(theta: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(theta), torch.sin(theta)
     return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
@@ -76,6 +83,11 @@ def rotate_cov(cov: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """R(theta) @ cov @ R(theta)^T, batched."""
     rot = rotation_matrix(theta.to(cov.dtype))
     return mat2_mat(mat2_mat(rot, cov), rot.transpose(-1, -2))
+
+
+def rotate_alpha(alpha: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """R(theta) @ alpha for (..., 2) vectors."""
+    return mat2_vec(rotation_matrix(theta.to(alpha.dtype)), alpha)
 
 
 def inv2x2(mat: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Bivariate normal: logpdf, marginals and sampling, batched over leading axes.
+"""Bivariate normal: logpdf, nll, marginals and sampling, batched over leading axes.
 
 Counterpart of contouring_uncertainty_tpu/distributions/normal.py. Sampling
 takes an explicit `torch.Generator`; the standard normals are drawn on the
@@ -30,6 +30,19 @@ def logpdf(x: torch.Tensor, mu: torch.Tensor, cov: torch.Tensor) -> torch.Tensor
     return -_LOG_2PI - 0.5 * torch.log(det) - 0.5 * maha
 
 
+def nll(y: torch.Tensor, mu: torch.Tensor, cov: torch.Tensor):
+    """Unnormalized NLL log|cov| + maha; returns (nll, logdet, maha), each (...,)."""
+    a = cov[..., 0, 0]
+    b = cov[..., 0, 1]
+    d = cov[..., 1, 1]
+    det = a * d - b * b
+    diff = mu - y
+    dx, dy = diff[..., 0], diff[..., 1]
+    maha = (d * dx * dx - 2.0 * b * dx * dy + a * dy * dy) / det
+    logdet = torch.log(det)
+    return logdet + maha, logdet, maha
+
+
 def marginal(mu: torch.Tensor, cov: torch.Tensor, axis: int, angle=0.0):
     """Marginal (mean, variance) along `axis` after rotating cov by -angle."""
     angle = torch.as_tensor(angle, dtype=cov.dtype, device=cov.device)
@@ -37,11 +50,18 @@ def marginal(mu: torch.Tensor, cov: torch.Tensor, axis: int, angle=0.0):
     return mu[..., axis], cov[..., axis, axis]
 
 
+def standard_normal(generator: Optional[torch.Generator], shape, like: torch.Tensor
+                    ) -> torch.Tensor:
+    """Standard normals of `shape` in `like`'s dtype, drawn on the generator's
+    device (the CPU without one) and moved to `like`'s device."""
+    gen_device = generator.device if generator is not None else torch.device("cpu")
+    return torch.randn(tuple(shape), generator=generator, dtype=like.dtype,
+                       device=gen_device).to(like.device)
+
+
 def rvs(generator: Optional[torch.Generator], mu: torch.Tensor, cov: torch.Tensor,
         shape=()) -> torch.Tensor:
     """Sample from N(mu, cov); returns shape (*shape, *mu.shape)."""
     chol = chol2x2(cov)
-    gen_device = generator.device if generator is not None else torch.device("cpu")
-    z = torch.randn((*shape, *mu.shape), generator=generator, dtype=mu.dtype,
-                    device=gen_device).to(mu.device)
+    z = standard_normal(generator, (*shape, *mu.shape), mu)
     return mu + mat2_vec(chol, z)

@@ -2,8 +2,9 @@
 
 Counterpart of contouring_uncertainty_tpu/factory.py for what the port
 implements. `synthetic` builds the in-memory `SyntheticContourData`
-(where the JAX package writes and reads a CAMUS-layout HDF5 file); only the
-`dsnt-al` task exists. Anything else raises, naming its ROADMAP.md item.
+(where the JAX package writes and reads a CAMUS-layout HDF5 file); the
+tasks are `dsnt-al` and `dsnt-skew` (`dsnt-skew5`, `dsnt-skew9`). Anything
+else raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 # Config names the JAX factory builds and the port does not yet, with
 # where ROADMAP.md Queue 1 lists them.
 _DATA_NOT_PORTED = {"camus-cont": 2, "camus": 2, "lung": 10, "lung-cont": 10}
-_TASKS_NOT_PORTED = {"dsnt-skew": 6, "dsnt-skew5": 6, "dsnt-skew9": 6, "epistemic": 7,
-                     "mcdropout": 8, "aleatoric": 8, "tta": 8, "ssn": 8}
+_TASKS_NOT_PORTED = {"epistemic": 7, "mcdropout": 8, "aleatoric": 8, "tta": 8, "ssn": 8}
+_SKEW_TASKS = ("dsnt-skew", "dsnt-skew5", "dsnt-skew9")
 
 
 def build_data(cfg: Dict):
@@ -68,21 +69,27 @@ def build_task(cfg: Dict, data_params):
     if name in _TASKS_NOT_PORTED:
         raise NotImplementedError(f"task '{name}' is not ported yet "
                                   f"(ROADMAP.md Queue 1, item {_TASKS_NOT_PORTED[name]})")
-    if name != "dsnt-al":
-        raise ValueError(f"Unknown task '{name}'")
-    from contouring_uncertainty_torch.tasks import DSNTAleatoric
-
     model_cfg = task_cfg.get("model", {})
-    return DSNTAleatoric(
+    common = dict(
         data_params=data_params,
-        covar=task_cfg.get("covar", True),
-        mse_weight=task_cfg.get("mse_weight", 1.0),
-        log_penalty_weight=task_cfg.get("log_penalty_weight", 1.0),
         t_a=task_cfg.get("t_a", 25),
         t_e=task_cfg.get("t_e", 1),
         model_kwargs=model_kwargs_from_cfg(model_cfg),
         model_name=model_cfg.get("name", "unet2"),
+        mse_weight=task_cfg.get("mse_weight", 1.0),
+        log_penalty_weight=task_cfg.get("log_penalty_weight", 1.0),
     )
+    if name == "dsnt-al":
+        from contouring_uncertainty_torch.tasks import DSNTAleatoric
+
+        return DSNTAleatoric(covar=task_cfg.get("covar", True), **common)
+    if name in _SKEW_TASKS:
+        from contouring_uncertainty_torch.tasks import DSNTSkew
+
+        raw_idx = task_cfg.get("skew_indices")
+        return DSNTSkew(skew_indices=tuple(raw_idx) if raw_idx else None,
+                        freeze_seg=task_cfg.get("freeze_seg", False), **common)
+    raise ValueError(f"Unknown task '{name}'")
 
 
 def experiment_name(cfg: Dict) -> str:

@@ -1,15 +1,15 @@
-"""Model zoo: the nnU-Net-style UNet (`unet2`)."""
+"""Model zoo: the nnU-Net-style UNet (`unet2`) and its ConfidenceNet skew head."""
 
 from __future__ import annotations
 
 import torch
 
-from contouring_uncertainty_torch.models.unet import UNet
+from contouring_uncertainty_torch.models.unet import ConfidenceNet, UNet
 
 # Flags of the JAX UNet that this port does not implement yet: building a
 # backbone that sets one raises instead of silently dropping it.
 _UNPORTED_FLAGS = ("deep_supervision", "attention", "residual", "out_seg_bias",
-                   "ssn_rank", "bottleneck_out")
+                   "ssn_rank")
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -24,7 +24,7 @@ def build_backbone(name: str, input_shape, output_shape, **kwargs):
     unported = [k for k in _UNPORTED_FLAGS if kwargs.get(k)]
     if unported:
         raise NotImplementedError(f"UNet flags not ported yet: {unported}")
-    allowed = {"kernels", "strides", "drop_block", "dtype", "head_dtype"}
+    allowed = {"kernels", "strides", "drop_block", "bottleneck_out", "dtype", "head_dtype"}
     kwargs = {k: v for k, v in kwargs.items() if k in allowed}
     for key in ("dtype", "head_dtype"):
         if key in kwargs:

@@ -5,10 +5,11 @@ the serving configuration: 8 stages of filters min(2^(5+i), 480), double
 conv blocks of conv -> [channel dropout] -> instance norm -> LeakyReLU(0.01),
 `drop_block` MC-dropout in the two deepest encoder stages and the
 bottleneck, transposed-conv upsampling with the skip concatenated after the
-upsampled tensor, a 1x1 head, `dtype`/`head_dtype` compute types, and the
-`encode_prefix`/`decode_from_prefix` modes of the MC-dropout predict path.
-(`residual`, `attention`, `deep_supervision`, `ssn_rank` and
-`bottleneck_out` are not ported yet.)
+upsampled tensor, a 1x1 head, `dtype`/`head_dtype` compute types, the
+`encode_prefix`/`decode_from_prefix` modes of the MC-dropout predict path,
+and `bottleneck_out` with the `ConfidenceNet` skew head that reads it.
+(`residual`, `attention`, `deep_supervision` and `ssn_rank` are not ported
+yet.)
 
 Submodules carry the flax auto-names (ConvBlock_i, UpsampleBlock_j,
 OutputBlock_0, ConvLayer_0, Conv_0, InstanceNorm_0, ConvTranspose_0), so
@@ -182,19 +183,66 @@ class OutputBlock(nn.Module):
         return self.Conv_0(x).to(self.out_dtype)
 
 
+class Dense(nn.Module):
+    """flax Dense in f32: x @ kernel + bias, the kernel stored as a torch
+    Linear weight (out, in); lecun truncated-normal init, zero bias."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c_out, c_in))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def reset_parameters(self, generator=None):
+        std = math.sqrt(1.0 / self.weight.shape[1]) / _TRUNC_STD
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.float(), self.bias.float())
+
+
+class ConfidenceNet(nn.Module):
+    """Bottleneck (N, C, Hb, Wb) -> (N, output_size) skew head: three 3x3
+    convolutions of 128 channels with ReLU, a flatten in flax's NHWC order
+    (so a converted Dense kernel means the same in both packages), and a
+    Dense layer; all in f32, whatever the backbone's dtype."""
+
+    def __init__(self, bottleneck_shape: Sequence[int], output_size: int):
+        super().__init__()
+        c_in, hb, wb = bottleneck_shape
+        for i in range(3):
+            self.add_module(f"Conv_{i}", Conv(c_in if i == 0 else 128, 128, (3, 3),
+                                              padding=torch_padding((3, 3))))
+        self.Dense_0 = Dense(128 * hb * wb, output_size)
+
+    def reset_parameters(self, generator=None):
+        for i in range(3):
+            getattr(self, f"Conv_{i}").reset_parameters(generator)
+        self.Dense_0.reset_parameters(generator)
+
+    def forward(self, x):
+        x = x.to(torch.float32)
+        for i in range(3):
+            x = F.relu(getattr(self, f"Conv_{i}")(x))
+        return self.Dense_0(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+
+
 class UNet(nn.Module):
-    """Dynamic 2D U-Net: NCHW in, {"out": (N, C_out, H, W)} out."""
+    """Dynamic 2D U-Net: NCHW in, {"out": (N, C_out, H, W)} out, and with
+    `bottleneck_out` also {"bottleneck": (N, C_b, Hb, Wb) f32}, the last
+    encoder stage's output after its dropout."""
 
     def __init__(self, input_shape: Sequence[int], output_shape: Sequence[int],
                  kernels=((3, 3),) * 8, strides=((1, 1),) + ((2, 2),) * 7,
-                 drop_block: bool = False, dtype=torch.float32,
-                 head_dtype=torch.float32):
+                 drop_block: bool = False, bottleneck_out: bool = False,
+                 dtype=torch.float32, head_dtype=torch.float32):
         super().__init__()
         self.input_shape = tuple(input_shape)
         self.output_shape = tuple(output_shape)
         self.kernels = tuple(tuple(k) for k in kernels)
         self.strides = tuple(tuple(s) for s in strides)
         self.drop_block = drop_block
+        self.bottleneck_out = bottleneck_out
         self.dtype = dtype
         self.head_dtype = head_dtype
         filters = self.filters
@@ -229,6 +277,15 @@ class UNet(nn.Module):
     @property
     def filters(self):
         return [min(2 ** (5 + i), 480) for i in range(len(self.strides))]
+
+    @property
+    def bottleneck_shape(self):
+        """(C_b, Hb, Wb) of the bottleneck features for this input shape."""
+        h, w = self.input_shape[1:]
+        for (kh, kw), (sh, sw) in zip(self.kernels, self.strides):
+            h = (h + 2 * (kh // 2) - kh) // sh + 1
+            w = (w + 2 * (kw // 2) - kw) // sw + 1
+        return self.filters[-1], h, w
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """flax-style init (truncated-normal Kaiming for LeakyReLU(0.01),
@@ -266,6 +323,10 @@ class UNet(nn.Module):
             if mode == "encode_prefix":
                 return {"skips": skips}
         out = getattr(self, f"ConvBlock_{self.n_down + 1}")(out, deterministic, generator)
+        bottleneck = out
         for j, skip in enumerate(reversed(skips)):
             out = getattr(self, f"UpsampleBlock_{j}")(out, skip, deterministic, generator)
-        return {"out": self.OutputBlock_0(out)}
+        result = {"out": self.OutputBlock_0(out)}
+        if self.bottleneck_out:
+            result["bottleneck"] = bottleneck.to(torch.float32)
+        return result

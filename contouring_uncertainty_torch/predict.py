@@ -1,12 +1,15 @@
 """Prediction / uncertainty-propagation pipeline (TMI serving path).
 
-Counterpart of contouring_uncertainty_tpu/predict.py, Gaussian single-group
-hard-mask branch. Per view: T_e epistemic forwards (MC dropout, encoder
-prefix shared) -> per-point (mu, Sigma) through the DSNT moment kernel ->
-PSM contour sampling (T_a per forward) -> aleatoric/epistemic fusion ->
-posterior stats of the sample population -> a mask for every sample
-(spline + scanline fill through the crossing-selection kernel) ->
-uncertainty map, entropy map and point/instant scalars -> BatchResult.
+Counterpart of contouring_uncertainty_tpu/predict.py, single-group
+hard-mask branch, Gaussian and skew. Per view: T_e epistemic forwards (MC
+dropout, encoder prefix shared) -> per-point (mu, Sigma[, alpha]) through
+the DSNT moment kernel -> PSM contour sampling (T_a per forward; the skew
+PSM sampler for a skew task) -> aleatoric/epistemic fusion -> posterior
+stats of the sample population -> a mask for every sample (spline +
+scanline fill through the crossing-selection kernel) -> uncertainty map,
+entropy map and point/instant scalars -> BatchResult. On the skew path
+alpha is averaged over T_e, `skew_umap` gives the projected mode and the
+map, and the prediction is the mode's mask.
 
 Everything after the image upload runs on the predictor's device; random
 draws come from a CPU `torch.Generator` per view, so a view's draws are
@@ -26,10 +29,14 @@ from contouring_uncertainty_torch.data.config import BatchResult, Label, Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions.linalg import det2x2, eigh2x2
 from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
-from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
+from contouring_uncertainty_torch.sampler import (
+    PosteriorShapeModelSampler,
+    SkewPosteriorShapeModelSampler,
+    fit_shape_prior,
+)
 from contouring_uncertainty_torch.sampler.prior import ShapePrior, load_prior, save_prior
 from contouring_uncertainty_torch.utils.projection import projected_uncertainty_value
-from contouring_uncertainty_torch.utils.umap import uncertainty_map
+from contouring_uncertainty_torch.utils.umap import skew_umap, uncertainty_map
 
 
 def get_or_fit_prior(data, path: Optional[str]) -> ShapePrior:
@@ -136,8 +143,9 @@ def point_instant_uncertainty(mu, cov, post_cov, umap, entropy, pred):
 
 
 class AleatoricPredictor:
-    """Per-view uncertainty propagation for the DSNT-AL contour task
-    (Gaussian PSM sampler, one contour group, hard masks)."""
+    """Per-view uncertainty propagation for the DSNT contour tasks (one
+    contour group, hard masks): DSNT-AL with the Gaussian PSM sampler,
+    DSNT-skew (a task whose `predict` also returns alpha) with the skew one."""
 
     def __init__(self, task, model, sampler: PosteriorShapeModelSampler,
                  t_a: Optional[int] = None, contour_groups=None,
@@ -158,21 +166,30 @@ class AleatoricPredictor:
         """img (N, C, H, W) -> dict of device tensors for one view."""
         img = torch.as_tensor(np.asarray(img, np.float32)).to(self.device)
         h, w = img.shape[-2:]
-        mu_te, cov_te = self.task.predict(self.model, img, generator=generator)
-        samples = self.sampler.sample_batch(generator, mu_te, cov_te, n=self.t_a)
+        mu_te, cov_te, *skew = self.task.predict(self.model, img, generator=generator)
+        alpha_te = skew[0] if skew else None
+        sample_kw = {} if alpha_te is None else {"alpha": alpha_te}
+        samples = self.sampler.sample_batch(generator, mu_te, cov_te, n=self.t_a, **sample_kw)
         mu, cov = fuse_epistemic_aleatoric(mu_te, cov_te)
         post_mu, post_cov = population_posterior(samples)
 
         occupancy = rasterize_batch(samples, h, w)  # (N, T_e, T_a, H, W) {0,1}
-        umap = uncertainty_map(mu, cov, (h, w))
-        pred = torch.where(occupancy.mean(dim=(1, 2)) > 0.5, self.label, 0).to(torch.int32)
+        if alpha_te is None:
+            alpha, mode = None, mu
+            umap = uncertainty_map(mu, cov, (h, w))
+            pred = torch.where(occupancy.mean(dim=(1, 2)) > 0.5, self.label, 0)
+        else:
+            alpha = alpha_te.mean(dim=1)
+            mode, umap = skew_umap(mu, cov, alpha, (h, w))
+            pred = rasterize_batch(mode, h, w) * self.label
+        pred = pred.to(torch.int32)
         entropy = sample_entropy_map(occupancy)
         point_u, instant_u = point_instant_uncertainty(mu, cov, post_cov, umap,
                                                        entropy, pred)
         # Hard-mask populations hold small integer labels: ship them as uint8.
         pred_samples = (occupancy * self.label).to(torch.uint8)
         return {
-            "mu": mu, "cov": cov, "mode": mu, "alpha": None,
+            "mu": mu, "cov": cov, "mode": mode, "alpha": alpha,
             "post_mu": post_mu, "post_cov": post_cov,
             "contour_samples": samples, "pred_samples": pred_samples,
             "pred": pred, "uncertainty_map": umap, "entropy_map": entropy,
@@ -214,14 +231,23 @@ def run_predict(task, model, data, cfg, split: str = "test",
     the results processors when `cfg` has `results_dir` or `save_path`.
 
     `model` is the task's backbone with its weights (task.build_model());
-    `cfg` is a dict with optional "seed", "task": {"psm_path": ...} and the
-    processors' "data": {"results_processors": [...]}. The processors'
+    `cfg` is a dict with optional "seed", "task": {"psm_path": ...} (and for
+    a skew task "grid_window" and "skew_method") and the processors' "data":
+    {"results_processors": [...]}. The processors'
     summary, `processor_errors` included, is merged into `metrics_out`."""
     device = resolve_device(device)
     task_cfg = cfg.get("task", {})
     check_predict_options(task_cfg)
     prior = get_or_fit_prior(data, task_cfg.get("psm_path"))
-    sampler = PosteriorShapeModelSampler(prior, device=device)
+    if hasattr(task, "forward_skew"):
+        # The lattice of the 'grid' method covers the image's extent.
+        in_h, in_w = task.data_params.in_shape[1:]
+        sampler = SkewPosteriorShapeModelSampler(
+            prior, skew_indices=task.skew_indices, image_extent=float(max(in_h, in_w) - 1),
+            grid_window=task_cfg.get("grid_window", 64),
+            method=task_cfg.get("skew_method", "esn"), device=device)
+    else:
+        sampler = PosteriorShapeModelSampler(prior, device=device)
     predictor = AleatoricPredictor(task, model, sampler,
                                    contour_groups=getattr(data, "contour_groups", None),
                                    device=device)

@@ -1,8 +1,11 @@
-"""Sigma statistics: average covariance against average landmark distance.
+"""Skewness diagnostics and sigma statistics.
 
-Counterpart of `sigma_stats` in contouring_uncertainty_tpu/results/extras.py.
-The module's other processors (`skewness`, `plotting`, `prediction_writer`)
-are not ported: results/__init__.py `NOT_PORTED` names where each waits.
+Counterpart of `skewness` and `sigma_stats` in
+contouring_uncertainty_tpu/results/extras.py, in numpy and scipy on the
+host as there. `skewness` writes the numbers without the scatter figure
+(results/__init__.py `FIGURES_NOT_PORTED`); the module's other processors
+(`plotting`, `prediction_writer`) are not ported: `NOT_PORTED` names where
+each waits.
 """
 
 from __future__ import annotations
@@ -13,6 +16,38 @@ from typing import List
 import numpy as np
 
 from contouring_uncertainty_torch.results import register
+
+
+@register("skewness")
+def skewness(results: List, out_dir: Path) -> dict:
+    """Per-landmark error clouds and the average alpha: `skewness.npy`
+    ({"errors": (frames, K, 2) contour - mu, "average_skew": (frames, K, 2)
+    alpha}), and the mean over landmarks of the errors' sample skewness in
+    x and y and the mean alpha norm."""
+    from scipy.stats import skew as sp_skew
+
+    point_errors, alphas = [], []
+    for res in results:
+        if res.mu is None or res.contour is None:
+            continue
+        for i in range(res.img.shape[0]):
+            point_errors.append(res.contour[i] - res.mu[i])
+            if res.alpha is not None:
+                alphas.append(res.alpha[i])
+    if not point_errors:
+        return {}
+    point_errors = np.stack(point_errors)
+    np.save(out_dir / "skewness.npy",
+            {"errors": point_errors,
+             "average_skew": np.stack(alphas) if alphas else np.zeros(0)},
+            allow_pickle=True)
+    out = {
+        "error_skew_x": float(np.mean(sp_skew(point_errors[..., 0], axis=0))),
+        "error_skew_y": float(np.mean(sp_skew(point_errors[..., 1], axis=0))),
+    }
+    if alphas:
+        out["mean_alpha_norm"] = float(np.linalg.norm(np.stack(alphas), axis=-1).mean())
+    return out
 
 
 @register("sigma_stats")

@@ -1,4 +1,5 @@
-"""Contour sampler: the Gaussian posterior-shape-model sampler and its prior."""
+"""Contour samplers: the Gaussian and skew posterior-shape-model samplers and their prior."""
 
 from contouring_uncertainty_torch.sampler.prior import ShapePrior, fit_shape_prior
 from contouring_uncertainty_torch.sampler.psm import PosteriorShapeModelSampler
+from contouring_uncertainty_torch.sampler.psm_skew import SkewPosteriorShapeModelSampler

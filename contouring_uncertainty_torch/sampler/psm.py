@@ -90,6 +90,7 @@ class PosteriorShapeModelSampler:
         final_mask = np.zeros(prior.dim, np.float32)
         for p in sampled:
             final_mask[2 * p:2 * p + 2] = 1.0
+        self._level_masks = level_masks  # (P,) f32 numpy coordinate masks
         self._sampled_all = self._point_mask(sampled, device)
         self._initial = self._point_mask(self.initial_points, device)
         # Fixed full-rank factor of cov0 and the static Sherman-Morrison
@@ -123,7 +124,8 @@ class PosteriorShapeModelSampler:
 
     def sample_batch(self, generator: Optional[torch.Generator], mu: torch.Tensor,
                      cov: torch.Tensor, n: int = 1) -> torch.Tensor:
-        """mu (..., K, 2), cov (..., K, 2, 2) -> (..., n, K, 2) contours."""
+        """mu (..., K, 2), cov (..., K, 2, 2) -> (..., n, K, 2) contours.
+        (A skew task's alpha goes to sampler/psm_skew.py.)"""
         lead = mu.shape[:-2]
         mu_p = mu.reshape(-1, self.k, 2)  # (B, K, 2)
         cov_p = cov.reshape(-1, self.k, 2, 2)

@@ -26,19 +26,25 @@ from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
 from contouring_uncertainty_torch.utils.metrics import dice_binary
 
 
-def mc_dropout_apply(model: UNet, img: torch.Tensor, t_e: int,
+def mc_dropout_apply(model: torch.nn.Module, img: torch.Tensor, t_e: int,
                      generator: Optional[torch.Generator]) -> Dict:
     """One batched MC-dropout forward at batch T_e*N -> raw output dict,
     T_e-major ordering (sample e of frame i at batch index e*N + i).
 
-    With `drop_block`, the deterministic encoder prefix (stem + every stage
+    `model` is a UNet or a model that wraps one as `model.unet` (SkewUNet,
+    whose modes pass through to it); anything else raises. With
+    `drop_block`, the deterministic encoder prefix (stem + every stage
     before the first dropout stage, the FLOP-heavy high-resolution part) runs
     ONCE at batch N and is tiled T_e times; only the stochastic tail runs at
     batch T_e*N. Exact against tiling the input: the prefix has no dropout,
     instance norm is per sample, and the tail draws the same masks from the
-    generator in the same order."""
+    generator in the same order. Without `drop_block` the input is tiled."""
+    inner = getattr(model, "unet", model)
+    if not isinstance(inner, UNet):
+        raise TypeError(f"mc_dropout_apply needs a UNet or a model wrapping one as "
+                        f"`.unet`, got {type(model).__name__}")
     tile = lambda a: a.repeat((t_e,) + (1,) * (a.ndim - 1))
-    if isinstance(model, UNet) and model.drop_block:
+    if inner.drop_block:
         prefix = model(img, mode="encode_prefix")
         tiled = {"skips": [tile(s) for s in prefix["skips"]]}
         return model(None, deterministic=False, generator=generator,

@@ -10,7 +10,9 @@ Counterpart of contouring_uncertainty_tpu/train/trainer.py on one device:
   trainer builds them (`_make_optimizer`, `_lr_schedule`): AdamW with
   decoupled decay; Adam, SGD and RMSprop with the decay added to the
   gradient first; the schedule read at the update count before its
-  increment;
+  increment; the parameters a task labels "freeze" (`optimizer_labels`,
+  dsnt-skew's `freeze_seg`) are left out of the optimizer and take no
+  gradient, so they stay as they are, as under optax's set_to_zero;
 - `fit`: epochs over `_iterate` batches (the JAX trainer's order with
   `native_loader=False`: the same `np.random.default_rng(seed)` draws) fed
   to the device by a background thread through pinned host memory
@@ -218,13 +220,19 @@ class Trainer:
 
     def init_state(self):
         """The task's model with weights from the run's seed (drawn on the
-        CPU: the same weights on every device), a fresh optimizer, and the
-        generator of the run's augmentation and dropout draws on the
-        trainer's device."""
+        CPU: the same weights on every device), a fresh optimizer over the
+        parameters the task does not freeze, and the generator of the run's
+        augmentation and dropout draws on the trainer's device."""
         seed = self.config.seed
         self.model = self.task.build_model(device=self.device,
                                            generator=torch.Generator().manual_seed(seed))
-        self.optimizer = self._make_optimizer(self.model.parameters())
+        labels_fn = getattr(self.task, "optimizer_labels", None)
+        labels = labels_fn(self.model) if labels_fn else None
+        if labels is not None:
+            for name, p in self.model.named_parameters():
+                p.requires_grad_(labels[name] != "freeze")
+        self.optimizer = self._make_optimizer(
+            [p for p in self.model.parameters() if p.requires_grad])
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------- steps

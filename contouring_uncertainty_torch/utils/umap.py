@@ -1,18 +1,26 @@
-"""Gaussian uncertainty maps from contour point distributions.
+"""Uncertainty maps from contour point distributions, batched over frames.
 
-Counterpart of contouring_uncertainty_tpu/utils/umap.py (Gaussian branch;
-the skew map comes with the skew slice): a family of 100 contours offset
-along the landmark normals by -2..2 projected sigmas, each weighted by the
-normal pdf of its offset, drawn onto the grid keeping the largest weight
-per pixel. Batched over leading axes (frames).
+Counterpart of contouring_uncertainty_tpu/utils/umap.py:
+
+- `uncertainty_map` (Gaussian): a family of 100 contours offset along the
+  landmark normals by -2..2 projected sigmas, each weighted by the normal
+  pdf of its offset, drawn onto the grid keeping the largest weight per
+  pixel;
+- `skew_umap`: the projected mode contour, and 2L = 200 level-set contours
+  of each point's projected skew-normal profile, rasterized as filled masks
+  (all frames' contours in one `rasterize_batch` call, so one launch of the
+  crossing selection), weighted-averaged and reduced to a per-pixel
+  two-class entropy.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
 from contouring_uncertainty_torch.ops.spline import contour_spline, linspace
 from contouring_uncertainty_torch.utils.projection import projected_uncertainty
 
@@ -61,3 +69,57 @@ def uncertainty_map(mu: torch.Tensor, cov: torch.Tensor, shape=(256, 256),
     # contours[b, s, k] = mu[b, k] + v[b, k] * u[b, k] * offsets[s]
     contours = mu[:, None] + v[:, None] * (u[:, None, :] * offsets[None, :, None])[..., None]
     return _draw_contours(contours, _norm_pdf(offsets), shape, close=close)
+
+
+def skew_level_contours(mu: torch.Tensor, cov: torch.Tensor, alpha: torch.Tensor,
+                        levels: int = 100, resolution: int = 1000):
+    """The projected mode (B, K, 2) and the 2L level-set contours
+    (B, 2L, K, 2) with their weights (2L,) of `skew_umap`.
+
+    Each point's skew-normal, projected on its contour normal, is evaluated
+    on `resolution` steps across +-3 projected sigmas; the mode is its first
+    argmax, and for each of `levels` values 1 - linspace(0, 0.95) the first
+    argmin of |pdf - value| on either side of the mode gives the minus and
+    plus level contours (ties go to the first index, as in JAX)."""
+    u, v, alpha_proj = projected_uncertainty(mu, cov, alpha)
+    p1 = mu + v * (u * 2.0)[..., None]
+    p2 = mu - v * (u * 2.0)[..., None]
+    inv_res = float(np.float32(1) / np.float32(resolution))
+
+    frac = linspace(0.0, 1.0, resolution, dtype=mu.dtype, device=mu.device)
+    x = (frac * 6.0 - 3.0) * u[..., None]  # (B, K, R) in [-3u, 3u]
+    z = x / u[..., None]
+    pdf = 2.0 * _norm_pdf(z) * torch.special.ndtr(alpha_proj[..., None] * z)
+    pdf = pdf / pdf.amax(dim=-1, keepdim=True)
+    mode_idx = torch.argmax(pdf, dim=-1)  # (B, K)
+
+    def along(idx, a, b):  # grid indices (..., K) -> points on the segments b..a
+        f = (idx.to(mu.dtype) * inv_res)[..., None]
+        return a * f + b * (1.0 - f)
+
+    vals = 1.0 - linspace(0.0, 0.95, levels, dtype=mu.dtype, device=mu.device)  # (L,)
+    right = (torch.arange(resolution, device=mu.device) > mode_idx[..., None])[..., None, :, :]
+    d = (pdf[..., None, :, :] - vals[:, None, None]).abs()  # (B, L, K, R)
+    inf = torch.full((), math.inf, dtype=d.dtype, device=d.device)
+    plus = torch.argmin(torch.where(right, d, inf), dim=-1)  # (B, L, K)
+    minus = torch.argmin(torch.where(right, inf, d), dim=-1)
+    a, b = p1[..., None, :, :], p2[..., None, :, :]
+    # The 2L contour family: the minus levels reversed, then the plus levels.
+    contours = torch.cat([along(minus, a, b).flip(-3), along(plus, a, b)], dim=-3)
+    w_half = _norm_pdf(torch.arange(levels, dtype=mu.dtype, device=mu.device),
+                       scale=levels / 2.0)
+    return along(mode_idx, p1, p2), contours, torch.cat([w_half.flip(0), w_half])
+
+
+def skew_umap(mu: torch.Tensor, cov: torch.Tensor, alpha: torch.Tensor, shape=(256, 256),
+              levels: int = 100, resolution: int = 1000):
+    """Skew uncertainty map and projected mode: mu (B, K, 2), cov
+    (B, K, 2, 2), alpha (B, K, 2) -> (projected mode (B, K, 2), map (B, H, W)):
+    the two-class entropy of the weighted mean of the level contours' masks
+    (`skew_level_contours`), all B * 2L masks in one `rasterize_batch` call."""
+    projected_mode, contours, weights = skew_level_contours(mu, cov, alpha, levels, resolution)
+    masks = rasterize_batch(contours, shape[0], shape[1])  # (B, 2L, H, W)
+    mean_mask = (masks * weights[:, None, None]).sum(-3) / weights.sum()
+    entropy = -(mean_mask * torch.log(mean_mask + 1e-12)
+                + (1.0 - mean_mask) * torch.log(1.0 - mean_mask + 1e-12))
+    return projected_mode, entropy

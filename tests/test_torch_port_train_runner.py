@@ -79,7 +79,7 @@ def _jax_trainer_config(cfg):
 
 @pytest.mark.parametrize("override,item", [
     ("data.name=camus-cont", "item 2"), ("data.name=lung", "item 10"),
-    ("task.name=dsnt-skew", "item 6"), ("task.name=epistemic", "item 7"),
+    ("task.name=mcdropout", "item 8"), ("task.name=epistemic", "item 7"),
     ("task.name=tta", "item 8"), ("comet=true", "Queue 1"),
     ("predict_batch_views=4", "item 3"), ("task.train_ensemble=3", "item 5"),
 ])
