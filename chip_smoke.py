@@ -67,7 +67,11 @@ result line):
    the plain version in f64, with K2's f32 forward and the plain backward
    timed; one SGD step on the GPU against the CPU (64^2, 4 stages), also
    with K2 swapped for the plain moments and with cuDNN off, to tell the
-   kernel's share of the difference from the convolutions'; and, on the
+   kernel's share of the difference from the convolutions', each step's
+   gradients (the CPU's too) read against the model computing in f64
+   throughout (`set_compute_dtype`), also pinned to the step's own side
+   of every LeakyReLU kink (`leaky_relu_sides`), its kink flips counted;
+   and, on the
    trained weights' own logits of one validation batch, K2 at 672, 336 and
    42 rows (the train step and full validation batch, the last validation
    batch, a predicted view) against f64 and the crossing selection against
@@ -89,7 +93,28 @@ result line):
    epochs, every loss term finite, launches per train step, val/test batch
    and predicted view, ms/step, peak memory, the skewness processor after
    predict), and one freeze_seg epoch whose backbone stays bitwise the
-   seed's.
+   seed's;
+11. the sequence samplers, soft masks and view batching, before the kernels
+   line, at the serving width of [5]: `run_predict` with
+   `task.sequence_sampler` over the 6 test views for DSNT-AL (K2 1 and K3 1
+   launches per view) and for DSNTSkew with the esn sampler (K2 1, K3 3),
+   launch counters reset just before and read just after, outputs finite
+   with the JAX package's shapes, views/s and the idle share; both sequence
+   samplers on the card on a synthetic (ED, ES) population (ES the ED
+   contour shrunk by 0.8; T_e=10 x 25 pairs): each instant's mean within 8
+   px of its prediction, the mean ES area below the mean ED area;
+   `task.soft_mask` over the 6 views: f32 sample masks in [0, 1], the
+   card's blur of one view's 500 masks within 1e-6 of the CPU's, the five
+   flagship processors with no processor error; `predict_batch_views`=4
+   over the 6 views (a dispatch of 4, then one of 2) for DSNT-AL and
+   DSNTSkew (one forward per view, the rest of the pipeline once per
+   dispatch): launches per dispatch (K2 1; K3 1 and 3), every view against
+   one view per dispatch within the JAX package's budgets (mu 1e-5, cov
+   1e-4, at most 8 `pred` pixels), views/s at V=1 and V=4 in turns in the
+   same call with the idle share and top device rows of each; K2 on one
+   dispatch's (1680, 65536) bf16 head logits against f64 (the bars of [3])
+   and K3 on its 2000 sampled contours (bitwise, NaN positions matched),
+   each timed beside its bound (K3 also beside `torch.topk`).
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -161,6 +186,24 @@ SKEW_TRAIN_OVERRIDES = [
 # contours and the mode's mask add two K3 launches to a view's.
 SKEW_PER_CALL = {"train step": (1, 0, 0), "val/test batch": (1, 0, 1), "predict view": (1, 0, 3)}
 
+# The sequence samplers, soft masks and view batching ([11]), at the serving
+# configuration of [5] (the Gaussian and skew models of [5] and [10]).
+SEQ_PASSES = 3  # timed passes over the test views after the first
+# The sequence prior is fit on the training views' (ED, ES) pairs: 80
+# synthetic patients give 48 training patients, 96 pairs, more than the
+# prior's 4K = 84 dimensions (CAMUS's training split holds 500-odd). On the
+# 8 pairs of [5]'s 8 patients the prior has rank 7, and the skew sequence
+# sampler draws NaN from it, in the JAX package as in the port (ROADMAP
+# Queue 3): [11] prints that count as a reading.
+SEQ_PRIOR_PATIENTS = 80
+SEQ_PER_VIEW = {"gaussian": (1, 0, 1), "skew": (1, 0, 3)}  # (K2, K1, K3) per view
+BATCH_VIEWS = 4  # predict_batch_views: 6 views = a dispatch of 4, then one of 2
+BATCH_ROUNDS = 2  # timed rounds of passes in turns: V=1, V=4, V=4, V=1
+# A view served in a dispatch of V against the same view alone (JAX
+# tests/test_parallel.py:278-285): mu and cov absolute (px, px^2), and the
+# pred pixels that may differ.
+BATCH_BUDGETS = {"mu": 1e-5, "cov": 1e-4, "pred_px": 8}
+
 # K2's gradient against autograd of the plain version in f64, relative to
 # the largest gradient: the adjoint recomputes p in f32 (CPU: 1.8e-7).
 GRAD_BAR = 1e-5
@@ -168,16 +211,23 @@ GRAD_BAR = 1e-5
 # gpu_vs_cpu_step): per gradient leaf, a share of the leaf's largest f64
 # value plus 1e-5 of the largest gradient of all, and each weight within the
 # learning rate times that bar plus 2e-7 (f32 rounding of weights of order
-# 1). The path as it runs is held to 1e-2 of a leaf: with cuDNN's f32
-# algorithms its weight gradients sit up to 5.5e-3 of their leaf from f64,
-# with K2 or with the plain moments alike; with cuDNN off, 5.8e-4; the
-# CPU's, 9.4e-7 (PERF.md). So the step with cuDNN off is held to 1e-3 of
-# f64, and K2 to 1e-5 of the plain moments on the same convolutions (8.1e-7
-# measured). The conv biases ahead of an instance norm have an exact
-# gradient of 0: theirs is rounding noise, held under 1e-3 of the largest
-# gradient.
-STEP_BARS = {"grad_leaf": 1e-2, "no_cudnn": 1e-3, "kernel_vs_plain": 1e-5, "grad_all": 1e-5,
-             "param_round": 2e-7, "zero_grad": 1e-3}
+# 1). The path as it runs is held to 1e-2 of a leaf of the CPU's: with
+# cuDNN's f32 algorithms its weight gradients sat up to 5.5e-3 of their leaf
+# from the CPU's, with K2 or with the plain moments alike (PERF.md). The f64
+# reference is the model computing in f64 throughout. An f32 forward puts an
+# activation within rounding of zero on the other side of a LeakyReLU kink
+# now and then, which moves every gradient behind it by ~1e-3 of a leaf
+# (the CPU's f32 step: 5.6e-3 of a leaf from f64 on the host of an H100
+# machine). So each step's flips against the f64 forward are counted (at
+# most `kink_flips`, each within `kink_zero` of zero in f64), and the step
+# with cuDNN off is held to `no_cudnn` of the f64 gradients on its own
+# forward's side of every kink (`leaky_relu_sides`); K2 to 1e-5 of the
+# plain moments on the same convolutions (8.1e-7 measured). The conv biases
+# ahead of an instance norm have an exact gradient of 0: theirs is rounding
+# noise, held under 1e-3 of the largest gradient.
+STEP_BARS = {"grad_leaf": 1e-2, "no_cudnn": 1e-3, "kernel_vs_plain": 1e-5,
+             "kink_flips": 16, "kink_zero": 1e-4,
+             "grad_all": 1e-5, "param_round": 2e-7, "zero_grad": 1e-3}
 
 
 def card_line() -> str:
@@ -400,24 +450,7 @@ def main_path(profile_dir=None) -> dict:
             raise AssertionError(f"the main path launched {name} {launches[name]} times "
                                  f"in {n_views} views")
 
-    n, t_e, t_a, k, s = 2, c["t_e"], c["t_a"], c["k"], c["size"]
-    shapes = {"mu": (n, k, 2), "cov": (n, k, 2, 2), "post_mu": (n, k, 2),
-              "post_cov": (n, k, 2, 2), "contour_samples": (n, t_e, t_a, k, 2),
-              "pred_samples": (n, t_e, t_a, s, s), "pred": (n, s, s),
-              "uncertainty_map": (n, s, s), "entropy_map": (n, s, s)}
-    for res in results:
-        for key, shape in shapes.items():
-            value = getattr(res, key)
-            if value.shape != shape:
-                raise AssertionError(f"{key} shape {value.shape} != {shape}")
-            if not np.isfinite(value.astype(np.float64)).all():
-                raise AssertionError(f"{key} has non-finite values")
-        for group in (res.point_uncertainty, res.instant_uncertainty):
-            for key, value in group.items():
-                if not np.isfinite(value).all():
-                    raise AssertionError(f"{key} has non-finite values")
-        if res.pred_samples.max() != 1 or res.uncertainty_map.max() <= 0:
-            raise AssertionError("no sample mask or uncertainty map was painted")
+    check_gaussian_results(results)
 
     # Steady state: more passes over the same views, all kernels built.
     pass_s = []
@@ -437,6 +470,30 @@ def main_path(profile_dir=None) -> dict:
             "kernel_ms_per_view": kernel_ms / n_views, "copy_ms_per_view": copy_ms / n_views,
             "profile": table,
             "results": results, "task": task, "model": model, "data": data}
+
+
+def check_gaussian_results(results) -> None:
+    """The JAX package's shapes at MAIN_CFG, finite values, a painted
+    sample mask and uncertainty map."""
+    c = MAIN_CFG
+    n, t_e, t_a, k, s = 2, c["t_e"], c["t_a"], c["k"], c["size"]
+    shapes = {"mu": (n, k, 2), "cov": (n, k, 2, 2), "post_mu": (n, k, 2),
+              "post_cov": (n, k, 2, 2), "contour_samples": (n, t_e, t_a, k, 2),
+              "pred_samples": (n, t_e, t_a, s, s), "pred": (n, s, s),
+              "uncertainty_map": (n, s, s), "entropy_map": (n, s, s)}
+    for res in results:
+        for key, shape in shapes.items():
+            value = getattr(res, key)
+            if value.shape != shape:
+                raise AssertionError(f"{key} shape {value.shape} != {shape}")
+            if not np.isfinite(value.astype(np.float64)).all():
+                raise AssertionError(f"{key} has non-finite values")
+        for group in (res.point_uncertainty, res.instant_uncertainty):
+            for key, value in group.items():
+                if not np.isfinite(value).all():
+                    raise AssertionError(f"{key} has non-finite values")
+        if res.pred_samples.max() != 1 or res.uncertainty_map.max() <= 0:
+            raise AssertionError("no sample mask or uncertainty map was painted")
 
 
 def profile_run(fn, out_dir=None):
@@ -774,8 +831,9 @@ def kernel_timings(main: dict) -> list:
 @contextmanager
 def launch_ledger():
     """Per call of a train step, a val/test batch (`val_metrics`) and a
-    predicted view, the (K2, K1, K3) launches it made; the class methods are
-    wrapped while the block runs."""
+    predict dispatch (one view, or V views with `predict_batch_views`), the
+    (K2, K1, K3) launches it made; the class methods are wrapped while the
+    block runs."""
     from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
     from contouring_uncertainty_torch.predict import AleatoricPredictor
     from contouring_uncertainty_torch.tasks import DSNTAleatoric
@@ -787,7 +845,7 @@ def launch_ledger():
     ledger = {"train step": [], "val/test batch": [], "predict view": []}
     targets = [(Trainer, "train_step", "train step"),
                (DSNTAleatoric, "val_metrics", "val/test batch"),
-               (AleatoricPredictor, "__call__", "predict view")]
+               (AleatoricPredictor, "batched", "predict view")]
     originals = [getattr(cls, name) for cls, name, _ in targets]
 
     def counted(fn, label):
@@ -1028,11 +1086,15 @@ def gpu_vs_cpu_step() -> dict:
     drop_block off, augmentation off, the same seed-initialised weights and
     batch; every gradient also against the CPU's in f64. The GPU step runs
     in the STEP_VARIANTS: the path as the trainer runs it (K2, cuDNN), K2
-    swapped for the plain moments, cuDNN off, and both. Gates (STEP_BARS,
-    per gradient leaf, relative to its largest f64 value): the path within
-    `grad_leaf` of the CPU and its weights within lr times that; K2 against
-    the plain moments with cuDNN off (the same deterministic convolutions)
-    within `kernel_vs_plain`; K2 with cuDNN off within `no_cudnn` of f64.
+    swapped for the plain moments, cuDNN off, and both. The f64 reference
+    is the same model computing in f64 throughout (`set_compute_dtype`),
+    also pinned to each step's LeakyReLU sides (`leaky_relu_sides`).
+    Gates (STEP_BARS, per gradient leaf, relative to its largest f64
+    value): the path within `grad_leaf` of the CPU and its weights within lr
+    times that; K2 against the plain moments with cuDNN off (the same
+    deterministic convolutions) within `kernel_vs_plain`; the CPU's and the
+    no-cuDNN step's kink flips against the f64 forward; K2 with cuDNN off
+    within `no_cudnn` of the f64 gradients pinned to its sides.
     SGD, not the slice's AdamW: AdamW's first step is lr * sign(g) wherever
     |g| >> eps, so on the biases whose gradient is rounding noise of either
     sign it sets the two devices' weights 2 lr apart; SGD keeps the update
@@ -1041,6 +1103,7 @@ def gpu_vs_cpu_step() -> dict:
 
     from contouring_uncertainty_torch.data.config import DataParams, Tags
     from contouring_uncertainty_torch.data.synthetic import make_arrays
+    from contouring_uncertainty_torch.models.unet import leaky_relu_sides, set_compute_dtype
     from contouring_uncertainty_torch.tasks import DSNTAleatoric
     from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
@@ -1059,18 +1122,32 @@ def gpu_vs_cpu_step() -> dict:
     def one_step(device):
         trainer = Trainer(task, cfg, device=device)
         trainer.init_state()
-        loss = float(trainer.train_step(batch_on(device), 0)["loss"])
+        with leaky_relu_sides(trainer.model) as sides:
+            loss = float(trainer.train_step(batch_on(device), 0)["loss"])
         return loss, {n: (p.grad.detach().cpu().double(), p.detach().cpu())
-                      for n, p in trainer.model.named_parameters()}
+                      for n, p in trainer.model.named_parameters()}, \
+            {n: s.cpu() for n, s in sides.items()}
+
+    def f64_step(pin=None):
+        """The f64 model's gradients, its LeakyReLU sides and inputs."""
+        model64 = set_compute_dtype(task.build_model(
+            device="cpu", generator=torch.Generator().manual_seed(cfg.seed)).double(),
+            torch.float64)
+        pre = {}
+        for name, mod in model64.named_modules():
+            if name.endswith(".InstanceNorm_0"):
+                layer = name[:-len(".InstanceNorm_0")]
+                mod.register_forward_hook(
+                    lambda m, i, y, layer=layer: pre.update({layer: y.detach()}))
+        with leaky_relu_sides(model64, pin) as sides:
+            task.loss(model64, batch_on("cpu", torch.float64), train=True)[0].backward()
+        return {n: p.grad for n, p in model64.named_parameters()}, sides, pre
 
     out = {"cpu": one_step("cpu")}
     for variant, flags in STEP_VARIANTS.items():
         with step_variant(*flags):
             out[variant] = one_step("cuda")
-    model64 = task.build_model(device="cpu",
-                               generator=torch.Generator().manual_seed(cfg.seed)).double()
-    task.loss(model64, batch_on("cpu", torch.float64), train=True)[0].backward()
-    ref = {n: p.grad for n, p in model64.named_parameters()}
+    ref, sides64, pre64 = f64_step()
     grad_all = max(float(g.abs().max()) for g in ref.values())
     # Conv biases ahead of an instance norm: an exact gradient of 0.
     zero = [n for n in ref if n.endswith("Conv_0.bias")]
@@ -1085,19 +1162,32 @@ def gpu_vs_cpu_step() -> dict:
         return ratio[name], name
 
     grads = {k: {n: v[0] for n, v in o[1].items()} for k, o in out.items()}
+    flips, pinned = {}, {}
+    for k, o in out.items():
+        flipped = {n: o[2][n] != sides64[n] for n in sides64}
+        flips[k] = (sum(int(f.sum()) for f in flipped.values()),
+                    max((float(pre64[n][f].abs().max()) for n, f in flipped.items() if f.any()),
+                        default=0.0))
+        pinned[k] = f64_step(o[2])[0]
     readings = {f"{k} vs f64": worst(o[1], ref) for k, o in out.items()}
+    readings.update({f"{k} vs f64 on its kink sides": worst(o[1], pinned[k])
+                     for k, o in out.items()})
     readings["K2 vs plain moments, no cuDNN"] = worst(out["no cuDNN"][1],
                                                       grads["plain moments, no cuDNN"])
     readings["K2 vs plain moments, cuDNN"] = worst(out["path"][1], grads["plain moments"])
     readings["path vs cpu"] = worst(out["path"][1], grads["cpu"])
     for label, (ratio, name) in readings.items():
-        print(f"      {label:32s} {ratio:.3e} of a leaf's largest ({name})")
+        print(f"      {label:50s} {ratio:.3e} of a leaf's largest ({name})")
+    n_act = sum(s.numel() for s in sides64.values())
+    for k, (n, near) in flips.items():
+        print(f"      {k:50s} {n} of {n_act} activations on the other side of a kink "
+              f"from f64, the farthest {near:.2e} from zero in f64")
     zero_noise = max(float(g[n].abs().max()) for g in grads.values() for n in zero) / grad_all
 
-    def of_bar(a, b, leaf_bar):
-        """Worst |a - b| per leaf as a share of leaf_bar * leaf max plus
-        grad_all * the largest gradient of all."""
-        return max(float((grads[a][n] - grads[b][n] if b else grads[a][n] - ref[n]).abs().max())
+    def of_bar(a, against, leaf_bar):
+        """Worst |a - against| per leaf as a share of leaf_bar * leaf max
+        plus grad_all * the largest gradient of all."""
+        return max(float((grads[a][n] - against[n]).abs().max())
                    / (leaf_bar * float(ref[n].abs().max()) + STEP_BARS["grad_all"] * grad_all)
                    for n in leaves)
 
@@ -1105,18 +1195,22 @@ def gpu_vs_cpu_step() -> dict:
                 + STEP_BARS["grad_all"] * grad_all for n in leaves}
     param = max(float((out["path"][1][n][1] - out["cpu"][1][n][1]).abs().max())
                 / (cfg.lr * grad_bar[n] + STEP_BARS["param_round"]) for n in leaves)
-    gates = {"path vs cpu": of_bar("path", "cpu", STEP_BARS["grad_leaf"]),
+    gates = {"path vs cpu": of_bar("path", grads["cpu"], STEP_BARS["grad_leaf"]),
              "path weights vs cpu": param,
-             "K2 vs plain moments, no cuDNN": of_bar("no cuDNN", "plain moments, no cuDNN",
+             "K2 vs plain moments, no cuDNN": of_bar("no cuDNN", grads["plain moments, no cuDNN"],
                                                      STEP_BARS["kernel_vs_plain"]),
-             "no cuDNN vs f64": of_bar("no cuDNN", None, STEP_BARS["no_cudnn"]),
+             "no cuDNN vs f64 on its kink sides": of_bar("no cuDNN", pinned["no cuDNN"],
+                                                         STEP_BARS["no_cudnn"]),
              "zero-gradient biases": zero_noise / STEP_BARS["zero_grad"]}
+    for k in ("cpu", "no cuDNN"):
+        gates[f"{k} kink flips"] = max(flips[k][0] / STEP_BARS["kink_flips"],
+                                       flips[k][1] / STEP_BARS["kink_zero"])
     loss_err = abs(out["path"][0] - out["cpu"][0])
     if max(gates.values()) > 1.0:
         raise AssertionError(f"GPU step outside its bars: {gates} (shares of the bars "
                              f"{STEP_BARS})")
     return {"of_bar": gates, "readings": {k: v[0] for k, v in readings.items()},
-            "loss_abs": loss_err, "loss": out["cpu"][0]}
+            "flips": flips, "loss_abs": loss_err, "loss": out["cpu"][0]}
 
 
 def trained_head_checks(ckpt: str) -> dict:
@@ -1186,7 +1280,6 @@ def skew_serving(profile_dir=None) -> dict:
     import torch
 
     from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
-    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
     from contouring_uncertainty_torch.predict import run_predict
     from contouring_uncertainty_torch.tasks import DSNTSkew
 
@@ -1200,35 +1293,16 @@ def skew_serving(profile_dir=None) -> dict:
         raise AssertionError("the ConfidenceNet is not f32")
     cfg = {"seed": c["seed"], "task": {"skew_method": "esn", "grid_window": 64}}
 
-    dsnt_kernel.row_launches = dsnt_kernel.col_launches = 0
-    select_kernel.launches = 0
-    t0 = time.perf_counter()
-    with launch_ledger() as ledger:
-        results = run_predict(task, model, data, cfg, split="test")
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
-                "K3": select_kernel.launches}
-    n_views = len(results)
-    per_view = ledger["predict view"]
+    run = serve(task, model, data, cfg, SKEW_PASSES,
+                profile_dir / "skew" if profile_dir is not None else None)
+    results, n_views, launches = run["results"], run["views"], run["launches"]
+    per_view = run["per_dispatch"]
     if len(per_view) != n_views or any(v != SKEW_PER_CALL["predict view"] for v in per_view):
         raise AssertionError(f"skew serving launches (K2, K1, K3) per view {per_view}, expected "
                              f"{SKEW_PER_CALL['predict view']}")
     if launches != {"K2": n_views, "K1": 0, "K3": 3 * n_views}:
         raise AssertionError(f"skew serving launched {launches} in {n_views} views")
     check_skew_results(results, c["t_e"], c["t_a"], c["size"])
-
-    pass_s = []
-    for _ in range(SKEW_PASSES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_predict(task, model, data, cfg, split="test")
-        torch.cuda.synchronize()
-        pass_s.append(time.perf_counter() - t0)
-    ms = sorted(1e3 * t / n_views for t in pass_s)
-    kernel_ms, copy_ms, table = profile_run(
-        lambda: run_predict(task, model, data, cfg, split="test"),
-        profile_dir / "skew" if profile_dir is not None else None)
 
     one = OneView(data)
     grid_cfg = {"seed": c["seed"], "task": {"skew_method": "grid", "grid_window": 64}}
@@ -1239,11 +1313,8 @@ def skew_serving(profile_dir=None) -> dict:
     torch.cuda.synchronize()
     grid_ms = (time.perf_counter() - t0) * 1e3
     check_skew_results(grid, c["t_e"], c["t_a"], c["size"])
-    return {"views": n_views, "launches": launches, "first_s": first_s,
-            "ms_per_view": ms[len(ms) // 2], "ms_range": (ms[0], ms[-1]),
-            "views_per_s": 1e3 / ms[len(ms) // 2], "kernel_ms_per_view": kernel_ms / n_views,
-            "copy_ms_per_view": copy_ms / n_views, "profile": table, "grid_ms": grid_ms,
-            "results": results, "task": task, "model": model, "data": data}
+    return {**run, **rate(run, run["pass_s"]), "grid_ms": grid_ms, "task": task, "model": model,
+            "data": data}
 
 
 def check_skew_results(results, t_e: int, t_a: int, size: int) -> None:
@@ -1485,6 +1556,307 @@ def skew_training() -> dict:
                        "val_loss": freeze["history"][-1]["val/loss"]}}
 
 
+def serve(task, model, data, cfg, passes: int, profile_dir=None) -> dict:
+    """run_predict over the test views: launch counters reset just before
+    the first run and read just after (per dispatch, by launch_ledger),
+    then `passes` timed steady-state passes and a profiled one."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.predict import run_predict
+
+    dsnt_kernel.row_launches = dsnt_kernel.col_launches = 0
+    select_kernel.launches = 0
+    t0 = time.perf_counter()
+    with launch_ledger() as ledger:
+        results = run_predict(task, model, data, cfg, split="test")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
+                "K3": select_kernel.launches}
+    pass_s = [timed_pass(task, model, data, cfg) for _ in range(passes)]
+    kernel_ms, copy_ms, table = profile_run(
+        lambda: run_predict(task, model, data, cfg, split="test"), profile_dir)
+    n = len(results)
+    return {"results": results, "views": n, "first_s": first_s, "launches": launches,
+            "per_dispatch": ledger["predict view"], "pass_s": pass_s,
+            "kernel_ms_per_view": kernel_ms / n, "copy_ms_per_view": copy_ms / n,
+            "profile": table}
+
+
+def timed_pass(task, model, data, cfg) -> float:
+    """Seconds of one synchronised run_predict over the test views."""
+    import torch
+
+    from contouring_uncertainty_torch.predict import run_predict
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_predict(task, model, data, cfg, split="test")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def rate(run: dict, pass_s) -> dict:
+    """Median views/s and ms/view over timed passes, with the range and the
+    idle share of the profiled pass."""
+    ms = sorted(1e3 * t / run["views"] for t in pass_s)
+    median = ms[len(ms) // 2]
+    busy = (run["kernel_ms_per_view"] + run["copy_ms_per_view"]) / median
+    return {"views_per_s": 1e3 / median, "ms_per_view": median, "ms_range": (ms[0], ms[-1]),
+            "idle_share": 1.0 - busy}
+
+
+class TrainedOn:
+    """The test views of one data source with the training split of
+    another (the priors are fit on the training split)."""
+
+    def __init__(self, views, train):
+        self.views, self.train = views, train
+        self.data_params = views.data_params
+        self.contour_groups = views.contour_groups
+
+    def predict_views(self, split="test"):
+        return (self.train if split == "train" else self.views).predict_views(split)
+
+    def train_arrays(self, split="train"):
+        return self.train.train_arrays(split)
+
+
+def sequence_serving(main_res: dict, skew: dict, profile_dir=None) -> dict:
+    """run_predict with task.sequence_sampler on the models of [5] and [10],
+    over [5]'s 6 test views with the priors fit on SEQ_PRIOR_PATIENTS
+    patients' training split: launches per view, shapes, views/s; the same
+    models without the sequence sampler (same views, same priors) are timed
+    beside them in the same call. Then the skew sequence sampler's NaN count
+    on one view's predictions with the sequence prior of [5]'s 8 patients
+    (a reading: the reference's fault, ROADMAP Queue 3)."""
+    import torch
+
+    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+    from contouring_uncertainty_torch.predict import (
+        get_or_fit_prior,
+        get_or_fit_sequence_prior,
+        view_generator,
+    )
+    from contouring_uncertainty_torch.sampler import SequenceSkewPSMSampler
+
+    c = MAIN_CFG
+    t0 = time.perf_counter()
+    data = TrainedOn(main_res["data"], SyntheticContourData(
+        n_patients=SEQ_PRIOR_PATIENTS, k=c["k"], size=c["size"], seed=c["seed"] + 1))
+    out = {"data_s": time.perf_counter() - t0}
+    for name, base, extra in (("gaussian", main_res, {}),
+                              ("skew", skew, {"skew_method": "esn", "grid_window": 64})):
+        cfg = {"seed": MAIN_CFG["seed"], "task": {"sequence_sampler": True, **extra}}
+        run = serve(base["task"], base["model"], data, cfg, SEQ_PASSES,
+                    profile_dir / f"sequence_{name}" if profile_dir is not None else None)
+        n = run["views"]
+        expected = SEQ_PER_VIEW[name]
+        if len(run["per_dispatch"]) != n or any(v != expected for v in run["per_dispatch"]):
+            raise AssertionError(f"sequence {name}: launches (K2, K1, K3) per view "
+                                 f"{run['per_dispatch']}, expected {expected}")
+        if run["launches"] != dict(zip(("K2", "K1", "K3"), (n * e for e in expected))):
+            raise AssertionError(f"sequence {name} launched {run['launches']} in {n} views")
+        if name == "skew":
+            check_skew_results(run["results"], MAIN_CFG["t_e"], MAIN_CFG["t_a"], MAIN_CFG["size"])
+        else:
+            check_gaussian_results(run["results"])
+        plain = [timed_pass(base["task"], base["model"], data, {"seed": MAIN_CFG["seed"],
+                                                                  "task": extra})
+                 for _ in range(SEQ_PASSES)]
+        out[name] = {**run, **rate(run, run["pass_s"]),
+                     "independent_views_per_s": rate(run, plain)["views_per_s"]}
+
+    few = main_res["data"]
+    sampler = SequenceSkewPSMSampler(
+        get_or_fit_prior(few, None), get_or_fit_sequence_prior(few, None),
+        image_extent=float(c["size"] - 1), device="cuda")
+    view = next(iter(few.predict_views("test")))
+    gen = view_generator(c["seed"], 0)
+    with torch.inference_mode():
+        img = torch.as_tensor(view["img"], device="cuda")[None]
+        mu, cov, alpha = skew["task"].predict(skew["model"], img, generator=[gen])
+        samples = sampler.sample_batch([gen], mu, cov, alpha=alpha, n=c["t_a"])
+    out["rank_deficient"] = {"pairs": sum(1 for _ in few.predict_views("train")),
+                             "non_finite": int((~torch.isfinite(samples)).sum().item()),
+                             "coordinates": samples.numel()}
+    return out
+
+
+def sequence_coupling() -> dict:
+    """Both sequence samplers on the card on a synthetic (ED, ES)
+    population (150 ED contours at 256^2, each ES its ED shrunk by 0.8
+    about its centroid; one prediction pair, T_e=10 x 25 pairs): the JAX
+    package's coupling checks (tests/test_skew_sequence_samplers.py:261-281):
+    each instant's mean within 8 px of its prediction, the mean ES area
+    below the mean ED area."""
+    import torch
+
+    from contouring_uncertainty_torch.data.synthetic import lv_contour_points
+    from contouring_uncertainty_torch.sampler import (
+        SequencePSMSampler,
+        SequenceSkewPSMSampler,
+        fit_shape_prior,
+    )
+
+    c = MAIN_CFG
+    rng = np.random.default_rng(1)
+    ed = np.stack([lv_contour_points(rng, k=c["k"], size=c["size"]) for _ in range(150)])
+    centre = ed.mean(axis=1, keepdims=True)
+    es = centre + (ed - centre) * 0.8
+    priors = (fit_shape_prior(np.concatenate([ed, es])),
+              fit_shape_prior(np.concatenate([ed, es], axis=1)))
+    mu = torch.as_tensor(np.stack([ed[7], es[7]]), dtype=torch.float32,
+                         device="cuda")[:, None].repeat(1, c["t_e"], 1, 1)
+    cov = torch.eye(2, device="cuda").expand(2, c["t_e"], c["k"], 2, 2) * 9.0
+    samplers = {"gaussian": (SequencePSMSampler(*priors, device="cuda"), {}),
+                "skew": (SequenceSkewPSMSampler(*priors, image_extent=float(c["size"] - 1),
+                                                device="cuda"),
+                         {"alpha": torch.full_like(mu, 2.0)})}
+
+    def area(x):
+        return 0.5 * (x[..., 0] * x[..., 1].roll(-1, -1)
+                      - x[..., 0].roll(-1, -1) * x[..., 1]).sum(-1).abs()
+
+    out = {}
+    for name, (sampler, kw) in samplers.items():
+        pop = sampler.sample_batch(torch.Generator().manual_seed(2), mu, cov, n=c["t_a"], **kw)
+        pop = pop.reshape(2, -1, c["k"], 2)  # (instant, T_e * n, K, 2)
+        drift = [float((pop[i].mean(0) - mu[i, 0]).norm(dim=-1).mean()) for i in range(2)]
+        areas = [float(area(pop[i]).mean()) for i in range(2)]
+        out[name] = {"pairs": pop.shape[1], "drift_px": drift, "area_px": areas}
+        if not bool(torch.isfinite(pop).all()) or max(drift) >= 8.0 or areas[1] >= areas[0]:
+            raise AssertionError(f"sequence {name} coupling: {out[name]}")
+    return out
+
+
+def soft_mask_check(main_res: dict) -> dict:
+    """task.soft_mask over the test views: f32 sample masks in [0, 1]; the
+    card's blur of one view's 500 sample masks within 1e-6 of the CPU's on
+    the same masks; the flagship processors with no processor error."""
+    import tempfile
+
+    import torch
+
+    from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+    from contouring_uncertainty_torch.predict import gaussian_blur, run_predict
+    from contouring_uncertainty_torch.results import run_processors
+
+    c = MAIN_CFG
+    cfg = {"seed": c["seed"], "task": {"soft_mask": True}}
+    results = run_predict(main_res["task"], main_res["model"], main_res["data"], cfg,
+                          split="test")
+    for res in results:
+        ps = res.pred_samples
+        if ps.dtype != np.float32 or ps.min() < 0.0 or ps.max() > 1.0 or not 0.0 < ps.mean() < 1.0:
+            raise AssertionError(f"soft sample masks: {ps.dtype} in [{ps.min()}, {ps.max()}]")
+    samples = torch.as_tensor(results[0].contour_samples, device="cuda")
+    masks = rasterize_batch(samples, c["size"], c["size"])
+    blur_err = float((gaussian_blur(masks).cpu() - gaussian_blur(masks.cpu())).abs().max())
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = run_processors(results, Path(tmp),
+                                 {"data": {"results_processors": PROCESSOR_NAMES}}, device="cuda")
+    if blur_err > 1e-6 or "processor_errors" in metrics:
+        raise AssertionError(f"soft masks: blur card vs CPU {blur_err:.2e}, processor errors "
+                             f"{metrics.get('processor_errors')}")
+    return {"views": len(results), "masks": masks[..., 0, 0].numel(),
+            "blur_err": blur_err, "summary_keys": len(metrics)}
+
+
+def view_batching(main_res: dict, skew: dict, profile_dir=None) -> dict:
+    """predict_batch_views=BATCH_VIEWS against one view per dispatch, on the
+    Gaussian and skew models of [5] and [10]: launches per dispatch, every
+    view within BATCH_BUDGETS of its one-view result, then timed passes in
+    turns (V=1, V=V, V=V, V=1 per round) and a profiled pass of each."""
+    out = {}
+    for name, base, extra, k3 in (("gaussian", main_res, {}, 1),
+                                  ("skew", skew, {"skew_method": "esn", "grid_window": 64}, 3)):
+        cfgs = {v: {"seed": MAIN_CFG["seed"], "predict_batch_views": v, "task": extra}
+                for v in (1, BATCH_VIEWS)}
+        runs = {v: serve(base["task"], base["model"], base["data"], cfg, 0,
+                         profile_dir / f"batch_{name}_{v}" if profile_dir is not None else None)
+                for v, cfg in cfgs.items()}
+        n = runs[1]["views"]
+        dispatches = -(-n // BATCH_VIEWS)
+        per = runs[BATCH_VIEWS]["per_dispatch"]
+        if len(per) != dispatches or any(d != (1, 0, k3) for d in per):
+            raise AssertionError(f"batched {name}: launches (K2, K1, K3) per dispatch {per}")
+        worst = {"mu": 0.0, "cov": 0.0, "pred_px": 0}
+        for a, b in zip(runs[1]["results"], runs[BATCH_VIEWS]["results"]):
+            worst = {"mu": max(worst["mu"], float(np.abs(a.mu - b.mu).max())),
+                     "cov": max(worst["cov"], float(np.abs(a.cov - b.cov).max())),
+                     "pred_px": max(worst["pred_px"], int((a.pred != b.pred).sum()))}
+        if any(worst[key] > bar for key, bar in BATCH_BUDGETS.items()):
+            raise AssertionError(f"batched {name}: a view differs from its one-view result by "
+                                 f"{worst} (budgets {BATCH_BUDGETS})")
+        passes = {1: [], BATCH_VIEWS: []}
+        for _ in range(BATCH_ROUNDS):
+            for v in (1, BATCH_VIEWS, BATCH_VIEWS, 1):
+                passes[v].append(timed_pass(base["task"], base["model"], base["data"], cfgs[v]))
+        out[name] = {"dispatches": dispatches, "per_dispatch": per, "worst": worst,
+                     "runs": runs, **{v: rate(runs[v], passes[v]) for v in passes}}
+    return out
+
+
+def batched_kernel_checks(main_res: dict, batch: dict) -> dict:
+    """K2 on one dispatch's head logits (BATCH_VIEWS views x T_e x N x K =
+    1680 heatmaps of 256^2, bf16) against f64 at the bars of [3], and K3 on
+    the dispatch's 2000 sampled contours against its plain version
+    (bitwise, NaN positions matched), each timed beside its bound, K3 also
+    beside torch.topk over its candidates."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+    from contouring_uncertainty_torch.tasks.dsnt_al import forward_views
+
+    c = MAIN_CFG
+    size = c["size"]
+    views = list(main_res["data"].predict_views("test"))[:BATCH_VIEWS]
+    imgs = torch.as_tensor(np.stack([v["img"] for v in views]), device="cuda")
+    gens = [torch.Generator().manual_seed(i) for i in range(BATCH_VIEWS)]
+    with torch.inference_mode():
+        logits = forward_views(main_res["model"], imgs, c["t_e"], gens)["out"]
+    rows = logits.reshape(-1, size * size)
+    raw = dsnt_kernel.raw_moments_cuda(rows, size, size)
+    ref = dsnt_kernel.raw_moments_plain(rows.double(), size, size)
+    err = moment_errors(raw, ref, size, size)
+    if not within_dsnt_bars(err):
+        raise AssertionError(f"K2 at {tuple(rows.shape)} outside {DSNT_BARS}: {err}")
+    k2_ms = cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(rows, size, size))
+    k2_plain = cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows, size, size), iters=5)
+    r, hw = rows.shape
+    k2_bound = {"bytes": (r * hw * rows.element_size() + r * 8 * 4) / HBM_BYTES_PER_S * 1e3,
+                "operations": r * hw * 19 / F32_OPS_PER_S * 1e3}
+
+    samples = torch.as_tensor(np.stack([res.contour_samples for res in
+                                        batch["gaussian"]["runs"][BATCH_VIEWS]["results"][
+                                            :BATCH_VIEWS]]), device="cuda")
+    dense = contour_spline(samples.reshape(-1, c["k"], 2), n=1024).contiguous()
+    check_selection(dense, size, size, f"one dispatch's sampled contours ({dense.shape[0]})")
+    xs_k = select_kernel.min_k_crossings_kernel(dense, size)
+    xs_p = select_kernel.min_k_crossings_plain(dense, size)
+    k3_err = torch.where(xs_k == xs_p, 0.0, (xs_k - xs_p).abs()).nan_to_num(0.0).max().item()
+    k3_ms = cuda_ms(lambda: select_kernel.min_k_crossings_kernel(dense, size))
+    k3_plain = cuda_ms(lambda: select_kernel.min_k_crossings_plain(dense, size), iters=3)
+    neg_cand = -select_kernel.crossing_candidates(dense, size)
+    n_cross = int(torch.isfinite(neg_cand).sum().item())
+    k3_lib = cuda_ms(lambda: torch.topk(neg_cand, 16, dim=-1), iters=3)
+    del neg_cand
+    m, e, _ = dense.shape
+    k3_bound = {"bytes": (m * e * 2 * 4 + m * size * 16 * 4) / HBM_BYTES_PER_S * 1e3,
+                "operations": (4 * m * e + 6 * n_cross) / F32_OPS_PER_S * 1e3}
+    return {"k2": {"shape": [r, hw], "dtype": str(rows.dtype), "err": err,
+                   "max_abs_err": (raw.double() - ref).abs().max().item(), "ms": k2_ms,
+                   "plain_ms": k2_plain, "bound_ms": max(k2_bound.values()),
+                   "bound_by": max(k2_bound, key=k2_bound.get)},
+            "k3": {"shape": [m, e, size], "crossings": n_cross, "max_abs_err": k3_err,
+                   "ms": k3_ms, "plain_ms": k3_plain, "library_ms": k3_lib,
+                   "bound_ms": max(k3_bound.values()),
+                   "bound_by": max(k3_bound, key=k3_bound.get)}}
+
+
 def main(argv) -> int:
     import torch
 
@@ -1667,6 +2039,58 @@ def main(argv) -> int:
           f"{skew_train['totals']} on {card}")
     print(f"    freeze_seg epoch: {skew_train['freeze']['unet_tensors']} backbone tensors "
           f"bitwise unchanged, {skew_train['freeze']['head_tensors']} head tensors moved")
+
+    phase_start[11] = time.perf_counter()
+    print("[11] sequence samplers, soft masks and view batching (flagship serving width)")
+    seq = sequence_serving(main_res, skew, profile_dir)
+    deficient = seq.pop("rank_deficient")
+    print(f"    priors fit on {SEQ_PRIOR_PATIENTS} patients' training split "
+          f"({seq.pop('data_s'):.1f} s to draw them); the 6 test views of [5]")
+    for name, run in seq.items():
+        lo, hi = run["ms_range"]
+        print(f"    sequence {name}: {run['views']} views, first run {run['first_s']:.2f} s; "
+              f"launches {run['launches']} ({SEQ_PER_VIEW[name]} (K2, K1, K3) per view); "
+              f"steady state {run['views_per_s']:.2f} views/s, median {run['ms_per_view']:.1f} "
+              f"ms/view over {SEQ_PASSES} passes (range {lo:.1f}-{hi:.1f}); kernels "
+              f"{run['kernel_ms_per_view']:.2f} + copies {run['copy_ms_per_view']:.2f} ms/view, "
+              f"idle share {run['idle_share']:.1%}; the same model without the sequence sampler "
+              f"{run['independent_views_per_s']:.2f} views/s in this call, on {card}")
+        print(run["profile"])
+    print(f"    skew sequence sampler with the sequence prior of [5]'s {deficient['pairs']} "
+          f"pairs (rank < 84): {deficient['non_finite']} of {deficient['coordinates']} sampled "
+          f"coordinates not finite on one view (the reference's fault, ROADMAP Queue 3)")
+    coupling = sequence_coupling()
+    for name, row in coupling.items():
+        print(f"    sequence {name} on a synthetic (ED, ES) population ({row['pairs']} pairs): "
+              f"mean drift from the prediction ED {row['drift_px'][0]:.2f} px, ES "
+              f"{row['drift_px'][1]:.2f} px (bar 8); mean area ED {row['area_px'][0]:.1f}, "
+              f"ES {row['area_px'][1]:.1f} px^2")
+    soft = soft_mask_check(main_res)
+    print(f"    soft masks over {soft['views']} views: f32 in [0, 1]; blur of one view's "
+          f"{soft['masks']} masks, card vs CPU {soft['blur_err']:.2e} (bar 1e-6); processors "
+          f"{PROCESSOR_NAMES}: no processor error, {soft['summary_keys']} summary keys")
+    batch = view_batching(main_res, skew, profile_dir)
+    for name, row in batch.items():
+        print(f"    predict_batch_views={BATCH_VIEWS}, {name}: {row['dispatches']} dispatches, "
+              f"launches (K2, K1, K3) per dispatch {row['per_dispatch']}; worst view against "
+              f"one view per dispatch {row['worst']} (budgets {BATCH_BUDGETS})")
+        for v in (1, BATCH_VIEWS):
+            r = row[v]
+            lo, hi = r["ms_range"]
+            print(f"      V={v}: {r['views_per_s']:.2f} views/s, median {r['ms_per_view']:.1f} "
+                  f"ms/view over {2 * BATCH_ROUNDS} passes (range {lo:.1f}-{hi:.1f}); kernels "
+                  f"{row['runs'][v]['kernel_ms_per_view']:.2f} + copies "
+                  f"{row['runs'][v]['copy_ms_per_view']:.2f} ms/view, idle share "
+                  f"{r['idle_share']:.1%}, on {card}")
+            print(row["runs"][v]["profile"])
+    bk = batched_kernel_checks(main_res, batch)
+    print(f"    K2 at {bk['k2']['shape']} {bk['k2']['dtype']}: mu err {bk['k2']['err']['mu_px']:.3e} "
+          f"px, sigma rel err {bk['k2']['err']['sigma_rel']:.3e}; {bk['k2']['ms']:.4f} ms "
+          f"(bound {bk['k2']['bound_ms']:.4f} ms by {bk['k2']['bound_by']}), plain "
+          f"{bk['k2']['plain_ms']:.4f} ms")
+    print(f"    K3 at {bk['k3']['shape']}: bitwise; {bk['k3']['ms']:.4f} ms (bound "
+          f"{bk['k3']['bound_ms']:.4f} ms by {bk['k3']['bound_by']}), plain "
+          f"{bk['k3']['plain_ms']:.4f} ms, torch.topk {bk['k3']['library_ms']:.4f} ms")
     for kern in kernels:
         short = kern["name"].split(" ")[0]
         per_call = {label: calls[{"K2": 0, "K1": 1, "K3": 2}[short]]
@@ -1691,6 +2115,16 @@ def main(argv) -> int:
             kern["skew"].update({k: skew_k[k] for k in (
                 "level_contours", "narrow_levels", "min_area_px", "k3_ms", "k3_plain_ms",
                 "k3_library_ms", "k3_bound_ms", "k3_bound_by")})
+        kern["sequence"] = {name: {"launches": run["launches"][short],
+                                   "launches_per_view": run["launches"][short] / run["views"]}
+                            for name, run in seq.items()}
+        kern["batched"] = {name: {"views_per_dispatch": BATCH_VIEWS,
+                                  "dispatches": row["dispatches"],
+                                  "launches": sum(d[index] for d in row["per_dispatch"]),
+                                  "launches_per_dispatch": [d[index] for d in row["per_dispatch"]]}
+                           for name, row in batch.items()}
+        if short in ("K2", "K3"):
+            kern["batched"]["kernel"] = bk[short.lower()]
     t_end = time.perf_counter()
     starts = sorted(phase_start.items())
     spans = {f"[{n}]": round(b - a, 1) for (n, a), (_, b) in zip(starts, starts[1:] + [(0, t_end)])}

@@ -1,19 +1,19 @@
 """Bivariate normal: logpdf, nll, marginals and sampling, batched over leading axes.
 
 Counterpart of contouring_uncertainty_tpu/distributions/normal.py. Sampling
-takes an explicit `torch.Generator`; the standard normals are drawn on the
-generator's device and moved to `mu`'s, so a CPU generator gives the same
-draws on every device.
+takes explicit generators (rng.py: one, or one per leading view block of
+the draw); the standard normals are drawn on the generator's device and
+moved to `mu`'s, so a CPU generator gives the same draws on every device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
 from contouring_uncertainty_torch.distributions.linalg import chol2x2, mat2_vec, rotate_cov
+from contouring_uncertainty_torch.rng import Generators, draw_normal
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -50,18 +50,16 @@ def marginal(mu: torch.Tensor, cov: torch.Tensor, axis: int, angle=0.0):
     return mu[..., axis], cov[..., axis, axis]
 
 
-def standard_normal(generator: Optional[torch.Generator], shape, like: torch.Tensor
-                    ) -> torch.Tensor:
+def standard_normal(generator: Generators, shape, like: torch.Tensor) -> torch.Tensor:
     """Standard normals of `shape` in `like`'s dtype, drawn on the generator's
     device (the CPU without one) and moved to `like`'s device."""
-    gen_device = generator.device if generator is not None else torch.device("cpu")
-    return torch.randn(tuple(shape), generator=generator, dtype=like.dtype,
-                       device=gen_device).to(like.device)
+    return draw_normal(generator, shape, like.dtype, like.device)
 
 
-def rvs(generator: Optional[torch.Generator], mu: torch.Tensor, cov: torch.Tensor,
+def rvs(generator: Generators, mu: torch.Tensor, cov: torch.Tensor,
         shape=()) -> torch.Tensor:
-    """Sample from N(mu, cov); returns shape (*shape, *mu.shape)."""
+    """Sample from N(mu, cov); returns shape (*shape, *mu.shape) (with
+    several generators, the draw's first axis holds the views)."""
     chol = chol2x2(cov)
     z = standard_normal(generator, (*shape, *mu.shape), mu)
     return mu + mat2_vec(chol, z)

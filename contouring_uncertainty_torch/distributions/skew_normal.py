@@ -23,7 +23,6 @@ give the JAX package's samples.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -36,6 +35,7 @@ from contouring_uncertainty_torch.distributions.linalg import (
     rotate_cov,
     sym_matrix_pow,
 )
+from contouring_uncertainty_torch.rng import Generators, draw_uniform
 
 _LOG2 = math.log(2.0)
 _SQRT2 = math.sqrt(2.0)
@@ -134,10 +134,8 @@ def _batch(*pairs):
     return torch.broadcast_shapes(*(t.shape[:t.dim() - n] for t, n in pairs))
 
 
-def _uniform(generator: Optional[torch.Generator], shape, like: torch.Tensor) -> torch.Tensor:
-    gen_device = generator.device if generator is not None else torch.device("cpu")
-    return torch.rand(tuple(shape), generator=generator, dtype=like.dtype,
-                      device=gen_device).to(like.device)
+def _uniform(generator: Generators, shape, like: torch.Tensor) -> torch.Tensor:
+    return draw_uniform(generator, shape, like.dtype, like.device)
 
 
 def _reference_delta(cov, alpha):
@@ -178,13 +176,13 @@ def _sign_flip_draws(generator, mu, cov, alpha, shape):
     return x0, z
 
 
-def rvs(generator: Optional[torch.Generator], mu, cov, alpha, shape=()) -> torch.Tensor:
+def rvs(generator: Generators, mu, cov, alpha, shape=()) -> torch.Tensor:
     """Reference-parity sampler of 2 phi2(x; mu, cov) Phi(alpha^T (x - mu))
     (see the module docstring). Returns (*shape, *batch, 2)."""
     return rvs_from_draws(*_sign_flip_draws(generator, mu, cov, alpha, shape), mu, cov, alpha)
 
 
-def rvs_consistent(generator: Optional[torch.Generator], mu, cov, alpha, shape=()):
+def rvs_consistent(generator: Generators, mu, cov, alpha, shape=()):
     """Sampler of the law `logpdf` describes (alpha on whitened coordinates)."""
     return rvs_consistent_from_draws(*_sign_flip_draws(generator, mu, cov, alpha, shape),
                                      mu, cov, alpha)
@@ -222,7 +220,7 @@ def rvs_product_from_draws(v, z, mu_f, cov_f, w, mu_ref):
     return mu_f + mat2_vec(l, torch.stack([ux, uy], dim=-1))
 
 
-def rvs_product(generator: Optional[torch.Generator], mu_f, cov_f, w, mu_ref,
+def rvs_product(generator: Generators, mu_f, cov_f, w, mu_ref,
                 shape=()) -> torch.Tensor:
     """Exact draw from the normalized product phi2(x; mu_f, cov_f) *
     Phi(w^T (x - mu_ref)), an extended skew-normal: the law the grid-product

@@ -15,18 +15,23 @@ Submodules carry the flax auto-names (ConvBlock_i, UpsampleBlock_j,
 OutputBlock_0, ConvLayer_0, Conv_0, InstanceNorm_0, ConvTranspose_0), so
 convert.py maps a JAX parameter tree onto `state_dict` keys one to one.
 Parameters are float32; convolutions run in `dtype` (weights cast per call),
-instance-norm statistics in f32. Dropout draws its masks from an explicit
-`torch.Generator` (on the generator's device, then moved), in execution order.
+instance-norm statistics in f32 (f64 in an f64 model). `set_compute_dtype`
+makes a whole model compute in one dtype, e.g. the f64 reference of the
+training checks. Dropout draws its masks from an explicit `torch.Generator`
+(on the generator's device, then moved; rng.py), in execution order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from contouring_uncertainty_torch.rng import draw_uniform
 
 _NEG_SLOPE = 1e-2
 # flax variance_scaling(2 / (1 + 0.01^2), "fan_in", "truncated_normal"):
@@ -50,15 +55,15 @@ def channel_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Gene
     """Dropout2d: zero whole channels with probability `rate`, scale the
     kept ones by 1/(1-rate) (flax Dropout with broadcast_dims=(H, W))."""
     keep_prob = 1.0 - rate
-    gen_device = generator.device if generator is not None else torch.device("cpu")
-    u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator, device=gen_device)
-    keep = (u < keep_prob).to(x.device)
+    u = draw_uniform(generator, (x.shape[0], x.shape[1], 1, 1), torch.float32, x.device)
+    keep = u < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class InstanceNorm(nn.Module):
-    """Instance norm with single-pass f32 statistics max(E[x^2]-E[x]^2, 0),
-    eps 1e-5 and affine f32 parameters; output in `dtype`."""
+    """Instance norm with single-pass statistics max(E[x^2]-E[x]^2, 0) in
+    f32 (f64 when `dtype` is f64), eps 1e-5 and affine parameters; output
+    in `dtype`."""
 
     def __init__(self, channels: int, dtype=torch.float32, epsilon: float = 1e-5):
         super().__init__()
@@ -68,7 +73,7 @@ class InstanceNorm(nn.Module):
         self.epsilon = epsilon
 
     def forward(self, x):
-        xf = x.to(torch.float32)
+        xf = x.to(torch.float64 if self.dtype == torch.float64 else torch.float32)
         mean = xf.mean(dim=(2, 3), keepdim=True)
         mean2 = (xf * xf).mean(dim=(2, 3), keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
@@ -184,13 +189,15 @@ class OutputBlock(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax Dense in f32: x @ kernel + bias, the kernel stored as a torch
-    Linear weight (out, in); lecun truncated-normal init, zero bias."""
+    """flax Dense computed in `dtype` (f32): x @ kernel + bias, the kernel
+    stored as a torch Linear weight (out, in); lecun truncated-normal init,
+    zero bias."""
 
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, c_in))
         self.bias = nn.Parameter(torch.zeros(c_out))
+        self.dtype = torch.float32
 
     def reset_parameters(self, generator=None):
         std = math.sqrt(1.0 / self.weight.shape[1]) / _TRUNC_STD
@@ -198,17 +205,18 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.linear(x.float(), self.weight.float(), self.bias.float())
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
 class ConfidenceNet(nn.Module):
     """Bottleneck (N, C, Hb, Wb) -> (N, output_size) skew head: three 3x3
     convolutions of 128 channels with ReLU, a flatten in flax's NHWC order
     (so a converted Dense kernel means the same in both packages), and a
-    Dense layer; all in f32, whatever the backbone's dtype."""
+    Dense layer; all in `dtype` (f32), whatever the backbone's dtype."""
 
     def __init__(self, bottleneck_shape: Sequence[int], output_size: int):
         super().__init__()
+        self.dtype = torch.float32
         c_in, hb, wb = bottleneck_shape
         for i in range(3):
             self.add_module(f"Conv_{i}", Conv(c_in if i == 0 else 128, 128, (3, 3),
@@ -221,7 +229,7 @@ class ConfidenceNet(nn.Module):
         self.Dense_0.reset_parameters(generator)
 
     def forward(self, x):
-        x = x.to(torch.float32)
+        x = x.to(self.dtype)
         for i in range(3):
             x = F.relu(getattr(self, f"Conv_{i}")(x))
         return self.Dense_0(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
@@ -229,8 +237,8 @@ class ConfidenceNet(nn.Module):
 
 class UNet(nn.Module):
     """Dynamic 2D U-Net: NCHW in, {"out": (N, C_out, H, W)} out, and with
-    `bottleneck_out` also {"bottleneck": (N, C_b, Hb, Wb) f32}, the last
-    encoder stage's output after its dropout."""
+    `bottleneck_out` also {"bottleneck": (N, C_b, Hb, Wb)} in f32 (f64 in
+    an f64 model), the last encoder stage's output after its dropout."""
 
     def __init__(self, input_shape: Sequence[int], output_shape: Sequence[int],
                  kernels=((3, 3),) * 8, strides=((1, 1),) + ((2, 2),) * 7,
@@ -328,5 +336,57 @@ class UNet(nn.Module):
             out = getattr(self, f"UpsampleBlock_{j}")(out, skip, deterministic, generator)
         result = {"out": self.OutputBlock_0(out)}
         if self.bottleneck_out:
-            result["bottleneck"] = bottleneck.to(torch.float32)
+            result["bottleneck"] = bottleneck.to(torch.promote_types(torch.float32, self.dtype))
         return result
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every layer of `model` (a UNet, a SkewUNet, a ConfidenceNet)
+    compute in `dtype`: the convolutions, the head and its output, the
+    instance norms (their statistics in f64 for f64, else f32), the
+    ConfidenceNet and its Dense layer. The parameters keep their dtype:
+    `set_compute_dtype(model.double(), torch.float64)` is an f64 model
+    throughout. Returns `model`."""
+    for mod in model.modules():
+        for attr in ("dtype", "head_dtype", "out_dtype"):
+            if attr in vars(mod):
+                setattr(mod, attr, dtype)
+    return model
+
+
+@contextlib.contextmanager
+def leaky_relu_sides(model: nn.Module, pin: Optional[Dict[str, torch.Tensor]] = None):
+    """Within the block, record on which side of its LeakyReLU kink each
+    activation of every ConvLayer of `model` falls in the last forward
+    (layer name -> bool tensor, pre-activation > 0), or, given `pin` (such
+    a record), apply each ConvLayer's LeakyReLU with the slopes of the
+    pinned sides. An f32 forward puts an activation within rounding of
+    zero on either side, and a gradient through it moves by the slopes'
+    difference: pinning an f64 model to an f32 forward's sides gives the
+    f64 gradient on the linear piece that forward chose. Yields the
+    record."""
+    sides = {} if pin is None else pin
+    pre: Dict[str, torch.Tensor] = {}
+    handles = []
+
+    def keep(name):
+        return lambda mod, inputs, y: pre.__setitem__(name, y)
+
+    def record(name):
+        return lambda mod, inputs, out: sides.__setitem__(name, pre.pop(name).detach() > 0)
+
+    def pinned(name):
+        def hook(mod, inputs, out):
+            y = pre.pop(name)
+            return torch.where(pin[name].to(y.device), y, _NEG_SLOPE * y)
+        return hook
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, ConvLayer):
+            handles.append(mod.InstanceNorm_0.register_forward_hook(keep(name)))
+            handles.append(mod.register_forward_hook((record if pin is None else pinned)(name)))
+    try:
+        yield sides
+    finally:
+        for h in handles:
+            h.remove()

@@ -41,19 +41,17 @@ launches = 0  # kernel launches since the last reset (plain integer)
 def crossing_candidates(dense: torch.Tensor, height: int) -> torch.Tensor:
     """(M, E, 2) closed polygons -> (M, H, E) crossing abscissae per row
     (+inf for edges that do not straddle the row's pixel-centre line)."""
-    p0 = dense
     p1 = torch.roll(dense, -1, dims=-2)
-    x0, y0 = p0[..., 0], p0[..., 1]
-    x1, y1 = p1[..., 0], p1[..., 1]
+    x0, y0 = dense[:, None, :, 0], dense[:, None, :, 1]
+    x1, y1 = p1[:, None, :, 0], p1[:, None, :, 1]
     rows = torch.arange(height, dtype=dense.dtype, device=dense.device)[:, None]
-    above0 = y0[:, None, :] > rows
-    above1 = y1[:, None, :] > rows
-    crosses = above0 != above1
+    crosses = (y0 > rows) != (y1 > rows)
     denom = y1 - y0
     safe = torch.where(denom.abs() < 1e-12, torch.ones_like(denom), denom)
-    tt = (rows - y0[:, None, :]) / safe[:, None, :]
-    x_int = x0[:, None, :] + tt * (x1 - x0)[:, None, :]
-    return torch.where(crosses, x_int, torch.full_like(x_int, float("inf")))
+    # x0 + t (x1 - x0) with t = (row - y0) / (y1 - y0), in place on the
+    # (M, H, E) temporary.
+    x_int = (rows - y0).div_(safe).mul_(x1 - x0).add_(x0)
+    return x_int.masked_fill_(~crosses, float("inf"))
 
 
 def min_k_crossings_plain(dense: torch.Tensor, height: int) -> torch.Tensor:

@@ -1,19 +1,26 @@
 """Prediction / uncertainty-propagation pipeline (TMI serving path).
 
-Counterpart of contouring_uncertainty_tpu/predict.py, single-group
-hard-mask branch, Gaussian and skew. Per view: T_e epistemic forwards (MC
-dropout, encoder prefix shared) -> per-point (mu, Sigma[, alpha]) through
-the DSNT moment kernel -> PSM contour sampling (T_a per forward; the skew
-PSM sampler for a skew task) -> aleatoric/epistemic fusion -> posterior
-stats of the sample population -> a mask for every sample (spline +
-scanline fill through the crossing-selection kernel) -> uncertainty map,
-entropy map and point/instant scalars -> BatchResult. On the skew path
-alpha is averaged over T_e, `skew_umap` gives the projected mode and the
-map, and the prediction is the mode's mask.
+Counterpart of contouring_uncertainty_tpu/predict.py, single contour group,
+Gaussian and skew. Per view: T_e epistemic forwards (MC dropout, encoder
+prefix shared) -> per-point (mu, Sigma[, alpha]) through the DSNT moment
+kernel -> PSM contour sampling (T_a per forward; the skew PSM sampler for
+a skew task; with `task.sequence_sampler` the sequence samplers, which
+draw each forward's (ED, ES) pair jointly) -> aleatoric/epistemic fusion ->
+posterior stats of the sample population -> a mask for every sample
+(spline + scanline fill through the crossing-selection kernel; with
+`task.soft_mask` blurred into soft masks) -> uncertainty map, entropy map
+and point/instant scalars -> BatchResult. On the skew path alpha is
+averaged over T_e, `skew_umap` gives the projected mode and the map, and
+the prediction is the mode's mask.
+
+`predict_batch_views` = V > 1 serves V views of one image shape per
+dispatch (a shorter last group at its own size): one sampler call, one
+rasterization and one umap for all V views.
 
 Everything after the image upload runs on the predictor's device; random
-draws come from a CPU `torch.Generator` per view, so a view's draws are
-the same on every device.
+draws come from a CPU `torch.Generator` per view (rng.py), so a view's
+draws are the same on every device and whether or not it is batched with
+others.
 """
 
 from __future__ import annotations
@@ -24,13 +31,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from contouring_uncertainty_torch.data.config import BatchResult, Label, Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions.linalg import det2x2, eigh2x2
 from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.sampler import (
     PosteriorShapeModelSampler,
+    SequencePSMSampler,
+    SequenceSkewPSMSampler,
     SkewPosteriorShapeModelSampler,
     fit_shape_prior,
 )
@@ -49,7 +60,39 @@ def get_or_fit_prior(data, path: Optional[str]) -> ShapePrior:
     digest (fit elsewhere, e.g. by the JAX package) is loaded only if it has
     the contours' dimension 2K and its mean contour lies within a tenth of
     the image's size of theirs; otherwise it raises."""
-    contours = np.ascontiguousarray(data.train_arrays("train")[Tags.contour])
+    contours = data.train_arrays("train")[Tags.contour]
+    return _load_or_fit(contours, path, data.data_params.in_shape[-2:], "shape prior")
+
+
+def get_or_fit_sequence_prior(data, path: Optional[str]) -> ShapePrior:
+    """The two-instant (ED and ES stacked, 4K-dim) prior of the sequence
+    samplers: loaded from `path`, or fit on the (ED, ES) contour pairs of
+    the train split's views and cached there, keyed by the pairs' sha256
+    as `get_or_fit_prior` keys its prior."""
+    pairs = []
+    for view in data.predict_views("train"):
+        inst = view.get(Tags.instants) or {}
+        if "ED" in inst and "ES" in inst and inst["ED"] != inst["ES"]:
+            c = np.asarray(view[Tags.contour])
+            pairs.append(np.concatenate([c[inst["ED"]], c[inst["ES"]]]))
+    if not pairs:
+        raise ValueError(
+            "sequence_sampler=True requires views with distinct ED and ES "
+            "instants to fit the two-instant shape prior, but none were found "
+            "in this dataset's train split."
+        )
+    pairs = np.stack(pairs)
+    dim = pairs.shape[1] * pairs.shape[2]
+    if len(pairs) <= dim:
+        print(f"[predict] the sequence prior is fit on {len(pairs)} (ED, ES) pairs, no more "
+              f"than its {dim} dimensions: its covariance is singular, and the skew "
+              f"sequence sampler draws NaN from it")
+    return _load_or_fit(pairs, path, data.data_params.in_shape[-2:], "sequence prior")
+
+
+def _load_or_fit(contours: np.ndarray, path: Optional[str], image_hw, label: str) -> ShapePrior:
+    """The prior of `contours` (N, 2K or 4K, 2), cached at `path` with their digest."""
+    contours = np.ascontiguousarray(contours)
     digest = hashlib.sha256(f"{contours.shape} {contours.dtype}".encode()
                             + contours.tobytes()).hexdigest()
     p = Path(path) if path else None
@@ -60,9 +103,9 @@ def get_or_fit_prior(data, path: Optional[str]) -> ShapePrior:
             return load_prior(p)
         if cached is None:
             prior = load_prior(p)
-            _check_foreign_prior(prior, contours, data.data_params.in_shape[-2:], p)
+            _check_foreign_prior(prior, contours, image_hw, p)
             return prior
-        print(f"[predict] the shape prior at {p} was fit on other training contours; refitting")
+        print(f"[predict] the {label} at {p} was fit on other training contours; refitting")
     prior = fit_shape_prior(contours)
     if p is not None:
         p.parent.mkdir(parents=True, exist_ok=True)
@@ -74,7 +117,7 @@ def _check_foreign_prior(prior: ShapePrior, contours: np.ndarray, image_hw, path
     flat = contours.reshape(len(contours), -1).astype(np.float64)
     if prior.dim != flat.shape[1]:
         raise ValueError(f"the shape prior at {path} has dimension {prior.dim}; the training "
-                         f"contours have {flat.shape[1]} (2K)")
+                         f"contours have {flat.shape[1]}")
     shift = np.abs(prior.train_mean.double().numpy() - flat.mean(0)).max()
     if shift > 0.1 * max(image_hw):
         raise ValueError(f"the shape prior at {path} has its mean contour {shift:.1f} px from "
@@ -83,33 +126,50 @@ def _check_foreign_prior(prior: ShapePrior, contours: np.ndarray, image_hw, path
 
 
 def fuse_epistemic_aleatoric(mu: torch.Tensor, cov: torch.Tensor):
-    """(N, T_e, K, 2) means + (N, T_e, K, 2, 2) covs -> fused (N, K, 2)/(N, K, 2, 2):
-    cov = mean_t(cov) + cov_t(mu) (aleatoric + epistemic)."""
-    mu_mean = mu.mean(dim=1)
-    cov_al = cov.mean(dim=1)
-    d = mu - mu_mean[:, None]
-    cov_ep = (d[..., :, None] * d[..., None, :]).mean(dim=1)
+    """(..., T_e, K, 2) means + (..., T_e, K, 2, 2) covs -> fused (..., K, 2)/
+    (..., K, 2, 2): cov = mean_t(cov) + cov_t(mu) (aleatoric + epistemic)."""
+    mu_mean = mu.mean(dim=-3)
+    cov_al = cov.mean(dim=-4)
+    d = mu - mu_mean.unsqueeze(-3)
+    cov_ep = (d[..., :, None] * d[..., None, :]).mean(dim=-4)
     return mu_mean, cov_al + cov_ep
 
 
 def population_posterior(samples: torch.Tensor):
-    """Sample-population stats: (N, T_e, T_a, K, 2) -> post_mu (N,K,2),
-    post_cov (N,K,2,2) (per-T_e sample covariances + epistemic spread)."""
-    post_mu_te = samples.mean(dim=2)  # (N, T_e, K, 2)
-    d = samples - post_mu_te[:, :, None]
-    denom = max(samples.shape[2] - 1, 1)
-    post_cov_te = (d[..., :, None] * d[..., None, :]).sum(dim=2) / denom
-    post_mu = post_mu_te.mean(dim=1)
-    dd = post_mu_te - post_mu[:, None]
-    post_cov_ep = (dd[..., :, None] * dd[..., None, :]).mean(dim=1)
-    return post_mu, post_cov_te.mean(dim=1) + post_cov_ep
+    """Sample-population stats: (..., T_e, T_a, K, 2) -> post_mu (..., K, 2),
+    post_cov (..., K, 2, 2) (per-T_e sample covariances + epistemic spread)."""
+    post_mu_te = samples.mean(dim=-3)  # (..., T_e, K, 2)
+    d = samples - post_mu_te.unsqueeze(-3)
+    denom = max(samples.shape[-3] - 1, 1)
+    post_cov_te = (d[..., :, None] * d[..., None, :]).sum(dim=-4) / denom
+    post_mu = post_mu_te.mean(dim=-3)
+    dd = post_mu_te - post_mu.unsqueeze(-3)
+    post_cov_ep = (dd[..., :, None] * dd[..., None, :]).mean(dim=-4)
+    return post_mu, post_cov_te.mean(dim=-4) + post_cov_ep
 
 
 def sample_entropy_map(pred_samples: torch.Tensor) -> torch.Tensor:
-    """Binary entropy (base 2) of the sample-mask population (N, T_e, T_a, H, W)."""
-    p = pred_samples.mean(dim=(1, 2))
+    """Binary entropy (base 2) of the sample-mask population (..., T_e, T_a, H, W)."""
+    p = pred_samples.mean(dim=(-4, -3))
     ent = -(p * torch.log2(p + 1e-12) + (1 - p) * torch.log2(1 - p + 1e-12))
     return torch.where(torch.isfinite(ent), ent, torch.zeros_like(ent))
+
+
+def gaussian_blur(masks: torch.Tensor, sigma: float = 5.0, truncate: float = 1.0) -> torch.Tensor:
+    """The soft-mask option (the reference's skimage gaussian + min-max):
+    a separable Gaussian blur of f32 masks over their trailing (H, W), W
+    first, radius int(truncate * sigma + 0.5) with zero padding (numpy's
+    'same' convolution), then each mask min-max scaled with a 1e-8 floor."""
+    radius = int(truncate * sigma + 0.5)
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=masks.device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    k = k / k.sum()
+    out = F.conv2d(masks.reshape(-1, 1, *masks.shape[-2:]), k.view(1, 1, 1, -1),
+                   padding=(0, radius))
+    out = F.conv2d(out, k.view(1, 1, -1, 1), padding=(radius, 0))
+    lo = out.amin(dim=(-2, -1), keepdim=True)
+    hi = out.amax(dim=(-2, -1), keepdim=True)
+    return ((out - lo) / torch.clamp(hi - lo, min=1e-8)).reshape(masks.shape)
 
 
 def point_instant_uncertainty(mu, cov, post_cov, umap, entropy, pred):
@@ -143,51 +203,67 @@ def point_instant_uncertainty(mu, cov, post_cov, umap, entropy, pred):
 
 
 class AleatoricPredictor:
-    """Per-view uncertainty propagation for the DSNT contour tasks (one
-    contour group, hard masks): DSNT-AL with the Gaussian PSM sampler,
-    DSNT-skew (a task whose `predict` also returns alpha) with the skew one."""
+    """Uncertainty propagation for the DSNT contour tasks (one contour
+    group): DSNT-AL with the Gaussian PSM sampler, DSNT-skew (a task whose
+    `predict` also returns alpha) with the skew one, or either with a
+    sequence sampler; hard or (`soft_mask`) soft sample masks. `__call__`
+    serves one view, `batched` V views in one dispatch."""
 
-    def __init__(self, task, model, sampler: PosteriorShapeModelSampler,
-                 t_a: Optional[int] = None, contour_groups=None,
+    def __init__(self, task, model, sampler, t_a: Optional[int] = None,
+                 soft_mask: bool = False, contour_groups=None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.task = task
         self.model = model.to(self.device).eval()
         self.sampler = sampler
         self.t_a = t_a or task.t_a
+        self.soft_mask = soft_mask
         k = task.data_params.out_shape[0]
         groups = tuple(contour_groups) if contour_groups else ((0, k, 1),)
         if len(groups) != 1 or groups[0][:2] != (0, k):
-            raise NotImplementedError("multi-structure contour groups are not ported yet")
+            raise NotImplementedError("multi-structure contour groups are not ported yet "
+                                      "(ROADMAP.md Queue 1, item 10)")
         self.label = int(groups[0][2])
 
     @torch.inference_mode()
     def __call__(self, img, generator: Optional[torch.Generator] = None) -> Dict:
         """img (N, C, H, W) -> dict of device tensors for one view."""
-        img = torch.as_tensor(np.asarray(img, np.float32)).to(self.device)
-        h, w = img.shape[-2:]
-        mu_te, cov_te, *skew = self.task.predict(self.model, img, generator=generator)
+        return _tree_map(lambda a: a[0], self.batched(np.asarray(img)[None], [generator]))
+
+    @torch.inference_mode()
+    def batched(self, imgs, generators: Generators) -> Dict:
+        """imgs (V, N, C, H, W) and V generators, one per view -> the dict of
+        `__call__` with a leading view axis. Each view draws from its own
+        generator exactly what it draws alone."""
+        imgs = torch.as_tensor(np.asarray(imgs, np.float32)).to(self.device)
+        h, w = imgs.shape[-2:]
+        mu_te, cov_te, *skew = self.task.predict(self.model, imgs, generator=generators)
         alpha_te = skew[0] if skew else None
         sample_kw = {} if alpha_te is None else {"alpha": alpha_te}
-        samples = self.sampler.sample_batch(generator, mu_te, cov_te, n=self.t_a, **sample_kw)
-        mu, cov = fuse_epistemic_aleatoric(mu_te, cov_te)
+        samples = self.sampler.sample_batch(generators, mu_te, cov_te, n=self.t_a, **sample_kw)
+        mu, cov = fuse_epistemic_aleatoric(mu_te, cov_te)  # (V, N, K, 2)
         post_mu, post_cov = population_posterior(samples)
 
-        occupancy = rasterize_batch(samples, h, w)  # (N, T_e, T_a, H, W) {0,1}
+        occupancy = rasterize_batch(samples, h, w)  # (V, N, T_e, T_a, H, W) {0,1}
+        if self.soft_mask:
+            occupancy = gaussian_blur(occupancy)
+        frames = lambda a: a.flatten(0, 1)  # (V, N, ...) -> (V*N, ...)
         if alpha_te is None:
             alpha, mode = None, mu
-            umap = uncertainty_map(mu, cov, (h, w))
-            pred = torch.where(occupancy.mean(dim=(1, 2)) > 0.5, self.label, 0)
+            umap = uncertainty_map(frames(mu), frames(cov), (h, w)).unflatten(0, mu.shape[:2])
+            pred = torch.where(occupancy.mean(dim=(-4, -3)) > 0.5, self.label, 0)
         else:
-            alpha = alpha_te.mean(dim=1)
-            mode, umap = skew_umap(mu, cov, alpha, (h, w))
+            alpha = alpha_te.mean(dim=-3)
+            mode, umap = (a.unflatten(0, mu.shape[:2]) for a in
+                          skew_umap(frames(mu), frames(cov), frames(alpha), (h, w)))
             pred = rasterize_batch(mode, h, w) * self.label
         pred = pred.to(torch.int32)
         entropy = sample_entropy_map(occupancy)
         point_u, instant_u = point_instant_uncertainty(mu, cov, post_cov, umap,
                                                        entropy, pred)
-        # Hard-mask populations hold small integer labels: ship them as uint8.
-        pred_samples = (occupancy * self.label).to(torch.uint8)
+        # Hard-mask populations hold small integer labels: ship them as
+        # uint8. Soft masks stay f32 in [0, 1].
+        pred_samples = occupancy if self.soft_mask else (occupancy * self.label).to(torch.uint8)
         return {
             "mu": mu, "cov": cov, "mode": mode, "alpha": alpha,
             "post_mu": post_mu, "post_cov": post_cov,
@@ -197,10 +273,14 @@ class AleatoricPredictor:
         }
 
 
-def _to_numpy(tree):
+def _tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    return None if tree is None else tree.detach().cpu().numpy()
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def _to_numpy(tree):
+    return _tree_map(lambda a: a.detach().cpu().numpy(), tree)
 
 
 def view_generator(seed: int, view_index: int) -> torch.Generator:
@@ -209,19 +289,39 @@ def view_generator(seed: int, view_index: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state))
 
 
-def _run_predictor(predictor: AleatoricPredictor, views, seed: int) -> List[Dict]:
-    """Run a predictor over a view list, one view at a time."""
-    return [_to_numpy(predictor(v[Tags.img], view_generator(seed, vi)))
-            for vi, v in enumerate(views)]
+def views_per_step(cfg: Dict) -> int:
+    """`predict_batch_views`: the views served per dispatch (at least 1)."""
+    return max(int(cfg.get("predict_batch_views", 1) or 1), 1)
 
 
-def check_predict_options(task_cfg: Dict):
-    """Raise on the task options of the JAX predict path that the port does
-    not have yet, instead of predicting without them."""
-    for key in ("sequence_sampler", "soft_mask"):
-        if task_cfg.get(key, False):
-            raise NotImplementedError(f"task.{key}=true is not ported yet "
-                                      "(ROADMAP.md Queue 1, item 4)")
+def _run_predictor(predictor: AleatoricPredictor, views, seed: int,
+                   per_step: int = 1) -> List[Dict]:
+    """Run a predictor over a view list, `per_step` views of one image shape
+    per dispatch; a short last group is dispatched at its own size. Each
+    view draws from `view_generator(seed, its index)` and runs its forward
+    alone, so its outputs match one view per dispatch up to the
+    reassociation of the batched steps after the forward."""
+    groups: Dict[tuple, List[int]] = {}
+    for vi, v in enumerate(views):
+        groups.setdefault(tuple(np.asarray(v[Tags.img]).shape), []).append(vi)
+    outs: List[Optional[Dict]] = [None] * len(views)
+    for idxs in groups.values():
+        for start in range(0, len(idxs), per_step):
+            chunk = idxs[start:start + per_step]
+            out = _to_numpy(predictor.batched(
+                np.stack([views[i][Tags.img] for i in chunk]),
+                [view_generator(seed, i) for i in chunk]))
+            for j, i in enumerate(chunk):
+                outs[i] = _tree_map(lambda a, j=j: a[j], out)
+    return outs
+
+
+def check_predict_options(cfg: Dict):
+    """Raise on the options of the JAX predict path that the port does not
+    have yet, instead of predicting without them."""
+    if int(cfg.get("predict_sample_parallel", 1) or 1) > 1:
+        raise NotImplementedError("multi-device predict is not ported yet "
+                                  "(ROADMAP.md Queue 1, item 11)")
 
 
 def run_predict(task, model, data, cfg, split: str = "test",
@@ -231,28 +331,45 @@ def run_predict(task, model, data, cfg, split: str = "test",
     the results processors when `cfg` has `results_dir` or `save_path`.
 
     `model` is the task's backbone with its weights (task.build_model());
-    `cfg` is a dict with optional "seed", "task": {"psm_path": ...} (and for
-    a skew task "grid_window" and "skew_method") and the processors' "data":
-    {"results_processors": [...]}. The processors'
-    summary, `processor_errors` included, is merged into `metrics_out`."""
+    `cfg` is a dict with optional "seed", "predict_batch_views", "task":
+    {"psm_path", "sequence_sampler", "seq_psm_path", "soft_mask", and for a
+    skew task "grid_window" and "skew_method"} and the processors' "data":
+    {"results_processors": [...]}. The processors' summary,
+    `processor_errors` included, is merged into `metrics_out`."""
     device = resolve_device(device)
     task_cfg = cfg.get("task", {})
-    check_predict_options(task_cfg)
+    check_predict_options(cfg)
     prior = get_or_fit_prior(data, task_cfg.get("psm_path"))
-    if hasattr(task, "forward_skew"):
-        # The lattice of the 'grid' method covers the image's extent.
-        in_h, in_w = task.data_params.in_shape[1:]
-        sampler = SkewPosteriorShapeModelSampler(
-            prior, skew_indices=task.skew_indices, image_extent=float(max(in_h, in_w) - 1),
-            grid_window=task_cfg.get("grid_window", 64),
-            method=task_cfg.get("skew_method", "esn"), device=device)
+    skew_task = hasattr(task, "forward_skew")
+    # The lattice of the 'grid' method covers the image's extent.
+    in_h, in_w = task.data_params.in_shape[1:]
+    skew_kw = dict(skew_indices=getattr(task, "skew_indices", None),
+                   image_extent=float(max(in_h, in_w) - 1),
+                   grid_window=task_cfg.get("grid_window", 64),
+                   method=task_cfg.get("skew_method", "esn"), device=device)
+    sequence = bool(task_cfg.get("sequence_sampler", False))
+    if sequence:
+        seq_prior = get_or_fit_sequence_prior(data, task_cfg.get("seq_psm_path"))
+        sampler = (SequenceSkewPSMSampler(prior, seq_prior, **skew_kw) if skew_task
+                   else SequencePSMSampler(prior, seq_prior, device=device))
+    elif skew_task:
+        sampler = SkewPosteriorShapeModelSampler(prior, **skew_kw)
     else:
         sampler = PosteriorShapeModelSampler(prior, device=device)
     predictor = AleatoricPredictor(task, model, sampler,
+                                   soft_mask=bool(task_cfg.get("soft_mask", False)),
                                    contour_groups=getattr(data, "contour_groups", None),
                                    device=device)
     views = list(data.predict_views(split))
-    outs = _run_predictor(predictor, views, cfg.get("seed", 10))
+    if sequence:
+        for view in views:
+            frames = np.asarray(view[Tags.img]).shape[0]
+            if frames != 2:
+                raise ValueError(
+                    f"sequence_sampler=True expects exactly 2 instants (ED, ES) per view; "
+                    f"view '{view[Tags.id]}' has {frames} frames. Disable "
+                    f"task.sequence_sampler or restrict views to ED/ES.")
+    outs = _run_predictor(predictor, views, cfg.get("seed", 10), views_per_step(cfg))
     results = []
     for view, out in zip(views, outs):
         results.append(BatchResult(

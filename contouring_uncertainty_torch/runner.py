@@ -15,9 +15,10 @@ is given. A processor that fails is recorded in `result["processor_errors"]`;
 an eval-only run (`train=false`) with a failed processor or test pass exits
 non-zero from `main`.
 
-Not ported (ROADMAP.md Queue 1): `train_ensemble` and ensemble
-directories, several devices (`predict_mesh`, `predict_sample_parallel`),
-`predict_batch_views` > 1, the sequence sampler and soft masks.
+`task.sequence_sampler`, `task.seq_psm_path`, `task.soft_mask` and
+`predict_batch_views` reach `run_predict`. Not ported (ROADMAP.md Queue 1):
+`train_ensemble` and ensemble directories, several devices
+(`predict_mesh`, `predict_sample_parallel`).
 """
 
 from __future__ import annotations
@@ -46,13 +47,7 @@ def _check_ported(cfg: Dict):
     if int(cfg.get("task", {}).get("train_ensemble", 0) or 0) > 1:
         raise NotImplementedError("deep ensembles are not ported yet "
                                   "(ROADMAP.md Queue 1, item 5)")
-    if int(cfg.get("predict_batch_views", 1) or 1) > 1:
-        raise NotImplementedError("predict_batch_views > 1 is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 3)")
-    check_predict_options(cfg.get("task", {}))
-    if int(cfg.get("predict_sample_parallel", 1) or 1) > 1:
-        raise NotImplementedError("multi-device predict is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 11)")
+    check_predict_options(cfg)
 
 
 def run(overrides: Optional[List[str]] = None, device: DeviceLike = None) -> Dict:

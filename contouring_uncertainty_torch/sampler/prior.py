@@ -163,7 +163,9 @@ def posterior_shape_model_sm(
         cov_c = (op.c0 - op.mc0.T @ op.h0).expand(mu_t.shape[0], -1, -1)
         return mu_c, cov_c
     u = op.g_mask * d  # (B, P)
-    v = u @ op.k0.T  # K0 u
+    # K0 u row by row: a (B, P) @ (P, P) product rounds differently as B
+    # changes, which would make a batch of views differ from each view alone.
+    v = (op.k0 * u[:, None, :]).sum(-1)
     beta = 1.0 + (u * v).sum(-1)
     sinv = op.k0 - v[:, :, None] * v[:, None, :] / beta[:, None, None]
     mc = op.mc0 + u[:, :, None] * d[:, None, :]

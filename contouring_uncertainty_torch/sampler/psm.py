@@ -10,7 +10,8 @@ remaining points are filled from the posterior mean.
 
 The JAX package vmaps one sample at a time; here the whole population is a
 written-out batch: B predictions (frames x epistemic samples) x S samples.
-Random draws come from an explicit `torch.Generator`.
+Random draws come from explicit generators: one, or one per view when
+the leading axis of the predictions holds V views (rng.py).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions import bvn
 from contouring_uncertainty_torch.distributions.linalg import (
     inv2x2, mat2_mat, mat2_vec, sym_matrix_pow)
+from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.sampler import prior as prior_lib
 from contouring_uncertainty_torch.sampler.prior import ShapePrior
 
@@ -122,9 +124,10 @@ class PosteriorShapeModelSampler:
         cov_c = sym_matrix_pow(cov_c, 1.0, eps=1e-6)
         return mu_c, cov_c
 
-    def sample_batch(self, generator: Optional[torch.Generator], mu: torch.Tensor,
+    def sample_batch(self, generator: Generators, mu: torch.Tensor,
                      cov: torch.Tensor, n: int = 1) -> torch.Tensor:
         """mu (..., K, 2), cov (..., K, 2, 2) -> (..., n, K, 2) contours.
+        With V generators, mu's leading axis holds the V views.
         (A skew task's alpha goes to sampler/psm_skew.py.)"""
         lead = mu.shape[:-2]
         mu_p = mu.reshape(-1, self.k, 2)  # (B, K, 2)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from contouring_uncertainty_torch.distributions import bsn, bvn, linalg
+from contouring_uncertainty_torch.rng import Generators, draw_uniform
 from contouring_uncertainty_torch.sampler import prior as prior_lib
 from contouring_uncertainty_torch.sampler.prior import ShapePrior
 from contouring_uncertainty_torch.sampler.psm import PosteriorShapeModelSampler, merge_priors
@@ -138,9 +139,7 @@ class SkewPosteriorShapeModelSampler(PosteriorShapeModelSampler):
         gy = offs[..., 1, None] + self._cells * steps
         logits = (_lattice_skew_logpdf(gx, gy, mu_p, cov_p, alpha_f)
                   + _lattice_gauss_logpdf(gx, gy, mu_c, cov_c)).flatten(-2)
-        gen_device = generator.device if generator is not None else torch.device("cpu")
-        u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
-                       device=gen_device).to(logits.device)
+        u = draw_uniform(generator, logits.shape, logits.dtype, logits.device)
         tiny = torch.finfo(logits.dtype).tiny
         gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
         idx = torch.argmax(logits + gumbel, dim=-1)
@@ -148,7 +147,7 @@ class SkewPosteriorShapeModelSampler(PosteriorShapeModelSampler):
                            idx % self.window], dim=-1)
         return offs + sub.to(offs.dtype) * steps
 
-    def sample_batch(self, generator: Optional[torch.Generator], mu: torch.Tensor,
+    def sample_batch(self, generator: Generators, mu: torch.Tensor,
                      cov: torch.Tensor, alpha: Optional[torch.Tensor] = None,
                      n: int = 1) -> torch.Tensor:
         """mu (..., K, 2), cov (..., K, 2, 2), alpha (..., K, 2) -> (..., n, K, 2)."""

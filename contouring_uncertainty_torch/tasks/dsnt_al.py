@@ -23,6 +23,7 @@ from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.models.unet import UNet
 from contouring_uncertainty_torch.ops import dsnt as dsnt_ops
 from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.utils.metrics import dice_binary
 
 
@@ -50,6 +51,32 @@ def mc_dropout_apply(model: torch.nn.Module, img: torch.Tensor, t_e: int,
         return model(None, deterministic=False, generator=generator,
                      mode="decode_from_prefix", prefix=tiled)
     return model(tile(img), deterministic=False, generator=generator)
+
+
+def forward_views(model: torch.nn.Module, img: torch.Tensor, t_e: int,
+                  generator: Generators) -> Dict:
+    """The raw output dict of one view (N, C, H, W) or of V views
+    (V, N, C, H, W) with one generator per view: per view the MC-dropout
+    forward (`mc_dropout_apply`) at T_e > 1, the deterministic forward at
+    T_e == 1; V views one forward each, concatenated view-major (sample e of
+    frame i of view v at (v*T_e + e)*N + i). A view's logits are then
+    bitwise the ones it gets alone: a convolution's algorithm and a
+    reduction's summation order may change with the batch size, and on a
+    flat (untrained) heatmap bf16 rounding of that size moves mu by tenths
+    of a pixel."""
+    if img.dim() == 4:
+        img, generator = img[None], [generator]
+    outs = [mc_dropout_apply(model, v, t_e, g) if t_e > 1 else model(v)
+            for v, g in zip(img, generator)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def per_frame_samples(a: torch.Tensor, lead, t_e: int) -> torch.Tensor:
+    """(V*T_e*N, ...) outputs of `forward_views` -> (*lead, T_e, ...),
+    lead = (N,) for one view or (V, N) for V views."""
+    n = lead[-1]
+    a = a.reshape(-1, t_e, n, *a.shape[1:]).transpose(1, 2)
+    return a.reshape(*lead, t_e, *a.shape[3:])
 
 
 @dataclass
@@ -124,16 +151,12 @@ class DSNTAleatoric:
         gt_bin = (batch[Tags.gt] == int(Label.LV)).to(torch.float32)
         return {**logs, "dice": dice_binary(pred, gt_bin).mean()}
 
-    def predict(self, model, img, generator: Optional[torch.Generator] = None):
-        """Epistemic-sampling forward: (N, C, H, W) -> mu (N, T_e, K, 2),
-        cov (N, T_e, K, 2, 2). T_e > 1 uses one MC-dropout forward at batch
-        T_e*N with the encoder prefix shared; T_e == 1 is deterministic."""
-        t_e = self.t_e
-        if t_e > 1:
-            n = img.shape[0]
-            mu, sigma = self._gaussians_from_out(mc_dropout_apply(model, img, t_e, generator))
-            mu = mu.reshape((t_e, n) + mu.shape[1:]).transpose(0, 1)
-            sigma = sigma.reshape((t_e, n) + sigma.shape[1:]).transpose(0, 1)
-            return mu, sigma
-        mu, sigma = self.forward_gaussians(model, img)
-        return mu[:, None], sigma[:, None]
+    def predict(self, model, img, generator: Generators = None):
+        """Epistemic-sampling forward of one view (N, C, H, W) -> mu
+        (N, T_e, K, 2), cov (N, T_e, K, 2, 2), or of V views (V, N, C, H, W),
+        with one generator per view, -> (V, N, T_e, ...). T_e > 1 uses one
+        MC-dropout forward per view at batch T_e*N with the encoder prefix
+        shared; T_e == 1 is deterministic. The DSNT head runs once on all
+        views' heatmaps."""
+        out = self._gaussians_from_out(forward_views(model, img, self.t_e, generator))
+        return tuple(per_frame_samples(a, img.shape[:-3], self.t_e) for a in out)

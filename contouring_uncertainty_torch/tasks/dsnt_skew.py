@@ -27,7 +27,12 @@ from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions import bsn
 from contouring_uncertainty_torch.models.unet import ConfidenceNet, UNet
 from contouring_uncertainty_torch.ops import dsnt as dsnt_ops
-from contouring_uncertainty_torch.tasks.dsnt_al import DSNTAleatoric, mc_dropout_apply
+from contouring_uncertainty_torch.rng import Generators
+from contouring_uncertainty_torch.tasks.dsnt_al import (
+    DSNTAleatoric,
+    forward_views,
+    per_frame_samples,
+)
 
 
 class SkewUNet(nn.Module):
@@ -137,13 +142,11 @@ class DSNTSkew(DSNTAleatoric):
         return self._outputs_to_skew(
             model(img, deterministic=not mc_dropout, generator=generator))
 
-    def predict(self, model, img, generator: Optional[torch.Generator] = None):
-        """-> mu (N, T_e, K, 2), cov (N, T_e, K, 2, 2), alpha (N, T_e, K, 2).
-        T_e > 1 uses one MC-dropout forward at batch T_e*N with the encoder
-        prefix shared; T_e == 1 is deterministic."""
-        t_e = self.t_e
-        if t_e > 1:
-            n = img.shape[0]
-            outs = self._outputs_to_skew(mc_dropout_apply(model, img, t_e, generator))
-            return tuple(a.reshape((t_e, n) + a.shape[1:]).transpose(0, 1) for a in outs)
-        return tuple(a[:, None] for a in self.forward_skew(model, img))
+    def predict(self, model, img, generator: Generators = None):
+        """-> mu (N, T_e, K, 2), cov (N, T_e, K, 2, 2), alpha (N, T_e, K, 2)
+        for one view (N, C, H, W); (V, N, T_e, ...) for V views (V, N, C, H,
+        W), with one generator per view. T_e > 1 uses one MC-dropout forward
+        per view at batch T_e*N with the encoder prefix shared; T_e == 1 is
+        deterministic. The DSNT head runs once on all views' heatmaps."""
+        outs = self._outputs_to_skew(forward_views(model, img, self.t_e, generator))
+        return tuple(per_frame_samples(a, img.shape[:-3], self.t_e) for a in outs)

@@ -2,8 +2,9 @@
 
 - the `data/transform` config group is composed and applied as the JAX
   package applies it (data/transforms.py, factory.build_data);
-- `task.sequence_sampler` and `task.soft_mask`, not ported yet, raise
-  instead of being ignored, from the runner and from run_predict;
+- options of the predict path that are not ported yet (several devices,
+  multi-structure contour groups) raise instead of being ignored, from the
+  runner and from run_predict;
 - every "not ported yet" message names the ROADMAP.md item that holds it.
 
 (The NaN rule of the crossing selection is gated in
@@ -82,28 +83,52 @@ def test_data_transform_errors_match_jax(tmp_path):
     assert plain.train_arrays("train")["img"].min() >= 0.0
 
 
-@pytest.mark.parametrize("key", ["sequence_sampler", "soft_mask"])
+class _MultiStructure:
+    """A data source whose landmark vector holds two structures."""
+
+    def __init__(self, data):
+        self.data = data
+        self.data_params = data.data_params
+        self.contour_groups = ((0, 10, 1), (10, 21, 2))
+
+    def train_arrays(self, split="train"):
+        return self.data.train_arrays(split)
+
+    def predict_views(self, split="test"):
+        return self.data.predict_views(split)
+
+
+# Option -> (its override for the runner, its ROADMAP.md Queue 1 item).
+UNPORTED_PREDICT = {"predict_sample_parallel": ("predict_sample_parallel=2", 11),
+                    "contour_groups": ("data.name=lung", 10)}
+
+
+@pytest.mark.parametrize("key", list(UNPORTED_PREDICT))
 @pytest.mark.parametrize("entry", ["runner", "run_predict"])
 def test_unported_predict_options_raise(key, entry, tmp_path):
-    """task.sequence_sampler / task.soft_mask = true raise NotImplementedError
-    naming ROADMAP.md Queue 1 item 4, from runner.run (before training) and
-    from run_predict called directly; false, the default, runs."""
-    overrides = SMALL_RUN + [f"save_path={tmp_path}", f"task.{key}=true"]
-    match = r"ROADMAP.md Queue 1, item 4"
+    """Predict options the port does not have yet (several devices; several
+    contour structures, which the JSRT source brings) raise
+    NotImplementedError naming their ROADMAP.md Queue 1 item, from
+    runner.run (before training) and from run_predict called directly;
+    without them, run_predict runs."""
+    override, item = UNPORTED_PREDICT[key]
+    overrides = SMALL_RUN + [f"save_path={tmp_path}", override]
+    match = rf"ROADMAP.md Queue 1, item {item}\)"
     if entry == "runner":
         with pytest.raises(NotImplementedError, match=match):
             runner.run(overrides, device="cpu")
         assert not any(tmp_path.iterdir())  # nothing trained
         return
-    cfg = compose(overrides)
+    cfg = compose(SMALL_RUN + [f"save_path={tmp_path}"])
     data = factory.build_data(cfg)
     task = factory.build_task(cfg, data.data_params)
     model = task.build_model(device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tpred.run_predict(task, model, data, cfg, device="cpu")
-    cfg["task"][key] = False
     cfg["task"]["psm_path"] = str(tmp_path / "psm.npz")
     cfg.pop("save_path")
+    bad = ({**cfg, "predict_sample_parallel": 2}, data) if key == "predict_sample_parallel" \
+        else (cfg, _MultiStructure(data))
+    with pytest.raises(NotImplementedError, match=match):
+        tpred.run_predict(task, model, bad[1], bad[0], device="cpu")
     assert len(tpred.run_predict(task, model, data, cfg, device="cpu")) == 2
 
 
@@ -120,6 +145,13 @@ def _message(fn):
     return str(info.value)
 
 
+class _SmallTask:
+    """What AleatoricPredictor reads of a task."""
+
+    t_a = 4
+    data_params = type("DP", (), {"out_shape": (21, 2)})
+
+
 CASES = {
     "data camus-cont": ("CAMUS", lambda: factory.build_data(
         compose(["data=camus-cont"]))),
@@ -130,14 +162,15 @@ CASES = {
         compose(["task.name=epistemic"]), None)),
     "task tta": ("Segmentation baselines", lambda: factory.build_task(
         compose(["task.name=tta"]), None)),
-    "predict_batch_views": ("predict_batch_views", lambda: runner._check_ported(
-        compose(["predict_batch_views=4"]))),
+    "contour_groups": ("JSRT", lambda: tpred.AleatoricPredictor(
+        _SmallTask(), torch.nn.Identity(), None, contour_groups=((0, 10, 1), (10, 21, 2)),
+        device="cpu")),
     "train_ensemble": ("Training", lambda: runner._check_ported(
         compose(["task.train_ensemble=3"]))),
     "predict_sample_parallel": ("Multi-GPU", lambda: runner._check_ported(
         compose(["predict_sample_parallel=2"]))),
-    "sequence_sampler": ("Sequence sampler", lambda: runner._check_ported(
-        compose(["task.sequence_sampler=true"]))),
+    "predict_sample_parallel, run_predict": ("Multi-GPU", lambda: tpred.check_predict_options(
+        {"predict_sample_parallel": 4})),
 }
 
 

@@ -81,7 +81,7 @@ def _jax_trainer_config(cfg):
     ("data.name=camus-cont", "item 2"), ("data.name=lung", "item 10"),
     ("task.name=mcdropout", "item 8"), ("task.name=epistemic", "item 7"),
     ("task.name=tta", "item 8"), ("comet=true", "Queue 1"),
-    ("predict_batch_views=4", "item 3"), ("task.train_ensemble=3", "item 5"),
+    ("predict_sample_parallel=2", "item 11"), ("task.train_ensemble=3", "item 5"),
 ])
 def test_unported_configurations_raise_naming_the_roadmap(override, item, tmp_path):
     """Data sources, tasks, loggers and run modes the port does not have yet

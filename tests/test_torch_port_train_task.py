@@ -23,6 +23,7 @@ from contouring_uncertainty_torch.convert import flax_to_torch_state
 from contouring_uncertainty_torch.data import augment as taug
 from contouring_uncertainty_torch.data.config import DataParams
 from contouring_uncertainty_torch.data.synthetic import make_arrays
+from contouring_uncertainty_torch.models.unet import leaky_relu_sides, set_compute_dtype
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 from contouring_uncertainty_torch.utils.metrics import dice_binary
 
@@ -58,21 +59,34 @@ def test_loss_logs_and_every_gradient_match_jax(pair):
     relative, and every parameter's gradient against jax.grad, per leaf,
     within 1e-3 of the leaf's largest gradient plus 1e-5 of the largest
     gradient of all (the conv biases before an instance norm have an exact
-    gradient of 0, so theirs is rounding noise on both sides). JAX's f32
-    convolution gradients on the CPU are the looser side (up to ~2e-3 of a
-    leaf from f64 on other inputs), so the port's are also held to the
-    port's own f64 gradients, within 2e-5 per leaf plus the same floor."""
+    gradient of 0, so theirs is rounding noise on both sides).
+
+    Both f32 gradients are also held to a true f64 model's
+    (`set_compute_dtype`). An f32 forward puts an activation within
+    rounding of zero on the other side of a LeakyReLU kink now and then,
+    and every gradient behind it moves by ~1e-3 of a leaf (here the port's
+    forward flips 3 of 3.8M activations and JAX's 2, other ones: 1.29e-3
+    and 4.95e-4 of a leaf from the f64 gradients). So each side's flips
+    are counted against the f64 forward's sides (at most 8, each within
+    1e-5 of zero there), and each side is held to the f64 model pinned to
+    its own forward's sides (`leaky_relu_sides`): the port per leaf within
+    2e-5 of the leaf's largest value plus the floor (measured 5.6e-6 of a
+    leaf), and its worst leaf no farther than JAX's (measured 1.9e-5)."""
     jtask, jmodel, variables, task, model, batch = pair
 
     def jloss(params):
-        return jtask.loss(jmodel, {"params": params}, jax.tree.map(jnp.asarray, batch),
-                          jax.random.key(0), train=True)
+        capture = _NormCapture(jmodel)
+        loss, logs = jtask.loss(capture, {"params": params}, jax.tree.map(jnp.asarray, batch),
+                                jax.random.key(0), train=True)
+        return loss, (logs, capture.norms)
 
-    (_, jlogs), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(variables["params"])
+    (_, (jlogs, jnorms)), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        variables["params"])
     model.zero_grad(set_to_none=True)
-    loss, logs = task.loss(model, _tbatch(batch), generator=torch.Generator().manual_seed(0),
-                           train=True)
-    loss.backward()
+    with leaky_relu_sides(model) as port_sides:
+        loss, logs = task.loss(model, _tbatch(batch), generator=torch.Generator().manual_seed(0),
+                               train=True)
+        loss.backward()
     assert set(logs) == set(jlogs) == {"loss", "distance_loss", "loss_term1", "loss_term2"}
     for key in logs:
         np.testing.assert_allclose(float(logs[key].detach()), float(jlogs[key]), rtol=1e-5,
@@ -87,14 +101,106 @@ def test_loss_logs_and_every_gradient_match_jax(pair):
         np.testing.assert_allclose(got, g.numpy(), rtol=0, atol=1e-3 * scale + floor,
                                    err_msg=name)
 
-    model64 = task.build_model(device="cpu").double()
-    model64.load_state_dict(model.state_dict())
     b64 = {k: v.double() if v.is_floating_point() else v for k, v in _tbatch(batch).items()}
-    task.loss(model64, b64, generator=None, train=True)[0].backward()
-    for name, p in model64.named_parameters():
-        g64 = p.grad.numpy()
-        np.testing.assert_allclose(grads[name].grad.numpy(), g64, rtol=0,
-                                   atol=2e-5 * np.abs(g64).max() + floor, err_msg=name)
+
+    def f64_grads(pin=None):
+        model64 = set_compute_dtype(task.build_model(device="cpu").double(), torch.float64)
+        model64.load_state_dict(model.state_dict())
+        pre = {}
+        for name, mod in model64.named_modules():
+            if name.endswith(".InstanceNorm_0"):
+                layer = name[:-len(".InstanceNorm_0")]
+                mod.register_forward_hook(
+                    lambda m, i, y, layer=layer: pre.update({layer: y.detach()}))
+        with leaky_relu_sides(model64, pin) as sides:
+            task.loss(model64, b64, generator=None, train=True)[0].backward()
+        return {n: p.grad.numpy() for n, p in model64.named_parameters()}, sides, pre
+
+    _, sides64, pre64 = f64_grads()
+    jax_sides = {name: torch.as_tensor(np.asarray(y).transpose(0, 3, 1, 2) > 0)
+                 for name, y in jnorms.items()}
+    worst = {}
+    for label, sides, got in (
+            ("port", port_sides, {n: p.grad.numpy() for n, p in grads.items()}),
+            ("jax", jax_sides, {n: g.numpy() for n, g in ref.items()})):
+        assert set(sides) == set(sides64), label
+        flipped = {n: sides[n] != sides64[n] for n in sides64}
+        assert sum(int(f.sum()) for f in flipped.values()) <= 8, label
+        assert all(float(pre64[n][f].abs().max()) < 1e-5 for n, f in flipped.items() if f.any())
+        g64 = f64_grads(sides)[0]
+        leaves = [n for n in g64 if not n.endswith("Conv_0.bias")]
+        worst[label] = max(np.abs(got[n] - g64[n]).max() / np.abs(g64[n]).max() for n in leaves)
+        if label == "port":
+            for n in g64:
+                np.testing.assert_allclose(got[n], g64[n], rtol=0,
+                                           atol=2e-5 * np.abs(g64[n]).max() + floor, err_msg=n)
+    assert 0.0 < worst["port"] <= worst["jax"], worst
+
+
+class _NormCapture:
+    """Stands in for the flax model in the JAX task's loss: applies it with
+    its InstanceNorm outputs (the LeakyReLU inputs) captured, keyed by the
+    enclosing ConvLayer's path as the port names it."""
+
+    def __init__(self, model):
+        self.model, self.norms = model, {}
+
+    def apply(self, variables, img, **kwargs):
+        out, state = self.model.apply(
+            variables, img, mutable=["intermediates"], **kwargs,
+            capture_intermediates=lambda mdl, _: type(mdl).__name__ == "InstanceNorm")
+        for path, y in jax.tree_util.tree_flatten_with_path(state["intermediates"])[0]:
+            keys = [p.key for p in path if getattr(p, "key", "__call__") != "__call__"]
+            self.norms[".".join(keys[:-1])] = y
+        return out
+
+
+def _tensors(value):
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            yield from _tensors(v)
+
+
+@pytest.mark.parametrize("kind", ["unet", "skew"])
+def test_f64_model_computes_in_f64_throughout(kind):
+    """Fault F4: `set_compute_dtype(model.double(), torch.float64)` gives a
+    model that computes in f64 everywhere. Forward hooks on every module of
+    a drop_block UNet (and of a SkewUNet, its ConfidenceNet and Dense layer
+    included) see only f64 outputs, in the deterministic forward and in the
+    MC-dropout forward with the encoder prefix shared; the logits, the
+    bottleneck and alpha are f64, and so are the task's Gaussians."""
+    from contouring_uncertainty_torch.tasks import DSNTSkew
+    from contouring_uncertainty_torch.tasks.dsnt_al import mc_dropout_apply
+
+    cls = DSNTSkew if kind == "skew" else DSNTAleatoric
+    task = cls(data_params=DataParams(**DP), t_e=2, model_kwargs=dict(SMALL, drop_block=True))
+    model = set_compute_dtype(task.build_model(device="cpu").double(), torch.float64)
+    seen = []
+    for name, mod in model.named_modules():
+        mod.register_forward_hook(
+            lambda m, i, out, name=name: seen.extend((name, t.dtype) for t in _tensors(out)))
+    img = torch.as_tensor(make_arrays(2, size=64, seed=1)[0]).double()
+    with torch.no_grad():
+        outs = [model(img), mc_dropout_apply(model, img, 2, torch.Generator().manual_seed(0))]
+        gaussians = task.predict(model, img, torch.Generator().manual_seed(0))
+    assert len(seen) > 50
+    assert [s for s in seen if s[1] != torch.float64] == []
+    assert all(t.dtype == torch.float64 for out in outs for t in _tensors(out))
+    assert all(t.dtype == torch.float64 for t in gaussians)
+    assert {"out", "bottleneck", "alpha_raw"} <= set(outs[0]) if kind == "skew" else True
+    # The instance norms' statistics are f64 too (f32 statistics of these
+    # inputs, offset by 3 from zero, would be ~1e-6 off).
+    norm = model.get_submodule(("unet." if kind == "skew" else "")
+                               + "ConvBlock_0.ConvLayer_0.InstanceNorm_0")
+    x = 3.0 + torch.as_tensor(np.random.default_rng(2).normal(size=(2, 32, 16, 16)))
+    ref = (x - x.mean((2, 3), keepdim=True)) / torch.sqrt(x.var((2, 3), unbiased=False,
+                                                                keepdim=True) + 1e-5)
+    assert float((norm(x) - ref).abs().max()) < 1e-12
 
 
 def test_val_metrics_match_jax(pair):
