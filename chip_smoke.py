@@ -114,7 +114,28 @@ result line):
    same call with the idle share and top device rows of each; K2 on one
    dispatch's (1680, 65536) bf16 head logits against f64 (the bars of [3])
    and K3 on its 2000 sampled contours (bitwise, NaN positions matched),
-   each timed beside its bound (K3 also beside `torch.topk`).
+   each timed beside its bound (K3 also beside `torch.topk`);
+12. the segmentation baselines and the epistemic task, before the kernels
+   line, at the serving width of [5] (8-stage UNet, bf16 trunk, 256^2, N=2,
+   the 6 test views, seeded weights): `run_predict` of `mcdropout` (T_e=10,
+   drop_block), `aleatoric` (T_a=25), `tta` (T_a=25) and `ssn` (rank 10,
+   T_a=25), launch counters reset just before and read just after (K2 and
+   K3: none), outputs with the JAX package's fields, shapes and dtypes
+   (binary sample probabilities in [0, 1], a zero 10-px entropy border),
+   views/s over 3 passes, idle share and top device rows; the morphology
+   loop on one view's untrained sample masks (fixed-point iterations, host
+   and device ms); the `data=camus` processors (instant_metrics,
+   calibration, mutual_info, clinical_metrics through its mask-space GLS
+   branch) on the card equal to the CPU within PROCESSOR_TOL; `epistemic`
+   (T_e=10, T_a=25) with K2 1 and K3 1 per view, its task covariances
+   exactly 0 and its fused covariance within 1e-5 of the f64 spread of the
+   T_e means; each baseline's SegPredictor on the card against the CPU at
+   64^2 (4-stage, f32, the same draws: probabilities within 1e-4, at most 8
+   `pred` pixels per view, each at a mean probability within 1e-3 of 0.5;
+   postprocess_batch bitwise, with an equal-size tie); each task trained at
+   the width of [9] on one batch of 32 (a warm-up step, 4 timed steps with
+   finite losses, launches counted, peak memory; 10 steps in which the
+   loss falls).
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1857,6 +1878,352 @@ def batched_kernel_checks(main_res: dict, batch: dict) -> dict:
                    "bound_by": max(k3_bound, key=k3_bound.get)}}
 
 
+# The segmentation baselines and the epistemic task ([12]), at the serving
+# configuration of [5] (8-stage UNet, bf16 trunk, 256^2, N=2, the 6 test
+# views of [5], seeded weights) with each task's config sizes; training at
+# the width of [9] (f32, batch 32, AdamW, augmentation on).
+SEG_CFG = {"mcdropout": dict(t_e=10, t_a=1, drop_block=True),
+           "aleatoric": dict(t_e=1, t_a=25), "tta": dict(t_e=1, t_a=25),
+           "ssn": dict(t_e=1, t_a=25, rank=10)}
+SEG_PASSES = 3  # timed passes over the test views after the first
+# The processor list of the JAX package's data=camus config.
+SEG_PROCESSORS = ["instant_metrics", "calibration", "mutual_info", "clinical_metrics"]
+SEG_CSVS = ["instant_metrics.csv", *(f"clinical/{t}_df.csv"
+                                     for t in ("instant", "view", "patient", "volume"))]
+# Card against CPU at 64^2, 4 stages, f32, the same draws: probabilities,
+# and the `pred` pixels that may differ per view, each at a mean
+# probability within `pred_p` of 0.5.
+SEG_BARS = {"probs": 1e-4, "pred_px": 8, "pred_p": 1e-3, "epistemic_cov_rel": 1e-5}
+SEG_TRAIN_PATIENTS = 14  # 8 training patients: 32 frames, one batch of 32
+SEG_TRAIN_STEPS = 4  # timed steps after a warm-up step
+
+
+def seg_task(name: str, data_params, dtype: str = "bfloat16", **small):
+    """A baseline (or `epistemic`) with its config's sizes, the serving
+    trunk dtype and, with `small`, the 64^2 model's kernels and strides."""
+    from contouring_uncertainty_torch import tasks
+
+    if name == "epistemic":
+        return tasks.EpistemicUncertainty(
+            data_params=data_params, t_e=MAIN_CFG["t_e"], t_a=MAIN_CFG["t_a"],
+            model_kwargs=dict(drop_block=True, dtype=dtype, head_dtype=dtype, **small))
+    cfg = dict(SEG_CFG[name])
+    # The main head computes in f32 from the bf16 trunk's features, as the
+    # JAX package's backbone builds it (it drops head_dtype).
+    kwargs = dict(dtype=dtype, head_dtype="float32", drop_block=cfg.pop("drop_block", False),
+                  **small)
+    cls = {"mcdropout": tasks.McDropoutUncertainty, "aleatoric": tasks.AleatoricUncertainty,
+           "tta": tasks.TTAUncertainty, "ssn": tasks.StochasticSegmentationNetwork}[name]
+    return cls(data_params=data_params, model_kwargs=kwargs, **cfg)
+
+
+def check_seg_results(results, t_e: int, t_a: int, size: int) -> None:
+    """The JAX package's SegPredictor fields, shapes and dtypes; finite;
+    binary sample populations are probabilities in [0, 1]."""
+    for res in results:
+        n = res.img.shape[0]
+        want = {"pred": ((n, size, size), np.int32),
+                "pred_samples": ((n, t_e, t_a, size, size), np.float32),
+                "uncertainty_map": ((n, size, size), np.float32),
+                "entropy_map": ((n, size, size), np.float32)}
+        for key, (shape, dtype) in want.items():
+            value = getattr(res, key)
+            if value.shape != shape or value.dtype != dtype:
+                raise AssertionError(f"{key}: {value.shape} {value.dtype}, expected {shape} "
+                                     f"{np.dtype(dtype)}")
+            if not np.isfinite(value).all():
+                raise AssertionError(f"{key} has non-finite values")
+        if res.mu is not None or res.contour_samples is not None:
+            raise AssertionError("a segmentation result carries contour fields")
+        if res.pred_samples.min() < 0 or res.pred_samples.max() > 1:
+            raise AssertionError("binary sample probabilities outside [0, 1]")
+        if set(res.instant_uncertainty) != {"entropy_mean"} or not np.isfinite(
+                res.instant_uncertainty["entropy_mean"]).all():
+            raise AssertionError(f"instant uncertainty {res.instant_uncertainty}")
+        if (res.entropy_map[:, :10] != 0).any() or (res.entropy_map[:, -10:] != 0).any():
+            raise AssertionError("the entropy map's 10-px border is not zero")
+
+
+def morphology_reading(task, model, data) -> dict:
+    """The post-processing of one view's untrained full-width sample masks
+    (speckle, the loop's worst case): the fixed-point iteration counts, and
+    the loop's host time (synchronised) and device time (CUDA events)."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import morphology
+    from contouring_uncertainty_torch.predict import view_generator
+
+    view = next(iter(data.predict_views("test")))
+    with torch.inference_mode():
+        img = torch.as_tensor(view["img"], device="cuda")
+        probs = task.predict_probs(model, img, view_generator(MAIN_CFG["seed"], 0))
+        masks = torch.round(probs[..., 0, :, :])
+        morphology.postprocess_batch(masks)  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        morphology.postprocess_batch(masks)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    return {"masks": int(np.prod(masks.shape[:-2])), "host_ms": host_ms,
+            "device_ms": start.elapsed_time(end), "iterations": dict(morphology.iterations),
+            "foreground": float(masks.mean())}
+
+
+def host_draw_ms(task, n: int, size: int) -> float:
+    """Host time (synchronised, the median of 3) of the normals one view of
+    an aleatoric or SSN task draws from its CPU generator and copies to the
+    card, as the task draws them."""
+    import torch
+
+    from contouring_uncertainty_torch.predict import view_generator
+    from contouring_uncertainty_torch.rng import draw_normal
+
+    shapes = ([(1, task.t_a, n, task.n_channels, size, size)] if task.task_name == "aleatoric"
+              else [(1, task.t_a, n, task.rank), (1, task.t_a, n, task.n_channels * size * size)])
+    times = []
+    for _ in range(3):
+        gen = [view_generator(MAIN_CFG["seed"], 0)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for shape in shapes:
+            draw_normal(gen, shape, device="cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[1]
+
+
+def seg_processors(results) -> dict:
+    """SEG_PROCESSORS on the card and on the CPU on the same views: no
+    processor error, the same summary keys and CSV rows and columns, and
+    the card's values equal to the CPU's within PROCESSOR_TOL (`differing`)."""
+    import tempfile
+
+    import torch
+
+    from contouring_uncertainty_torch.results import run_processors
+
+    cfg = {"data": {"results_processors": SEG_PROCESSORS}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu = run_processors(results, tmp / "gpu", cfg, device="cuda")
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(results)
+        t0 = time.perf_counter()
+        cpu = run_processors(results, tmp / "cpu", cfg, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3 / len(results)
+        for side, metrics in (("card", gpu), ("CPU", cpu)):
+            if "processor_errors" in metrics:
+                raise AssertionError(f"processor errors on the {side}: "
+                                     f"{metrics['processor_errors']}")
+        if set(gpu) != set(cpu):
+            raise AssertionError(f"summary keys differ: {sorted(set(gpu) ^ set(cpu))}")
+        bad = {k: (gpu[k], cpu[k]) for k in cpu if differing(k, gpu[k], cpu[k])}
+        cells = 0
+        for name in SEG_CSVS:
+            header, rows = read_csv_cells(tmp / "gpu" / name)
+            ref_header, ref_rows = read_csv_cells(tmp / "cpu" / name)
+            if header != ref_header or [r[0] for r in rows] != [r[0] for r in ref_rows]:
+                raise AssertionError(f"{name}: the card's columns or rows differ from the CPU's")
+            for row, ref_row in zip(rows, ref_rows):
+                for col, got, ref in zip(header[1:], row[1:], ref_row[1:]):
+                    cells += 1
+                    if differing(col, got, ref):
+                        bad[f"{name}:{row[0]}:{col}"] = (got, ref)
+        if bad:
+            raise AssertionError(f"the card's processor outputs differ from the CPU's "
+                                 f"(tolerance {PROCESSOR_TOL}): {dict(list(bad.items())[:10])}")
+    return {"keys": len(gpu), "cells": cells, "host_ms_per_view": host_ms,
+            "cpu_ms_per_view": cpu_ms}
+
+
+def seg_serving(main_res: dict, profile_dir=None) -> dict:
+    """run_predict for each baseline and for epistemic at the serving width
+    of [5] over its 6 test views: launches counted from 0 (K2 and K3: none
+    for a baseline; one each per view for epistemic), outputs checked,
+    views/s over SEG_PASSES passes, idle share and top device rows; the
+    morphology reading and the processors, card against CPU, per baseline;
+    epistemic's zero task covariances and its fused covariance against the
+    f64 spread of the T_e means."""
+    import torch
+
+    from contouring_uncertainty_torch.predict import view_generator
+
+    c = MAIN_CFG
+    data = main_res["data"]
+    cfg = {"seed": c["seed"]}
+    out = {}
+    for name in (*SEG_CFG, "epistemic"):
+        t_start = time.perf_counter()
+        task = seg_task(name, data.data_params)
+        model = task.build_model(device="cuda", generator=torch.Generator().manual_seed(c["seed"]))
+        run = serve(task, model, data, cfg, SEG_PASSES,
+                    profile_dir / f"seg_{name}" if profile_dir is not None else None)
+        n = run["views"]
+        row = {**rate(run, run["pass_s"]), "views": n, "launches": run["launches"],
+               "first_s": run["first_s"], "profile": run["profile"],
+               "kernel_ms_per_view": run["kernel_ms_per_view"],
+               "copy_ms_per_view": run["copy_ms_per_view"]}
+        if name == "epistemic":
+            if run["per_dispatch"] != [(1, 0, 1)] * n or run["launches"] != {
+                    "K2": n, "K1": 0, "K3": n}:
+                raise AssertionError(f"epistemic launches {run['launches']}, per view "
+                                     f"{run['per_dispatch']}; expected K2 1 and K3 1 per view")
+            check_gaussian_results(run["results"])
+            worst = 0.0
+            with torch.inference_mode():
+                for vi, (view, res) in enumerate(zip(data.predict_views("test"),
+                                                     run["results"])):
+                    img = torch.as_tensor(view["img"], device="cuda")[None]
+                    mu_te, cov_te = task.predict(model, img, [view_generator(c["seed"], vi)])
+                    if cov_te.any():
+                        raise AssertionError("the epistemic task's covariances are not 0")
+                    mu_te = mu_te[0].double()
+                    d = mu_te - mu_te.mean(dim=1, keepdim=True)
+                    spread = (d[..., :, None] * d[..., None, :]).mean(dim=1).cpu().numpy()
+                    worst = max(worst, float(np.abs(res.cov - spread).max()
+                                             / np.abs(spread).max()))
+            if worst > SEG_BARS["epistemic_cov_rel"]:
+                raise AssertionError(f"epistemic fused covariance {worst:.2e} from the f64 "
+                                     f"spread of the means")
+            row["cov_rel_err"] = worst
+        else:
+            if run["launches"] != {"K2": 0, "K1": 0, "K3": 0}:
+                raise AssertionError(f"{name} launched {run['launches']}: a baseline runs no "
+                                     f"DSNT or crossing kernel")
+            sizes = SEG_CFG[name]
+            check_seg_results(run["results"], sizes["t_e"], sizes["t_a"], c["size"])
+            row["morphology"] = morphology_reading(task, model, data)
+            if name in ("aleatoric", "ssn"):
+                row["draw_ms"] = host_draw_ms(task, 2, c["size"])
+            t_proc = time.perf_counter()
+            row["processors"] = seg_processors(run["results"])
+            row["processors"]["seconds"] = time.perf_counter() - t_proc
+        row["seconds"] = time.perf_counter() - t_start
+        out[name] = row
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def seg_reference_check() -> dict:
+    """Each baseline's SegPredictor on the card against the CPU at 64^2 (a
+    4-stage f32 UNet, the same weights and CPU-generator draws, two views in
+    one dispatch): probabilities within SEG_BARS["probs"], at most
+    SEG_BARS["pred_px"] differing `pred` pixels per view, each at a mean
+    probability within SEG_BARS["pred_p"] of 0.5; then postprocess_batch on
+    the card bitwise equal to the CPU on the same rounded masks, with an
+    equal-size-blobs tie."""
+    import torch
+
+    from contouring_uncertainty_torch.data.config import DataParams
+    from contouring_uncertainty_torch.data.synthetic import make_arrays
+    from contouring_uncertainty_torch.ops.morphology import postprocess_batch
+    from contouring_uncertainty_torch.predict import SegPredictor, view_generator
+
+    imgs = make_arrays(4, size=64, seed=1)[0].reshape(2, 2, 1, 64, 64)
+    dp = DataParams(in_shape=(1, 64, 64), out_shape=(1, 64, 64))
+    small = dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3)
+    out = {}
+    for name in SEG_CFG:
+        task = seg_task(name, dp, dtype="float32", **small)
+        res = {}
+        for device in ("cpu", "cuda"):
+            model = task.build_model(device=device, generator=torch.Generator().manual_seed(3))
+            gens = lambda: [view_generator(5, v) for v in range(2)]
+            with torch.inference_mode():
+                probs = task.predict_probs(model, torch.as_tensor(imgs, device=device), gens())
+            pred = SegPredictor(task, model, device=device).batched(imgs, gens())
+            res[device] = (probs.cpu(), {k: v.cpu() for k, v in pred.items()
+                                         if isinstance(v, torch.Tensor)})
+        (p_cpu, o_cpu), (p_gpu, o_gpu) = res["cpu"], res["cuda"]
+        prob_err = float((p_gpu - p_cpu).abs().max())
+        differ = o_gpu["pred"] != o_cpu["pred"]
+        mean = o_cpu["pred_samples"].mean(dim=(2, 3))
+        worst_p = float((mean[differ] - 0.5).abs().max()) if differ.any() else 0.0
+        per_view = differ.flatten(1).sum(1).tolist()
+        if (prob_err > SEG_BARS["probs"] or max(per_view) > SEG_BARS["pred_px"]
+                or worst_p > SEG_BARS["pred_p"]):
+            raise AssertionError(f"{name}: card vs CPU probabilities {prob_err:.2e}, pred pixels "
+                                 f"{per_view} (mean p {worst_p:.2e} from 0.5)")
+        masks = torch.round(p_cpu[..., 0, :, :])
+        tie = torch.zeros(2, 64, 64)
+        tie[:, 3:7, 3:7] = 1
+        tie[:, 40:44, 20:24] = 1
+        tie[1] = tie[1].flip(0)
+        post_cpu = postprocess_batch(masks)
+        post_gpu = postprocess_batch(masks.cuda()).cpu()
+        ties = (postprocess_batch(tie), postprocess_batch(tie.cuda()).cpu())
+        if not torch.equal(post_cpu, post_gpu) or not torch.equal(*ties):
+            raise AssertionError(f"{name}: postprocess_batch on the card is not bitwise the CPU's")
+        if ties[0][0].sum() != 16 or ties[0][0, 3:7, 3:7].sum() != 16:
+            raise AssertionError("the tie did not keep the blob with the smallest label")
+        out[name] = {"prob_err": prob_err, "pred_px": per_view}
+    return out
+
+
+def seg_training() -> dict:
+    """Each baseline (and epistemic) at the training width of [9] (with its
+    `drop_block`): one
+    batch of 32 synthetic frames, a warm-up step, SEG_TRAIN_STEPS timed
+    steps with augmentation (every loss finite; K2 and K3 launches per step
+    counted), peak memory; then 10 steps on the batch without augmentation,
+    in which the loss must fall."""
+    import torch
+
+    from contouring_uncertainty_torch.config import compose
+    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+    from contouring_uncertainty_torch.factory import build_task, build_trainer
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.train.trainer import _iterate, _to_device
+
+    data = SyntheticContourData(n_patients=SEG_TRAIN_PATIENTS, k=21, size=256,
+                                seed=TRAIN_CFG["seed"])
+    arrays = data.train_arrays("train")
+    out = {}
+    for name in (*SEG_CFG, "epistemic"):
+        cfg = compose(TRAIN_OVERRIDES + [f"task={name}"])  # drop_block on, as in [9]
+        task = build_task(cfg, data.data_params)
+        trainer = build_trainer(cfg, task)
+        trainer.init_state()
+        batch = _to_device(next(_iterate(arrays, TRAIN_CFG["batch"], np.random.default_rng(1))),
+                           trainer.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(trainer.train_step(batch, 0)["loss"])]
+        dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+        steps_ms = []
+        for step in range(1, 1 + SEG_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(batch, step)["loss"]))
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
+                    "K3": select_kernel.launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: non-finite training loss {losses}")
+        want = SEG_TRAIN_STEPS if name == "epistemic" else 0
+        if launches != {"K2": want, "K1": 0, "K3": 0}:
+            raise AssertionError(f"{name}: launches over {SEG_TRAIN_STEPS} train steps "
+                                 f"{launches}")
+        trainer.config.augment = False
+        fit = [float(trainer.train_step(batch, step)["loss"]) for step in range(5, 15)]
+        if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
+            raise AssertionError(f"{name}: the loss on one fixed batch did not fall: {fit}")
+        steps_ms.sort()
+        out[name] = {"step_ms": steps_ms[len(steps_ms) // 2], "step_ms_range":
+                     (steps_ms[0], steps_ms[-1]), "peak_gib": peak, "losses": losses,
+                     "fit": (fit[0], fit[-1]), "launches": launches}
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -2091,8 +2458,58 @@ def main(argv) -> int:
     print(f"    K3 at {bk['k3']['shape']}: bitwise; {bk['k3']['ms']:.4f} ms (bound "
           f"{bk['k3']['bound_ms']:.4f} ms by {bk['k3']['bound_by']}), plain "
           f"{bk['k3']['plain_ms']:.4f} ms, torch.topk {bk['k3']['library_ms']:.4f} ms")
+    phase_start[12] = time.perf_counter()
+    print("[12] segmentation baselines (mcdropout, aleatoric, tta, ssn) and the epistemic task: "
+          "served (flagship serving width) and trained (flagship training width)")
+    seg = seg_serving(main_res, profile_dir)
+    for name, row in seg.items():
+        lo, hi = row["ms_range"]
+        print(f"    {name}: {row['views']} views, first run {row['first_s']:.2f} s; launches "
+              f"{row['launches']}; steady state {row['views_per_s']:.2f} views/s, median "
+              f"{row['ms_per_view']:.1f} ms/view over {SEG_PASSES} passes (range "
+              f"{lo:.1f}-{hi:.1f}); kernels {row['kernel_ms_per_view']:.2f} + copies "
+              f"{row['copy_ms_per_view']:.2f} ms/view, idle share {row['idle_share']:.1%}; "
+              f"[5]'s DSNT-AL {main_res['views_per_s']:.2f} views/s, on {card}")
+        if "morphology" in row:
+            m, proc = row["morphology"], row["processors"]
+            print(f"      morphology on one view's {m['masks']} untrained sample masks "
+                  f"(foreground {m['foreground']:.1%}): iterations {m['iterations']}, host "
+                  f"{m['host_ms']:.2f} ms, device {m['device_ms']:.2f} ms "
+                  f"({m['host_ms'] / row['ms_per_view']:.1%} of the view's time)")
+            if "draw_ms" in row:
+                print(f"      the view's normals drawn on the host and copied: "
+                      f"{row['draw_ms']:.2f} ms ({row['draw_ms'] / row['ms_per_view']:.1%} of "
+                      f"the view's time)")
+            print(f"      processors {SEG_PROCESSORS}: no error, {proc['keys']} summary keys, "
+                  f"{proc['cells']} CSV cells, card equal to the CPU within {PROCESSOR_TOL}; "
+                  f"{proc['host_ms_per_view']:.1f} ms/view on the card")
+        else:
+            print(f"      task covariances exactly 0; fused covariance vs the f64 spread of the "
+                  f"T_e means: {row['cov_rel_err']:.2e} relative (bar "
+                  f"{SEG_BARS['epistemic_cov_rel']})")
+        print(row["profile"])
+    seg_ref = seg_reference_check()
+    print(f"    card vs CPU at 64^2 (4-stage f32, same draws): {seg_ref} (bars {SEG_BARS}); "
+          "postprocess_batch bitwise, with an equal-size tie")
+    seg_train = seg_training()
+    for name, row in seg_train.items():
+        lo, hi = row["step_ms_range"]
+        print(f"    {name} training (batch {TRAIN_CFG['batch']}, 256^2, f32): median "
+              f"{row['step_ms']:.1f} ms/step over {SEG_TRAIN_STEPS} steps (range "
+              f"{lo:.1f}-{hi:.1f}), peak {row['peak_gib']:.2f} GiB, losses "
+              f"{[round(v, 4) for v in row['losses']]}, launches {row['launches']}; one batch, "
+              f"10 steps: {row['fit'][0]:.4f} -> {row['fit'][1]:.4f}; [9]'s DSNT-AL "
+              f"{train['step_ms']:.1f} ms/step, on {card}")
     for kern in kernels:
         short = kern["name"].split(" ")[0]
+        kern["epistemic"] = {"launches": seg["epistemic"]["launches"][short],
+                             "launches_per_view":
+                                 seg["epistemic"]["launches"][short] / seg["epistemic"]["views"],
+                             "training_launches_per_step":
+                                 seg_train["epistemic"]["launches"][short] / SEG_TRAIN_STEPS}
+        kern["segmentation"] = {name: {"launches": seg[name]["launches"][short],
+                                       "training_launches": seg_train[name]["launches"][short]}
+                                for name in SEG_CFG}
         per_call = {label: calls[{"K2": 0, "K1": 1, "K3": 2}[short]]
                     for label, calls in train["per_call"].items()}
         kern["training"] = {"launches": train["totals"][short], "launches_per_call": per_call}

@@ -4,8 +4,9 @@ Takes the flax parameter tree as a nested dict of numpy arrays (a
 `variables` dict with a top-level "params" key is accepted too) and returns
 tensors keyed like the port's model, whose submodules keep the flax names
 (ConvBlock_i / UpsampleBlock_j / OutputBlock_0 / ConvLayer_0 / Conv_0 /
-InstanceNorm_0 / ConvTranspose_0; a SkewUNet's `unet` and `confidence_net`
-with Conv_0..2 and Dense_0). The mapping is the one the JAX package's
+InstanceNorm_0 / ConvTranspose_0; the segmentation heads ssn_sigma,
+ssn_factor and deep_supervision_j, each with its Conv_0; a SkewUNet's
+`unet` and `confidence_net` with Conv_0..2 and Dense_0). The mapping is the one the JAX package's
 reference-model parity test uses:
 
 - conv kernels (kh, kw, ci, co) -> (co, ci, kh, kw);

@@ -1,11 +1,13 @@
 """On-device training augmentations over {image, mask, keypoints}.
 
 Counterpart of contouring_uncertainty_tpu/data/augment.py (`AugmentParams`,
-`AugmentConfig`, `sample_params`, `identity_params`, `apply`): per-item
-rotation about the image centre and translation (bilinear for images,
-nearest for masks, zero outside), contrast, brightness and gamma on [0, 1]
-images, and the matching keypoint transform, for a whole batch at once.
-The `un_apply_*` inverses of test-time augmentation are not ported.
+`AugmentConfig`, `sample_params`, `identity_params`, `apply`,
+`un_apply_logits`, `un_apply_keypoints`): per-item rotation about the
+image centre and translation (bilinear for images, nearest for masks, zero
+outside), contrast, brightness and gamma on [0, 1] images, and the matching
+keypoint transform, for a whole batch at once; and the inverses of the
+geometric part that test-time augmentation applies to logits and
+keypoints.
 
 The warp reproduces `jax.scipy.ndimage.map_coordinates` (order 0 and 1,
 mode "constant") in its own formula order: source coordinates computed as
@@ -154,3 +156,19 @@ def apply(batch: Dict[str, torch.Tensor], params: AugmentParams) -> Dict[str, to
         kp = _rotate_keypoints(batch["contour"], params.angle_deg[:, None], center)
         out["contour"] = kp + params.shift[:, None, :]
     return out
+
+
+def un_apply_logits(logits: torch.Tensor, params: AugmentParams) -> torch.Tensor:
+    """Invert the geometric transform on (N, C, H, W) logits (the TTA
+    path): first remove the translation, then rotate back, each a bilinear
+    warp with zeros outside."""
+    unshifted = _warp(logits, torch.zeros_like(params.angle_deg), -params.shift, order=1)
+    return _warp(unshifted, -params.angle_deg, torch.zeros_like(params.shift), order=1)
+
+
+def un_apply_keypoints(kp: torch.Tensor, params: AugmentParams,
+                       image_shape=(256, 256)) -> torch.Tensor:
+    """Invert the keypoint transform of `apply` on (N, K, 2) keypoints."""
+    center = ((image_shape[1] - 1) / 2.0, (image_shape[0] - 1) / 2.0)
+    kp = kp - params.shift[:, None, :]
+    return _rotate_keypoints(kp, -params.angle_deg[:, None], center)

@@ -3,8 +3,10 @@
 Counterpart of contouring_uncertainty_tpu/factory.py for what the port
 implements. `synthetic` builds the in-memory `SyntheticContourData`
 (where the JAX package writes and reads a CAMUS-layout HDF5 file); the
-tasks are `dsnt-al` and `dsnt-skew` (`dsnt-skew5`, `dsnt-skew9`). Anything
-else raises, naming its ROADMAP.md item.
+tasks are every task of the JAX factory: `dsnt-al`, `dsnt-skew`
+(`dsnt-skew5`, `dsnt-skew9`), `epistemic`, and the segmentation baselines
+`mcdropout`, `aleatoric`, `tta` and `ssn`. A data source or a backbone the
+port does not have raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -12,13 +14,12 @@ from __future__ import annotations
 from typing import Dict
 
 from contouring_uncertainty_torch.device import DeviceLike
-from contouring_uncertainty_torch.models import as_dtype
+from contouring_uncertainty_torch.models import as_dtype, check_backbone
 from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
 # Config names the JAX factory builds and the port does not yet, with
 # where ROADMAP.md Queue 1 lists them.
 _DATA_NOT_PORTED = {"camus-cont": 2, "camus": 2, "lung": 10, "lung-cont": 10}
-_TASKS_NOT_PORTED = {"epistemic": 7, "mcdropout": 8, "aleatoric": 8, "tta": 8, "ssn": 8}
 _SKEW_TASKS = ("dsnt-skew", "dsnt-skew5", "dsnt-skew9")
 
 
@@ -64,11 +65,10 @@ def model_kwargs_from_cfg(model_cfg: Dict) -> Dict:
 
 
 def build_task(cfg: Dict, data_params):
+    from contouring_uncertainty_torch import tasks
+
     task_cfg = cfg["task"]
     name = task_cfg.get("name", "dsnt-al")
-    if name in _TASKS_NOT_PORTED:
-        raise NotImplementedError(f"task '{name}' is not ported yet "
-                                  f"(ROADMAP.md Queue 1, item {_TASKS_NOT_PORTED[name]})")
     model_cfg = task_cfg.get("model", {})
     common = dict(
         data_params=data_params,
@@ -76,19 +76,29 @@ def build_task(cfg: Dict, data_params):
         t_e=task_cfg.get("t_e", 1),
         model_kwargs=model_kwargs_from_cfg(model_cfg),
         model_name=model_cfg.get("name", "unet2"),
-        mse_weight=task_cfg.get("mse_weight", 1.0),
-        log_penalty_weight=task_cfg.get("log_penalty_weight", 1.0),
     )
+    check_backbone(common["model_name"], common["model_kwargs"])
+    weights = dict(mse_weight=task_cfg.get("mse_weight", 1.0),
+                   log_penalty_weight=task_cfg.get("log_penalty_weight", 1.0))
     if name == "dsnt-al":
-        from contouring_uncertainty_torch.tasks import DSNTAleatoric
-
-        return DSNTAleatoric(covar=task_cfg.get("covar", True), **common)
+        return tasks.DSNTAleatoric(covar=task_cfg.get("covar", True), **weights, **common)
     if name in _SKEW_TASKS:
-        from contouring_uncertainty_torch.tasks import DSNTSkew
-
         raw_idx = task_cfg.get("skew_indices")
-        return DSNTSkew(skew_indices=tuple(raw_idx) if raw_idx else None,
-                        freeze_seg=task_cfg.get("freeze_seg", False), **common)
+        return tasks.DSNTSkew(skew_indices=tuple(raw_idx) if raw_idx else None,
+                              freeze_seg=task_cfg.get("freeze_seg", False), **weights,
+                              **common)
+    if name == "epistemic":
+        return tasks.EpistemicUncertainty(covar=task_cfg.get("covar", True), **common)
+    if name == "mcdropout":
+        return tasks.McDropoutUncertainty(**common)
+    if name == "aleatoric":
+        return tasks.AleatoricUncertainty(iterations=task_cfg.get("iterations", 10), **common)
+    if name == "tta":
+        return tasks.TTAUncertainty(**common)
+    if name == "ssn":
+        return tasks.StochasticSegmentationNetwork(rank=task_cfg.get("rank", 10),
+                                                   mc_samples=task_cfg.get("mc_samples", 20),
+                                                   **common)
     raise ValueError(f"Unknown task '{name}'")
 
 

@@ -7,9 +7,11 @@ conv blocks of conv -> [channel dropout] -> instance norm -> LeakyReLU(0.01),
 bottleneck, transposed-conv upsampling with the skip concatenated after the
 upsampled tensor, a 1x1 head, `dtype`/`head_dtype` compute types, the
 `encode_prefix`/`decode_from_prefix` modes of the MC-dropout predict path,
-and `bottleneck_out` with the `ConfidenceNet` skew head that reads it.
-(`residual`, `attention`, `deep_supervision` and `ssn_rank` are not ported
-yet.)
+`bottleneck_out` with the `ConfidenceNet` skew head that reads it, and the
+heads of the segmentation baselines: `ssn_rank` (the SSN heads `ssn_sigma`
+and, above rank 1, `ssn_factor`), `deep_supervision` (lower-resolution
+heads, in training only) and `out_seg_bias`. (`residual` and `attention`
+are not ported yet.)
 
 Submodules carry the flax auto-names (ConvBlock_i, UpsampleBlock_j,
 OutputBlock_0, ConvLayer_0, Conv_0, InstanceNorm_0, ConvTranspose_0), so
@@ -177,11 +179,13 @@ class UpsampleBlock(nn.Module):
 
 
 class OutputBlock(nn.Module):
-    """1x1 conv head (bias off), computed in `dtype`, emitted in `out_dtype`."""
+    """1x1 conv head (bias off unless `bias`), computed in `dtype`,
+    emitted in `out_dtype`."""
 
-    def __init__(self, c_in, features, dtype=torch.float32, out_dtype=torch.float32):
+    def __init__(self, c_in, features, bias: bool = False, dtype=torch.float32,
+                 out_dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = Conv(c_in, features, (1, 1), bias=False, dtype=dtype)
+        self.Conv_0 = Conv(c_in, features, (1, 1), bias=bias, dtype=dtype)
         self.out_dtype = out_dtype
 
     def forward(self, x):
@@ -236,14 +240,22 @@ class ConfidenceNet(nn.Module):
 
 
 class UNet(nn.Module):
-    """Dynamic 2D U-Net: NCHW in, {"out": (N, C_out, H, W)} out, and with
+    """Dynamic 2D U-Net: NCHW in, {"out": (N, C_out, H, W)} out; with
     `bottleneck_out` also {"bottleneck": (N, C_b, Hb, Wb)} in f32 (f64 in
-    an f64 model), the last encoder stage's output after its dropout."""
+    an f64 model), the last encoder stage's output after its dropout; with
+    `ssn_rank` also {"ssn": [sigma (N, C_out, H, W), and above rank 1
+    factor (N, C_out * rank, H, W), rank-major]} in f32, both read from the
+    last decoder output and computed in `dtype`; with `deep_supervision`,
+    in training, {"deep_supervision": [...]}, one head on each decoder
+    output but the two coarsest and the last, finest first (flax's
+    `decoder_outputs[2:-1][::-1]`). `out_seg_bias` gives the main and the
+    deep-supervision heads a bias, not the SSN heads."""
 
     def __init__(self, input_shape: Sequence[int], output_shape: Sequence[int],
                  kernels=((3, 3),) * 8, strides=((1, 1),) + ((2, 2),) * 7,
                  drop_block: bool = False, bottleneck_out: bool = False,
-                 dtype=torch.float32, head_dtype=torch.float32):
+                 deep_supervision: bool = False, out_seg_bias: bool = False,
+                 ssn_rank: int = 0, dtype=torch.float32, head_dtype=torch.float32):
         super().__init__()
         self.input_shape = tuple(input_shape)
         self.output_shape = tuple(output_shape)
@@ -251,6 +263,8 @@ class UNet(nn.Module):
         self.strides = tuple(tuple(s) for s in strides)
         self.drop_block = drop_block
         self.bottleneck_out = bottleneck_out
+        self.deep_supervision = deep_supervision
+        self.ssn_rank = int(ssn_rank)
         self.dtype = dtype
         self.head_dtype = head_dtype
         filters = self.filters
@@ -278,9 +292,20 @@ class UNet(nn.Module):
             self.add_module(f"UpsampleBlock_{j}", UpsampleBlock(
                 c_in, c_skip, up_filters[j], up_kernels[j], up_strides[j], dtype=dtype))
             c_in = up_filters[j]
+        n_classes = output_shape[0]
         head_compute = torch.promote_types(dtype, head_dtype)
-        self.OutputBlock_0 = OutputBlock(c_in, output_shape[0], dtype=head_compute,
+        self.OutputBlock_0 = OutputBlock(c_in, n_classes, out_seg_bias, dtype=head_compute,
                                          out_dtype=head_dtype)
+        n_up = len(skips_ch)
+        # Decoder outputs read by the deep-supervision heads, finest first.
+        self.ds_levels = list(range(n_up - 2, 1, -1)) if deep_supervision else []
+        for j, level in enumerate(self.ds_levels):
+            self.add_module(f"deep_supervision_{j}", OutputBlock(
+                up_filters[level], n_classes, out_seg_bias, dtype=dtype))
+        if self.ssn_rank:
+            self.ssn_sigma = OutputBlock(c_in, n_classes, dtype=dtype)
+            if self.ssn_rank > 1:
+                self.ssn_factor = OutputBlock(c_in, n_classes * self.ssn_rank, dtype=dtype)
 
     @property
     def filters(self):
@@ -307,12 +332,12 @@ class UNet(nn.Module):
 
     def forward(self, x: Optional[torch.Tensor], deterministic: bool = True,
                 generator: Optional[torch.Generator] = None, mode: str = "full",
-                prefix: Optional[dict] = None):
+                prefix: Optional[dict] = None, train: bool = False):
         """mode "full" runs the network; "encode_prefix" only the
         deterministic prefix (stem + encoder stages before the first dropout
         stage), returning {"skips": [...]}; "decode_from_prefix" the
         stochastic tail from `prefix` (possibly tiled along batch; `x` is
-        ignored)."""
+        ignored). `train` adds the deep-supervision heads."""
         if mode == "decode_from_prefix":
             if prefix is None:
                 raise ValueError("mode='decode_from_prefix' requires prefix=")
@@ -332,9 +357,20 @@ class UNet(nn.Module):
                 return {"skips": skips}
         out = getattr(self, f"ConvBlock_{self.n_down + 1}")(out, deterministic, generator)
         bottleneck = out
+        decoder_outputs = []
         for j, skip in enumerate(reversed(skips)):
             out = getattr(self, f"UpsampleBlock_{j}")(out, skip, deterministic, generator)
+            decoder_outputs.append(out)
         result = {"out": self.OutputBlock_0(out)}
+        if train and self.ds_levels:
+            result["deep_supervision"] = [
+                getattr(self, f"deep_supervision_{j}")(decoder_outputs[level])
+                for j, level in enumerate(self.ds_levels)]
+        if self.ssn_rank:
+            heads = [self.ssn_sigma(out)]
+            if self.ssn_rank > 1:
+                heads.append(self.ssn_factor(out))
+            result["ssn"] = heads
         if self.bottleneck_out:
             result["bottleneck"] = bottleneck.to(torch.promote_types(torch.float32, self.dtype))
         return result

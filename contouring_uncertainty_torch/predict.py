@@ -17,6 +17,11 @@ the prediction is the mode's mask.
 dispatch (a shorter last group at its own size): one sampler call, one
 rasterization and one umap for all V views.
 
+The segmentation baselines (tasks/segmentation.py) take `SegPredictor`:
+the task's (T_e, T_a) probability population per view -> hole filling and
+largest-blob post-processing of every sample (ops/morphology.py) ->
+prediction, sample population and entropy map with a zeroed 10-px border.
+
 Everything after the image upload runs on the predictor's device; random
 draws come from a CPU `torch.Generator` per view (rng.py), so a view's
 draws are the same on every device and whether or not it is batched with
@@ -26,6 +31,7 @@ others.
 from __future__ import annotations
 
 import hashlib
+import math
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from contouring_uncertainty_torch.data.config import BatchResult, Label, Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions.linalg import det2x2, eigh2x2
+from contouring_uncertainty_torch.ops.morphology import postprocess_batch
 from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
 from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.sampler import (
@@ -273,6 +280,61 @@ class AleatoricPredictor:
         }
 
 
+class SegPredictor:
+    """Prediction for the segmentation baselines: `__call__` serves one
+    view, `batched` V views in one dispatch (the forwards per view, as the
+    task's `predict_probs` runs them; everything after once).
+
+    Binary (one channel): the sample probabilities rounded (half to even,
+    as `jnp.round`), post-processed, and the probabilities masked by the
+    result; the prediction is the rounded mean, the entropy the binary
+    entropy (base 2) of the masked population. Multiclass: the argmax of
+    the mean probabilities, their entropy in base C, and the samples as
+    label maps cleaned by the post-processing of their foreground union
+    (the prediction too). Both zero a BORDER_PAD-px border of the entropy
+    and report its mean over the predicted area."""
+
+    BORDER_PAD = 10
+
+    def __init__(self, task, model, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.task = task
+        self.model = model.to(self.device).eval()
+
+    @torch.inference_mode()
+    def __call__(self, img, generator: Optional[torch.Generator] = None) -> Dict:
+        """img (N, C, H, W) -> dict of device tensors for one view."""
+        return _tree_map(lambda a: a[0], self.batched(np.asarray(img)[None], [generator]))
+
+    @torch.inference_mode()
+    def batched(self, imgs, generators: Generators) -> Dict:
+        """imgs (V, N, C, H, W) and V generators -> the dict of `__call__`
+        with a leading view axis."""
+        imgs = torch.as_tensor(np.asarray(imgs, np.float32)).to(self.device)
+        probs = self.task.predict_probs(self.model, imgs, generators)  # (V, N, T_e, T_a, C, H, W)
+        c = probs.shape[-3]
+        if c == 1:
+            samples = probs[..., 0, :, :]
+            samples = samples * postprocess_batch(torch.round(samples))
+            pred = torch.round(samples.mean(dim=(-4, -3))).to(torch.int32)
+            entropy = sample_entropy_map(samples)
+        else:
+            mean_probs = probs.mean(dim=(-5, -4))  # (V, N, C, H, W)
+            pred = torch.argmax(mean_probs, dim=-3).to(torch.int32)
+            entropy = -(mean_probs * torch.log(mean_probs + 1e-12)).sum(dim=-3) / math.log(c)
+            samples = torch.argmax(probs, dim=-3).to(torch.float32)
+            samples = samples * postprocess_batch((samples > 0).to(torch.float32))
+            pred = (pred * postprocess_batch((pred > 0).to(torch.float32))).to(torch.int32)
+        pad = self.BORDER_PAD
+        border = torch.zeros(entropy.shape[-2:], dtype=torch.bool, device=self.device)
+        border[pad:-pad, pad:-pad] = True
+        entropy = entropy * border
+        mask_area = torch.clamp((pred != 0).sum(dim=(-2, -1)), min=1)
+        return {"pred": pred, "pred_samples": samples, "uncertainty_map": entropy,
+                "entropy_map": entropy,
+                "instant_uncertainty": {"entropy_mean": entropy.sum(dim=(-2, -1)) / mask_area}}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -294,7 +356,7 @@ def views_per_step(cfg: Dict) -> int:
     return max(int(cfg.get("predict_batch_views", 1) or 1), 1)
 
 
-def _run_predictor(predictor: AleatoricPredictor, views, seed: int,
+def _run_predictor(predictor, views, seed: int,
                    per_step: int = 1) -> List[Dict]:
     """Run a predictor over a view list, `per_step` views of one image shape
     per dispatch; a short last group is dispatched at its own size. Each
@@ -324,6 +386,28 @@ def check_predict_options(cfg: Dict):
                                   "(ROADMAP.md Queue 1, item 11)")
 
 
+def run_predict_segmentation(task, model, data, cfg, split: str = "test",
+                             device: DeviceLike = None) -> List[BatchResult]:
+    """`SegPredictor` over every view of the split -> BatchResults."""
+    predictor = SegPredictor(task, model, device=device)
+    views = list(data.predict_views(split))
+    outs = _run_predictor(predictor, views, cfg.get("seed", 10), views_per_step(cfg))
+    return [BatchResult(
+        id=view[Tags.id],
+        labels=task.data_params.labels,
+        img=np.asarray(view[Tags.img]),
+        gt=np.asarray(view[Tags.gt]) if view.get(Tags.gt) is not None else None,
+        pred=out["pred"],
+        pred_samples=out["pred_samples"],
+        uncertainty_map=out["uncertainty_map"],
+        entropy_map=out["entropy_map"],
+        instant_uncertainty=out["instant_uncertainty"],
+        voxelspacing=view.get(Tags.voxelspacing),
+        instants=view.get(Tags.instants),
+        image_quality=view.get(Tags.image_quality),
+    ) for view, out in zip(views, outs)]
+
+
 def run_predict(task, model, data, cfg, split: str = "test",
                 device: DeviceLike = None,
                 metrics_out: Optional[Dict] = None) -> List[BatchResult]:
@@ -335,10 +419,17 @@ def run_predict(task, model, data, cfg, split: str = "test",
     {"psm_path", "sequence_sampler", "seq_psm_path", "soft_mask", and for a
     skew task "grid_window" and "skew_method"} and the processors' "data":
     {"results_processors": [...]}. The processors' summary,
-    `processor_errors` included, is merged into `metrics_out`."""
+    `processor_errors` included, is merged into `metrics_out`. A
+    segmentation baseline is served by `SegPredictor` and fits no prior."""
+    from contouring_uncertainty_torch.tasks.segmentation import SegmentationUncertaintyTask
+
     device = resolve_device(device)
     task_cfg = cfg.get("task", {})
     check_predict_options(cfg)
+    if isinstance(task, SegmentationUncertaintyTask):
+        results = run_predict_segmentation(task, model, data, cfg, split, device)
+        _maybe_run_processors(results, cfg, metrics_out, device)
+        return results
     prior = get_or_fit_prior(data, task_cfg.get("psm_path"))
     skew_task = hasattr(task, "forward_skew")
     # The lattice of the 'grid' method covers the image's extent.

@@ -156,12 +156,12 @@ CASES = {
     "data camus-cont": ("CAMUS", lambda: factory.build_data(
         compose(["data=camus-cont"]))),
     "data lung": ("JSRT", lambda: factory.build_data({"data": {"name": "lung"}})),
-    "task mcdropout": ("Segmentation baselines", lambda: factory.build_task(
-        compose(["task.name=mcdropout"]), None)),
-    "task epistemic": ("Epistemic", lambda: factory.build_task(
-        compose(["task.name=epistemic"]), None)),
-    "task tta": ("Segmentation baselines", lambda: factory.build_task(
-        compose(["task.name=tta"]), None)),
+    "model enet": ("Other backbones", lambda: factory.build_task(
+        compose(["task.model.name=enet"]), None)),
+    "model deeplabv3": ("Other backbones", lambda: factory.build_task(
+        compose(["task.model.name=deeplabv3"]), None)),
+    "UNet residual": ("Other backbones", lambda: factory.build_task(
+        compose(["task=mcdropout", "task.model.residual=true"]), None)),
     "contour_groups": ("JSRT", lambda: tpred.AleatoricPredictor(
         _SmallTask(), torch.nn.Identity(), None, contour_groups=((0, 10, 1), (10, 21, 2)),
         device="cpu")),

@@ -79,8 +79,8 @@ def _jax_trainer_config(cfg):
 
 @pytest.mark.parametrize("override,item", [
     ("data.name=camus-cont", "item 2"), ("data.name=lung", "item 10"),
-    ("task.name=mcdropout", "item 8"), ("task.name=epistemic", "item 7"),
-    ("task.name=tta", "item 8"), ("comet=true", "Queue 1"),
+    ("task.model.name=enet", "item 9"), ("task.model.residual=true", "item 9"),
+    ("data.name=lung-cont", "item 10"), ("comet=true", "Queue 1"),
     ("predict_sample_parallel=2", "item 11"), ("task.train_ensemble=3", "item 5"),
 ])
 def test_unported_configurations_raise_naming_the_roadmap(override, item, tmp_path):

@@ -111,5 +111,7 @@ def test_task_forward_matches_jax_and_backbone_flags(flax_small):
 
     with pytest.raises(NotImplementedError, match="residual"):
         build_backbone("unet2", (1, 64, 64), (21, 64, 64), residual=True)
-    with pytest.raises(ValueError, match="Unknown"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         build_backbone("enet", (1, 64, 64), (21, 64, 64))
+    with pytest.raises(ValueError, match="Unknown"):
+        build_backbone("vnet", (1, 64, 64), (21, 64, 64))
