@@ -50,8 +50,9 @@ result line):
 8. kernel timings beside their bounds and plain versions at the main
    path's shapes; K2's band splits at the row counts of T_e=1, 5 and 10;
    K1's launch at the serving shape and K1 at 21 and 42 columns;
-   the kernels JSON line (K1, K2, K3, with the training and skew paths'
-   launches), the card line and the final {"ok": true, ...} line;
+   the kernels JSON line (K1, K2, K3, with the launches of the training,
+   skew, sequence, batched, epistemic, segmentation and JSRT paths), the
+   card line and the final {"ok": true, ...} line;
 9. the training path, before the kernels line: `runner.run` at the
    flagship training configuration (8-stage UNet at full width, f32,
    `drop_block`, batch 32, 256^2, K=21, AdamW lr 1e-3 wd 1e-3, augmentation
@@ -135,7 +136,26 @@ result line):
    postprocess_batch bitwise, with an equal-size tie); each task trained at
    the width of [9] on one batch of 32 (a warm-up step, 4 timed steps with
    finite losses, launches counted, peak memory; 10 steps in which the
-   loss falls).
+   loss falls);
+13. the JSRT chest X-ray path, before the kernels line: 100 generated
+   256^2 films (`make_jsrt_arrays`, fed through
+   `JSRTContourData.from_arrays`; 60 train, 20 val, 20 test), K=120
+   landmarks in three structures, one frame per view; `run_predict` at the
+   serving width of [5] of DSNT-AL (K2 1, K3 2 per view: the samples' and
+   mu's label maps, each one launch for the three structures), `mcdropout`
+   on three classes (none) and `dsnt-skew5` (K2 1, K3 3), launch counters
+   reset just before and read just after; label maps in {0, 1, 2}, umaps
+   in [0, 1], finite outputs (the skew samples' non-finite coordinates
+   counted, a reading); views/s over 3 passes, idle share and top device
+   rows; the `lung-cont` and `lung` processor lists without error and
+   `lung_clinical` on the card equal to the CPU (20 rows, CTR_gt in
+   (0, 1)); DSNT-AL on the card against the CPU at 64^2 (label maps of
+   the same samples bitwise, `pred` within 8 pixels); DSNT-AL trained at
+   the width of [9] on one batch of 32 (a warm-up step, 4 timed steps,
+   launches per step and per validation batch, peak memory, 10 steps in
+   which the loss falls); K2 at (1200, 65536) bf16 and (3840, 65536) f32
+   against f64 and K3 on one view's 750 structure polygons, bitwise, each
+   timed beside its bound.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1279,16 +1299,19 @@ def trained_head_checks(ckpt: str) -> dict:
     return errs
 
 
-class OneView:
-    """A data source's first test view alone (its training contours kept)."""
+class FirstViews:
+    """A data source's first `n` test views alone (its training contours
+    kept)."""
 
-    def __init__(self, data):
-        self.data = data
+    def __init__(self, data, n: int = 1):
+        self.data, self.n = data, n
         self.data_params = data.data_params
         self.contour_groups = data.contour_groups
 
     def predict_views(self, split="test"):
-        yield next(iter(self.data.predict_views(split)))
+        views = iter(self.data.predict_views(split))
+        for _ in range(self.n):
+            yield next(views)
 
     def train_arrays(self, split="train"):
         return self.data.train_arrays(split)
@@ -1325,7 +1348,7 @@ def skew_serving(profile_dir=None) -> dict:
         raise AssertionError(f"skew serving launched {launches} in {n_views} views")
     check_skew_results(results, c["t_e"], c["t_a"], c["size"])
 
-    one = OneView(data)
+    one = FirstViews(data)
     grid_cfg = {"seed": c["seed"], "task": {"skew_method": "grid", "grid_window": 64}}
     grid = run_predict(task, model, one, grid_cfg, split="test")  # warm-up
     torch.cuda.synchronize()
@@ -1577,10 +1600,12 @@ def skew_training() -> dict:
                        "val_loss": freeze["history"][-1]["val/loss"]}}
 
 
-def serve(task, model, data, cfg, passes: int, profile_dir=None) -> dict:
+def serve(task, model, data, cfg, passes: int, profile_dir=None,
+          profile_views=None) -> dict:
     """run_predict over the test views: launch counters reset just before
     the first run and read just after (per dispatch, by launch_ledger),
-    then `passes` timed steady-state passes and a profiled one."""
+    then `passes` timed steady-state passes and a profiled one (over the
+    first `profile_views` views only, when given)."""
     import torch
 
     from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
@@ -1596,13 +1621,16 @@ def serve(task, model, data, cfg, passes: int, profile_dir=None) -> dict:
     launches = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
                 "K3": select_kernel.launches}
     pass_s = [timed_pass(task, model, data, cfg) for _ in range(passes)]
-    kernel_ms, copy_ms, table = profile_run(
-        lambda: run_predict(task, model, data, cfg, split="test"), profile_dir)
     n = len(results)
+    profiled = FirstViews(data, profile_views) if profile_views else data
+    t0 = time.perf_counter()
+    kernel_ms, copy_ms, table = profile_run(
+        lambda: run_predict(task, model, profiled, cfg, split="test"), profile_dir)
     return {"results": results, "views": n, "first_s": first_s, "launches": launches,
+            "profile_s": time.perf_counter() - t0,
             "per_dispatch": ledger["predict view"], "pass_s": pass_s,
-            "kernel_ms_per_view": kernel_ms / n, "copy_ms_per_view": copy_ms / n,
-            "profile": table}
+            "kernel_ms_per_view": kernel_ms / (profile_views or n),
+            "copy_ms_per_view": copy_ms / (profile_views or n), "profile": table}
 
 
 def timed_pass(task, model, data, cfg) -> float:
@@ -2224,6 +2252,403 @@ def seg_training() -> dict:
     return out
 
 
+# The JSRT chest X-ray path ([13]): generated 256^2 films (60 train, 20 val,
+# 20 test, `make_jsrt_arrays` fed through `JSRTContourData.from_arrays`),
+# K = 120 landmarks in three structures (right lung 44, left lung 50,
+# heart 26), one frame per view; serving at the widths of [5] (bf16 8-stage
+# UNet and head, T_e=10 with drop_block, T_a=25), training at the width of
+# [9] (f32, batch 32, AdamW, augmentation on).
+JSRT_CFG = dict(n_items=100, size=256, seed=0)
+JSRT_DIR = Path("outputs") / "chip_smoke_jsrt"  # git-ignored, removed at the end
+JSRT_PASSES = 3  # timed passes over the test views after the first
+JSRT_PROFILE_VIEWS = 2  # views of the profiled pass (the idle share's)
+# The processor lists of the data configs lung-cont and lung.
+JSRT_CONT_PROCESSORS = ["instant_metrics", "point_metrics", "calibration", "mutual_info",
+                        "skewness", "lung_clinical"]
+JSRT_SEG_PROCESSORS = ["instant_metrics", "calibration", "mutual_info", "lung_clinical"]
+# (K2, K1, K3) per served view: DSNT-AL fills the samples' and mu's label
+# maps (all three structures in one launch each); skew the samples', the
+# three structures' level contours (one launch) and the mode's.
+JSRT_PER_VIEW = {"dsnt-al": (1, 0, 2), "dsnt-skew5": (1, 0, 3), "mcdropout": (0, 0, 0)}
+JSRT_SKEW_INDICES = (0, 5, 10, 15, 20)  # config/json/task/dsnt-skew5.json
+# Card against CPU at 64^2 (4 stages, f32, the same weights and draws):
+# `pred` (the label map of mu) pixels that may differ per frame; the share
+# of the grouped umap's pixels beyond 1e-5, on the path and on the same
+# (CPU) mu and cov. The lung_clinical CSV: the mask metrics equal, the
+# contour areas and their spreads and errors within PROCESSOR_TOL's atol
+# plus its rtol times the structure's reference area (f32 shoelace sums
+# reduce in another order on the card).
+JSRT_BARS = {"pred_px": 8, "umap_path": 2e-2, "umap_same": 1e-3}
+JSRT_TRAIN_STEPS = 4  # timed steps after a warm-up step
+
+
+def jsrt_data(n_items: int = JSRT_CFG["n_items"], size: int = JSRT_CFG["size"],
+              seed: int = JSRT_CFG["seed"]):
+    from contouring_uncertainty_torch.data.lung import JSRTContourData, make_jsrt_arrays
+
+    return JSRTContourData.from_arrays(make_jsrt_arrays(n_items, size, seed))
+
+
+def check_jsrt_results(results, t_e: int, t_a: int, size: int, skew: bool) -> int:
+    """The JAX package's shapes for one frame of K = 120, label maps in
+    {0, 1, 2} (sample maps uint8), the umap in [0, 1], everything finite
+    but the skew samples, whose non-finite coordinates are returned."""
+    k, bad = 120, 0
+    shapes = {"mu": (1, k, 2), "cov": (1, k, 2, 2), "mode": (1, k, 2), "post_mu": (1, k, 2),
+              "contour_samples": (1, t_e, t_a, k, 2), "pred_samples": (1, t_e, t_a, size, size),
+              "pred": (1, size, size), "uncertainty_map": (1, size, size),
+              "entropy_map": (1, size, size)}
+    for res in results:
+        for key, shape in shapes.items():
+            value = getattr(res, key)
+            if value.shape != shape:
+                raise AssertionError(f"{key} shape {value.shape} != {shape}")
+            finite = np.isfinite(value.astype(np.float64))
+            if key == "contour_samples" and skew:
+                bad += int((~finite).sum())
+            elif not finite.all():
+                raise AssertionError(f"{key} has non-finite values")
+        if res.pred_samples.dtype != np.uint8 or res.pred.dtype != np.int32:
+            raise AssertionError(f"label map dtypes {res.pred_samples.dtype} {res.pred.dtype}")
+        for key in ("pred", "pred_samples"):
+            if not set(np.unique(getattr(res, key)).tolist()) <= {0, 1, 2}:
+                raise AssertionError(f"{key} holds {np.unique(getattr(res, key))}")
+        if not (res.pred_samples == 2).any() or not (res.pred_samples == 1).any():
+            raise AssertionError("no lung or heart painted in the sample label maps")
+        if res.uncertainty_map.min() < 0 or res.uncertainty_map.max() > 1:
+            raise AssertionError(f"umap outside [0, 1]: {res.uncertainty_map.min()} "
+                                 f"{res.uncertainty_map.max()}")
+        for group in (res.point_uncertainty, res.instant_uncertainty):
+            for key, value in group.items():
+                if not np.isfinite(value).all() and not skew:
+                    raise AssertionError(f"{key} has non-finite values")
+    return bad
+
+
+def lung_csv_check(results, out_dir: Path) -> dict:
+    """lung_clinical on the card and on the CPU on the same views: no
+    processor error, view_df.csv with a row per view and a finite CTR_gt in
+    (0, 1), the card's cells equal to the CPU's (JSRT_BARS' note)."""
+    import torch
+
+    from contouring_uncertainty_torch.results import run_processors
+
+    cfg = {"data": {"results_processors": ["lung_clinical"]}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = run_processors(results, out_dir / "gpu", cfg, device="cuda")
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(results)
+    cpu = run_processors(results, out_dir / "cpu", cfg, device="cpu")
+    for side, metrics in (("card", gpu), ("CPU", cpu)):
+        if "processor_errors" in metrics:
+            raise AssertionError(f"lung_clinical errors on the {side}: "
+                                 f"{metrics['processor_errors']}")
+    header, rows = read_csv_cells(out_dir / "gpu" / "lung_clinical" / "view_df.csv")
+    ref_header, ref_rows = read_csv_cells(out_dir / "cpu" / "lung_clinical" / "view_df.csv")
+    if header != ref_header or [r[0] for r in rows] != [r[0] for r in ref_rows]:
+        raise AssertionError("lung_clinical: the card's columns or rows differ from the CPU's")
+    if len(rows) != len(results):
+        raise AssertionError(f"lung_clinical wrote {len(rows)} rows for {len(results)} views")
+    ctr = [float(r[header.index("CTR_gt")]) for r in rows]
+    if not all(0.0 < v < 1.0 for v in ctr):
+        raise AssertionError(f"CTR_gt outside (0, 1): {ctr}")
+    bad, cells = {}, 0
+    for row, ref_row in zip(rows, ref_rows):
+        for col, got, ref in zip(header[1:], row[1:], ref_row[1:]):
+            cells += 1
+            if col.startswith("Area_") and got not in ("True", "False", ""):
+                area = float(ref_row[header.index("_".join(col.split("_")[:2]) + "_gt")])
+                if abs(float(got) - float(ref)) > (PROCESSOR_TOL["atol"]
+                                                   + PROCESSOR_TOL["rtol"] * area):
+                    bad[f"{row[0]}:{col}"] = (got, ref)
+            elif got != ref:
+                bad[f"{row[0]}:{col}"] = (got, ref)
+    if bad:
+        raise AssertionError(f"lung_clinical on the card differs from the CPU: "
+                             f"{dict(list(bad.items())[:10])}")
+    return {"rows": len(rows), "cells": cells, "host_ms_per_view": host_ms,
+            "ctr_gt": (min(ctr), max(ctr))}
+
+
+def jsrt_serving(data, profile_dir=None) -> dict:
+    """DSNT-AL, mcdropout and dsnt-skew5 on the JSRT test views at the
+    serving widths of [5]: launches counted from 0 per view, outputs
+    checked, views/s over JSRT_PASSES passes, idle share and top device
+    rows; each data config's processor list on the card without error,
+    and lung_clinical on the card equal to the CPU (DSNT-AL, mcdropout)."""
+    import torch
+
+    from contouring_uncertainty_torch.results import run_processors
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric, DSNTSkew
+
+    c = MAIN_CFG
+    dp = data.data_params
+    bf16 = dict(drop_block=True, dtype="bfloat16", head_dtype="bfloat16")
+    tasks = {
+        "dsnt-al": (DSNTAleatoric(data_params=dp, t_e=c["t_e"], t_a=c["t_a"],
+                                  model_kwargs=bf16), JSRT_CONT_PROCESSORS, {}),
+        "mcdropout": (seg_task("mcdropout", dp), JSRT_SEG_PROCESSORS, {}),
+        "dsnt-skew5": (DSNTSkew(data_params=dp, t_e=c["t_e"], t_a=c["t_a"], model_kwargs=bf16,
+                                skew_indices=JSRT_SKEW_INDICES), [],
+                       {"skew_method": "esn", "grid_window": 64}),
+    }
+    out = {}
+    for name, (task, processors, extra) in tasks.items():
+        t_start = time.perf_counter()
+        model = task.build_model(device="cuda", generator=torch.Generator().manual_seed(c["seed"]))
+        cfg = {"seed": c["seed"], "task": {"psm_path": str(JSRT_DIR / "psm.npz"), **extra}}
+        run = serve(task, model, data, cfg, JSRT_PASSES,
+                    profile_dir / f"jsrt_{name}" if profile_dir is not None else None,
+                    profile_views=JSRT_PROFILE_VIEWS)
+        row = {"serve_s": time.perf_counter() - t_start}
+        n = run["views"]
+        want = JSRT_PER_VIEW[name]
+        # launch_ledger counts AleatoricPredictor's dispatches; a baseline's
+        # SegPredictor has none, and launches none.
+        per_view = run["per_dispatch"] if any(want) else [want] * n
+        if (per_view != [want] * n
+                or run["launches"] != dict(zip(("K2", "K1", "K3"), (n * w for w in want)))):
+            raise AssertionError(f"jsrt {name}: launches {run['launches']}, per view "
+                                 f"{run['per_dispatch']}; expected {want} (K2, K1, K3) per view")
+        row.update({**rate(run, run["pass_s"]), "views": n, "launches": run["launches"],
+                    "first_s": run["first_s"], "profile": run["profile"],
+                    "profile_s": run["profile_s"],
+                    "kernel_ms_per_view": run["kernel_ms_per_view"],
+                    "copy_ms_per_view": run["copy_ms_per_view"]})
+        if name == "mcdropout":
+            for res in run["results"]:
+                samples, pred = res.pred_samples, res.pred
+                if (samples.shape != (1, SEG_CFG["mcdropout"]["t_e"], 1, c["size"], c["size"])
+                        or samples.dtype != np.float32 or pred.dtype != np.int32
+                        or not set(np.unique(samples).tolist()) <= {0.0, 1.0, 2.0}
+                        or not set(np.unique(pred).tolist()) <= {0, 1, 2}
+                        or not np.isfinite(res.entropy_map).all()):
+                    raise AssertionError(f"mcdropout on JSRT: samples {samples.shape} "
+                                         f"{samples.dtype} {np.unique(samples)}, pred "
+                                         f"{pred.dtype} {np.unique(pred)}")
+        else:
+            row["non_finite_samples"] = check_jsrt_results(
+                run["results"], c["t_e"], c["t_a"], c["size"], skew=name != "dsnt-al")
+            row["sample_coordinates"] = int(sum(r.contour_samples.size for r in run["results"]))
+        if processors:
+            t_proc = time.perf_counter()
+            metrics = run_processors(run["results"], JSRT_DIR / f"results_{name}",
+                                     {"data": {"results_processors": processors}},
+                                     device="cuda")
+            if "processor_errors" in metrics:
+                raise AssertionError(f"jsrt {name}: processor errors "
+                                     f"{metrics['processor_errors']}")
+            row["processors"] = {"keys": len(metrics),
+                                 "host_ms_per_view": (time.perf_counter() - t_proc) * 1e3 / n}
+            t_csv = time.perf_counter()
+            row["processors"].update(lung_csv_check(run["results"], JSRT_DIR / f"lung_{name}"))
+            row["processors"]["csv_check_s"] = time.perf_counter() - t_csv
+        row["seconds"] = time.perf_counter() - t_start
+        row["results"], row["model"], row["task"] = run["results"], model, task
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def jsrt_reference_check() -> dict:
+    """DSNT-AL on JSRT on the card against the CPU at 64^2 (a 4-stage f32
+    UNet, the same weights, prior and CPU-generator draws, 2 views in one
+    dispatch): mu and cov within the bars of [7]; the label maps of the
+    same (CPU) sample polygons bitwise; `pred` within JSRT_BARS["pred_px"]
+    pixels per frame; the grouped umap within JSRT_BARS on the path and on
+    the same (CPU) mu and cov."""
+    import torch
+
+    from contouring_uncertainty_torch.predict import (
+        AleatoricPredictor,
+        rasterize_labelmap,
+        structure_umap_sum,
+        view_generator,
+    )
+    from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+    from contouring_uncertainty_torch.utils.umap import uncertainty_map
+
+    data = jsrt_data(10, 64, 3)
+    views = list(data.predict_views("test"))
+    imgs = np.stack([v["img"] for v in views])
+    groups = data.contour_groups
+    task = DSNTAleatoric(data_params=data.data_params, t_e=2, t_a=8, model_kwargs=dict(
+        kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3, drop_block=True))
+    prior = fit_shape_prior(data.train_arrays("train")["contour"])
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = task.build_model(device=device, generator=torch.Generator().manual_seed(3))
+        predictor = AleatoricPredictor(task, model, PosteriorShapeModelSampler(prior, device=device),
+                                       contour_groups=groups, device=device)
+        gens = [view_generator(5, i) for i in range(len(views))]
+        outs[device] = {k: v.cpu() for k, v in predictor.batched(imgs, gens).items()
+                        if isinstance(v, torch.Tensor)}
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    mu_err = (gpu["mu"] - cpu["mu"]).abs().max().item()
+    cov_err = ((gpu["cov"] - cpu["cov"]).abs().max() / cpu["cov"].abs().max()).item()
+    same_maps = rasterize_labelmap(cpu["contour_samples"].cuda(), groups, 64, 64).cpu()
+    maps_equal = torch.equal(same_maps, rasterize_labelmap(cpu["contour_samples"], groups, 64, 64))
+    pred_px = (gpu["pred"] != cpu["pred"]).flatten(-2).sum(-1).max().item()
+    path_umap = ((gpu["uncertainty_map"] - cpu["uncertainty_map"]).abs() > 1e-5).float().mean()
+    frames = lambda a: a.flatten(0, 1)
+
+    def grouped_umap(mu, cov):
+        return structure_umap_sum([uncertainty_map(frames(mu[..., a:b, :]),
+                                                   frames(cov[..., a:b, :, :]), (64, 64))
+                                   for a, b, _ in groups])
+
+    same_umap = ((grouped_umap(cpu["mu"].cuda(), cpu["cov"].cuda()).cpu()
+                  - grouped_umap(cpu["mu"], cpu["cov"])).abs() > 1e-5).float().mean()
+    row = {"mu_px": mu_err, "cov_rel": cov_err, "label_maps_bitwise": maps_equal,
+           "pred_px": pred_px, "umap_path": path_umap.item(), "umap_same": same_umap.item(),
+           "labels": sorted(np.unique(cpu["pred_samples"].numpy()).tolist())}
+    print(f"    JSRT GPU vs CPU (64^2, 4-stage f32, T_e=2, T_a=8, 2 views): mu {mu_err:.2e} px, "
+          f"cov rel {cov_err:.2e}; label maps of the same samples bitwise: {maps_equal}; pred "
+          f"pixels differing per frame at most {pred_px} (bar {JSRT_BARS['pred_px']}); grouped "
+          f"umap pixels beyond 1e-5: path {row['umap_path']:.2e}, same mu and cov "
+          f"{row['umap_same']:.2e}")
+    if (mu_err > 1e-3 or cov_err > 1e-3 or not maps_equal or pred_px > JSRT_BARS["pred_px"]
+            or row["umap_path"] > JSRT_BARS["umap_path"]
+            or row["umap_same"] > JSRT_BARS["umap_same"] or row["labels"] != [0, 1, 2]):
+        raise AssertionError(f"the JSRT GPU path disagrees with the CPU path: {row}")
+    return row
+
+
+def jsrt_kernel_checks(serving: dict, train_logits, groups) -> dict:
+    """K2 on one served view's head logits (T_e x 1 frame x 120 = 1200
+    heatmaps of 256^2, bf16) and on one training batch's (32 x 120 = 3840,
+    f32) against f64 at the bars of [3]; K3 on one view's structure
+    polygons (3 x 250 samples, 1024 vertices) against its plain version
+    (bitwise, NaN positions matched); each timed beside its bound, K3 also
+    beside torch.topk over its candidates."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+    from contouring_uncertainty_torch.tasks.dsnt_al import forward_views
+
+    c = MAIN_CFG
+    size = c["size"]
+    al = serving["dsnt-al"]
+    view = al["results"][0]
+    with torch.inference_mode():
+        served = forward_views(al["model"], torch.as_tensor(view.img, device="cuda")[None],
+                               c["t_e"], [torch.Generator().manual_seed(1)])["out"]
+    out = {}
+    for label, logits in (("serving", served), ("training", train_logits)):
+        rows = logits.reshape(-1, size * size)
+        raw = dsnt_kernel.raw_moments_cuda(rows, size, size)
+        ref = dsnt_kernel.raw_moments_plain(rows.double(), size, size)
+        err = moment_errors(raw, ref, size, size)
+        max_abs = (raw.double() - ref).abs().max().item()
+        del ref
+        if not within_dsnt_bars(err):
+            raise AssertionError(f"K2 at {tuple(rows.shape)} outside {DSNT_BARS}: {err}")
+        r, hw = rows.shape
+        bound = {"bytes": (r * hw * rows.element_size() + r * 8 * 4) / HBM_BYTES_PER_S * 1e3,
+                 "operations": r * hw * 19 / F32_OPS_PER_S * 1e3}
+        out[f"k2_{label}"] = {
+            "shape": [r, hw], "dtype": str(rows.dtype), "err": err, "max_abs_err": max_abs,
+            "ms": cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(rows, size, size)),
+            "plain_ms": cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows, size, size),
+                                iters=3),
+            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get)}
+        torch.cuda.empty_cache()
+
+    samples = torch.as_tensor(view.contour_samples, device="cuda")
+    dense = torch.stack([contour_spline(samples[..., a:b, :], n=1024, close=False)
+                         for a, b, _ in groups]).reshape(-1, 1024, 2).contiguous()
+    check_selection(dense, size, size, f"one JSRT view's structure polygons ({dense.shape[0]})")
+    xs_k = select_kernel.min_k_crossings_kernel(dense, size)
+    xs_p = select_kernel.min_k_crossings_plain(dense, size)
+    k3_err = torch.where(xs_k == xs_p, 0.0, (xs_k - xs_p).abs()).nan_to_num(0.0).max().item()
+    neg_cand = -select_kernel.crossing_candidates(dense, size)
+    n_cross = int(torch.isfinite(neg_cand).sum().item())
+    k3_lib = cuda_ms(lambda: torch.topk(neg_cand, 16, dim=-1), iters=3)
+    del neg_cand
+    m, e, _ = dense.shape
+    bound = {"bytes": (m * e * 2 * 4 + m * size * 16 * 4) / HBM_BYTES_PER_S * 1e3,
+             "operations": (4 * m * e + 6 * n_cross) / F32_OPS_PER_S * 1e3}
+    out["k3"] = {"shape": [m, e, size], "crossings": n_cross, "max_abs_err": k3_err,
+                 "ms": cuda_ms(lambda: select_kernel.min_k_crossings_kernel(dense, size)),
+                 "plain_ms": cuda_ms(lambda: select_kernel.min_k_crossings_plain(dense, size),
+                                     iters=3),
+                 "library_ms": k3_lib, "bound_ms": max(bound.values()),
+                 "bound_by": max(bound, key=bound.get)}
+    return out
+
+
+def jsrt_training(data) -> dict:
+    """DSNT-AL on the JSRT training films at the width of [9] (f32, batch
+    32, AdamW, augmentation on): a warm-up step, JSRT_TRAIN_STEPS timed
+    steps (every loss finite; launches per step counted), peak memory, one
+    validation batch (launches counted, finite loss and Dice); then 10
+    steps on the batch without augmentation, in which the loss must fall.
+    Returns the trained head's f32 logits of the batch for K2's check."""
+    import torch
+
+    from contouring_uncertainty_torch.config import compose
+    from contouring_uncertainty_torch.factory import build_task, build_trainer
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.train.trainer import _iterate, _to_device
+
+    cfg = compose(["data=lung-cont", "task=dsnt-al", "task/model=unet2",
+                   "task.model.drop_block=true", "task.optim.name=adamw", "task.optim.lr=1e-3",
+                   "task.optim.weight_decay=1e-3", f"trainer.batch_size={TRAIN_CFG['batch']}",
+                   "trainer.augment=true", f"seed={TRAIN_CFG['seed']}",
+                   f"save_path={JSRT_DIR}"])
+    task = build_task(cfg, data.data_params)
+    trainer = build_trainer(cfg, task)
+    trainer.init_state()
+
+    def counts():
+        return {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
+                "K3": select_kernel.launches}
+
+    batch = _to_device(next(_iterate(data.train_arrays("train"), TRAIN_CFG["batch"],
+                                     np.random.default_rng(1))), trainer.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(trainer.train_step(batch, 0)["loss"])]
+    dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+    steps_ms = []
+    for step in range(1, 1 + JSRT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch, step)["loss"]))
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    per_step = {k: v / JSRT_TRAIN_STEPS for k, v in counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"JSRT training: non-finite loss {losses}")
+    if per_step != {"K2": 1, "K1": 0, "K3": 0}:
+        raise AssertionError(f"JSRT training: launches per step {per_step}")
+    val = _to_device(next(_iterate(data.train_arrays("val"), TRAIN_CFG["batch"],
+                                   np.random.default_rng(0), shuffle=False, drop_last=False)),
+                     trainer.device)
+    dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+    with torch.no_grad():
+        logs = {k: float(v) for k, v in task.val_metrics(trainer.model, val).items()}
+    per_val = counts()
+    if per_val != {"K2": 1, "K1": 0, "K3": 1} or not all(np.isfinite(list(logs.values()))):
+        raise AssertionError(f"JSRT validation batch: launches {per_val}, logs {logs}")
+    trainer.config.augment = False
+    fit = [float(trainer.train_step(batch, step)["loss"]) for step in range(5, 15)]
+    if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
+        raise AssertionError(f"JSRT: the loss on one fixed batch did not fall: {fit}")
+    with torch.no_grad():
+        logits = trainer.model(batch["img"], deterministic=True)["out"].float()
+    steps_ms.sort()
+    del trainer
+    torch.cuda.empty_cache()
+    return {"step_ms": steps_ms[len(steps_ms) // 2], "step_ms_range": (steps_ms[0], steps_ms[-1]),
+            "peak_gib": peak, "losses": losses, "fit": (fit[0], fit[-1]), "per_step": per_step,
+            "per_val_batch": per_val, "val": logs, "val_rows": int(val["img"].shape[0]),
+            "logits": logits}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2500,8 +2925,73 @@ def main(argv) -> int:
               f"{[round(v, 4) for v in row['losses']]}, launches {row['launches']}; one batch, "
               f"10 steps: {row['fit'][0]:.4f} -> {row['fit'][1]:.4f}; [9]'s DSNT-AL "
               f"{train['step_ms']:.1f} ms/step, on {card}")
+    phase_start[13] = time.perf_counter()
+    print("[13] JSRT chest X-ray path: DSNT-AL, mcdropout and dsnt-skew5 served (flagship "
+          "serving width, K=120 in three structures, one frame), DSNT-AL trained (flagship "
+          "training width)")
+    shutil.rmtree(JSRT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    jdata = jsrt_data()
+    films = {s: len(jdata.train_arrays(s)["id"]) for s in ("train", "val", "test")}
+    print(f"    {JSRT_CFG['n_items']} generated {JSRT_CFG['size']}^2 films {films} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    jsrt = jsrt_serving(jdata, profile_dir)
+    for name, row in jsrt.items():
+        lo, hi = row["ms_range"]
+        print(f"    {name}: {row['views']} views, first run {row['first_s']:.2f} s; launches "
+              f"{row['launches']} ({JSRT_PER_VIEW[name]} (K2, K1, K3) per view); steady state "
+              f"{row['views_per_s']:.2f} views/s, median {row['ms_per_view']:.1f} ms/view over "
+              f"{JSRT_PASSES} passes (range {lo:.1f}-{hi:.1f}); kernels "
+              f"{row['kernel_ms_per_view']:.2f} + copies {row['copy_ms_per_view']:.2f} ms/view, "
+              f"idle share {row['idle_share']:.1%} (profiled over {JSRT_PROFILE_VIEWS} views); "
+              f"[5]'s DSNT-AL {main_res['views_per_s']:.2f} views/s, on {card}; {row['seconds']:.1f} "
+              f"s (served and timed {row['serve_s']:.1f}, of which profiled "
+              f"{row['profile_s']:.1f})")
+        if "non_finite_samples" in row:
+            print(f"      non-finite sample coordinates: {row['non_finite_samples']} of "
+                  f"{row['sample_coordinates']}")
+        if "processors" in row:
+            proc = row["processors"]
+            print(f"      processors: no error, {proc['keys']} summary keys, "
+                  f"{proc['host_ms_per_view']:.1f} ms/view on the card; lung_clinical "
+                  f"view_df.csv {proc['rows']} rows, CTR_gt {proc['ctr_gt'][0]:.3f}-"
+                  f"{proc['ctr_gt'][1]:.3f}, {proc['cells']} cells, card equal to the CPU "
+                  f"(areas within {PROCESSOR_TOL} of the structure's area; "
+                  f"{proc['csv_check_s']:.1f} s)")
+        print(row["profile"])
+    jsrt_reference_check()
+    jtrain = jsrt_training(jdata)
+    lo, hi = jtrain["step_ms_range"]
+    print(f"    DSNT-AL training on JSRT (batch {TRAIN_CFG['batch']}, 256^2, K=120, f32): median "
+          f"{jtrain['step_ms']:.1f} ms/step over {JSRT_TRAIN_STEPS} steps (range {lo:.1f}-"
+          f"{hi:.1f}), peak {jtrain['peak_gib']:.2f} GiB, losses "
+          f"{[round(v, 4) for v in jtrain['losses']]}, launches per step {jtrain['per_step']}; "
+          f"validation batch of {jtrain['val_rows']}: launches {jtrain['per_val_batch']}, "
+          f"loss {jtrain['val']['loss']:.4f}, dice {jtrain['val']['dice']:.4f}; one batch, 10 "
+          f"steps: {jtrain['fit'][0]:.4f} -> {jtrain['fit'][1]:.4f}; [9]'s DSNT-AL "
+          f"{train['step_ms']:.1f} ms/step, on {card}")
+    jk = jsrt_kernel_checks(jsrt, jtrain.pop("logits"), jdata.contour_groups)
+    for key in ("k2_serving", "k2_training"):
+        r = jk[key]
+        print(f"    K2 at {r['shape']} {r['dtype']}: mu err {r['err']['mu_px']:.3e} px, sigma rel "
+              f"err {r['err']['sigma_rel']:.3e}; {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+    r = jk["k3"]
+    print(f"    K3 at {r['shape']}: bitwise; {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+          f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.topk {r['library_ms']:.4f} ms")
+    shutil.rmtree(JSRT_DIR, ignore_errors=True)
+
     for kern in kernels:
         short = kern["name"].split(" ")[0]
+        kern["jsrt"] = {name: {"launches": row["launches"][short],
+                               "launches_per_view": row["launches"][short] / row["views"]}
+                        for name, row in jsrt.items()}
+        kern["jsrt"]["training_launches_per_step"] = jtrain["per_step"][short]
+        kern["jsrt"]["launches_per_val_batch"] = jtrain["per_val_batch"][short]
+        if short == "K2":
+            kern["jsrt"]["kernel"] = {"serving": jk["k2_serving"], "training": jk["k2_training"]}
+        if short == "K3":
+            kern["jsrt"]["kernel"] = jk["k3"]
         kern["epistemic"] = {"launches": seg["epistemic"]["launches"][short],
                              "launches_per_view":
                                  seg["epistemic"]["launches"][short] / seg["epistemic"]["views"],

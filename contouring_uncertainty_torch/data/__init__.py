@@ -1,5 +1,5 @@
-"""Data layer: tags/contracts, the in-memory synthetic CAMUS-like source and
-the training augmentation."""
+"""Data layer: tags/contracts, the in-memory synthetic CAMUS-like source, the
+JSRT chest X-ray source and the training augmentation."""
 
 from contouring_uncertainty_torch.data.config import (
     BatchResult,

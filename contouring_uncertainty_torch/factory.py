@@ -2,11 +2,14 @@
 
 Counterpart of contouring_uncertainty_tpu/factory.py for what the port
 implements. `synthetic` builds the in-memory `SyntheticContourData`
-(where the JAX package writes and reads a CAMUS-layout HDF5 file); the
-tasks are every task of the JAX factory: `dsnt-al`, `dsnt-skew`
-(`dsnt-skew5`, `dsnt-skew9`), `epistemic`, and the segmentation baselines
-`mcdropout`, `aleatoric`, `tta` and `ssn`. A data source or a backbone the
-port does not have raises, naming its ROADMAP.md item.
+(where the JAX package writes and reads a CAMUS-layout HDF5 file); `lung`
+and `lung-cont` build `JSRTContourData` on `data.dataset_path`, labelled
+with `LungLabel` (default [BG, LUNG, HEART]), with no generated stand-in
+for a missing file. The tasks are every task of the JAX factory:
+`dsnt-al`, `dsnt-skew` (`dsnt-skew5`, `dsnt-skew9`), `epistemic`, and the
+segmentation baselines `mcdropout`, `aleatoric`, `tta` and `ssn`. A data
+source or a backbone the port does not have raises, naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
 # Config names the JAX factory builds and the port does not yet, with
 # where ROADMAP.md Queue 1 lists them.
-_DATA_NOT_PORTED = {"camus-cont": 2, "camus": 2, "lung": 10, "lung-cont": 10}
+_DATA_NOT_PORTED = {"camus-cont": 2, "camus": 2}
 _SKEW_TASKS = ("dsnt-skew", "dsnt-skew5", "dsnt-skew9")
 
 
@@ -32,6 +35,14 @@ def build_data(cfg: Dict):
     if name in _DATA_NOT_PORTED:
         raise NotImplementedError(f"data '{name}' is not ported yet "
                                   f"(ROADMAP.md Queue 1, item {_DATA_NOT_PORTED[name]})")
+    if name in ("lung", "lung-cont"):
+        from contouring_uncertainty_torch.data.config import LungLabel
+        from contouring_uncertainty_torch.data.lung import JSRTContourData
+
+        labels = tuple(LungLabel[l] if isinstance(l, str) else LungLabel(l)
+                       for l in data_cfg.get("labels") or ["BG", "LUNG", "HEART"])
+        return JSRTContourData(data_cfg["dataset_path"], labels=labels,
+                               transform=build_transform(data_cfg.get("transform")))
     if name != "synthetic":
         raise ValueError(f"Unknown data config '{name}'")
     labels = data_cfg.get("labels") or ["BG", "LV"]

@@ -1,17 +1,18 @@
 """Prediction / uncertainty-propagation pipeline (TMI serving path).
 
-Counterpart of contouring_uncertainty_tpu/predict.py, single contour group,
-Gaussian and skew. Per view: T_e epistemic forwards (MC dropout, encoder
-prefix shared) -> per-point (mu, Sigma[, alpha]) through the DSNT moment
-kernel -> PSM contour sampling (T_a per forward; the skew PSM sampler for
-a skew task; with `task.sequence_sampler` the sequence samplers, which
-draw each forward's (ED, ES) pair jointly) -> aleatoric/epistemic fusion ->
-posterior stats of the sample population -> a mask for every sample
-(spline + scanline fill through the crossing-selection kernel; with
-`task.soft_mask` blurred into soft masks) -> uncertainty map, entropy map
-and point/instant scalars -> BatchResult. On the skew path alpha is
-averaged over T_e, `skew_umap` gives the projected mode and the map, and
-the prediction is the mode's mask.
+Counterpart of contouring_uncertainty_tpu/predict.py, Gaussian and skew,
+one contour structure or several (JSRT's lungs and heart). Per view: T_e
+epistemic forwards (MC dropout, encoder prefix shared) -> per-point (mu,
+Sigma[, alpha]) through the DSNT moment kernel -> PSM contour sampling
+(T_a per forward; the skew PSM sampler for a skew task; with
+`task.sequence_sampler` the sequence samplers, which draw each forward's
+(ED, ES) pair jointly) -> aleatoric/epistemic fusion -> posterior stats
+of the sample population -> a label map for every sample (spline +
+scanline fill of every structure through one crossing-selection launch;
+with `task.soft_mask` blurred into soft masks) -> uncertainty map,
+entropy map and point/instant scalars -> BatchResult. On the skew path
+alpha is averaged over T_e, the skew umap gives the projected mode and the
+map, and the prediction is the mode's label map.
 
 `predict_batch_views` = V > 1 serves V views of one image shape per
 dispatch (a shorter last group at its own size): one sampler call, one
@@ -43,7 +44,8 @@ from contouring_uncertainty_torch.data.config import BatchResult, Label, Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions.linalg import det2x2, eigh2x2
 from contouring_uncertainty_torch.ops.morphology import postprocess_batch
-from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+from contouring_uncertainty_torch.ops.rasterize import polygon_fill
+from contouring_uncertainty_torch.ops.spline import contour_spline
 from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.sampler import (
     PosteriorShapeModelSampler,
@@ -54,7 +56,7 @@ from contouring_uncertainty_torch.sampler import (
 )
 from contouring_uncertainty_torch.sampler.prior import ShapePrior, load_prior, save_prior
 from contouring_uncertainty_torch.utils.projection import projected_uncertainty_value
-from contouring_uncertainty_torch.utils.umap import skew_umap, uncertainty_map
+from contouring_uncertainty_torch.utils.umap import skew_umap_groups, uncertainty_map
 
 
 def get_or_fit_prior(data, path: Optional[str]) -> ShapePrior:
@@ -179,8 +181,13 @@ def gaussian_blur(masks: torch.Tensor, sigma: float = 5.0, truncate: float = 1.0
     return ((out - lo) / torch.clamp(hi - lo, min=1e-8)).reshape(masks.shape)
 
 
-def point_instant_uncertainty(mu, cov, post_cov, umap, entropy, pred):
-    """Scalar uncertainty derivations (single contour group)."""
+def point_instant_uncertainty(mu, cov, post_cov, umap, entropy, pred, groups=None):
+    """Scalar uncertainty derivations; `cov_projection` is the sum of the
+    projections of the (start, end, label) landmark slices `groups` (by
+    default one structure)."""
+    if groups is None:
+        groups = ((0, mu.shape[-2], 1),)
+
     def cov_scalars(c, prefix):
         vals, _ = eigh2x2(c)
         sq = torch.sqrt(torch.clamp(vals, min=0.0))
@@ -201,7 +208,8 @@ def point_instant_uncertainty(mu, cov, post_cov, umap, entropy, pred):
     instant_u = {
         "cov_det_mean": point_u["cov_det"].mean(-1),
         "cov_eigenvalue_mean": sq.mean(dim=(-1, -2)),
-        "cov_projection": projected_uncertainty_value(mu, cov),
+        "cov_projection": sum(projected_uncertainty_value(mu[..., a:b, :], cov[..., a:b, :, :])
+                              for a, b, _ in groups),
         "umap_mean": umap.sum(dim=(-2, -1)) / mask_area,
     }
     if entropy is not None:
@@ -209,12 +217,50 @@ def point_instant_uncertainty(mu, cov, post_cov, umap, entropy, pred):
     return point_u, instant_u
 
 
+def rasterize_labelmap(points: torch.Tensor, groups, height: int, width: int,
+                       n_dense: int = 1024) -> torch.Tensor:
+    """(..., K, 2) landmarks of the (start, end, label) structures `groups`
+    -> (..., H, W) f32 label map. Each structure is splined to a closed
+    polygon of `n_dense` vertices (as `rasterize_batch`) and all of them
+    are filled in one `polygon_fill` call, so one crossing-selection
+    launch; the masks are painted in descending label order, the first as
+    mask * label and each next where it is set, so the lowest label wins
+    overlaps (JSRT: the lungs over the heart)."""
+    dense = torch.stack([contour_spline(points[..., a:b, :], n=n_dense, close=False)
+                         for a, b, _ in groups])
+    masks = polygon_fill(dense, height, width)  # (G, ..., H, W)
+    out = None
+    for i in sorted(range(len(groups)), key=lambda i: -groups[i][2]):
+        label = float(groups[i][2])
+        out = masks[i] * label if out is None else torch.where(masks[i] > 0, label, out)
+    return out
+
+
+def structure_umap_sum(umaps: List[torch.Tensor]) -> torch.Tensor:
+    """The uncertainty map of a view from its structures' (..., H, W) maps:
+    one structure's as it is; several, each divided by its own maximum
+    (floored at 1e-12), summed and clipped to [0, 1]."""
+    if len(umaps) == 1:
+        return umaps[0]
+    total = sum(u / torch.clamp(u.amax(dim=(-2, -1), keepdim=True), min=1e-12) for u in umaps)
+    return torch.clamp(total, 0.0, 1.0)
+
+
 class AleatoricPredictor:
-    """Uncertainty propagation for the DSNT contour tasks (one contour
-    group): DSNT-AL with the Gaussian PSM sampler, DSNT-skew (a task whose
-    `predict` also returns alpha) with the skew one, or either with a
-    sequence sampler; hard or (`soft_mask`) soft sample masks. `__call__`
-    serves one view, `batched` V views in one dispatch."""
+    """Uncertainty propagation for the DSNT contour tasks: DSNT-AL with the
+    Gaussian PSM sampler, DSNT-skew (a task whose `predict` also returns
+    alpha) with the skew one, or either with a sequence sampler; hard or
+    (`soft_mask`, one structure only) soft sample masks. `__call__` serves
+    one view, `batched` V views in one dispatch.
+
+    `contour_groups` splits the landmark vector into structures as
+    (start, end, label) slices (JSRT: right lung, left lung, heart). The
+    sample masks, the prediction and the skew mode are label maps
+    (`rasterize_labelmap`: the lowest label wins overlaps). With more than
+    one structure, each structure's uncertainty map is divided by its own
+    maximum and the clipped sum is the view's map, the Gaussian prediction
+    is the label map of the fused mean instead of the samples' majority
+    vote, and `cov_projection` sums the structures' projections."""
 
     def __init__(self, task, model, sampler, t_a: Optional[int] = None,
                  soft_mask: bool = False, contour_groups=None,
@@ -226,11 +272,10 @@ class AleatoricPredictor:
         self.t_a = t_a or task.t_a
         self.soft_mask = soft_mask
         k = task.data_params.out_shape[0]
-        groups = tuple(contour_groups) if contour_groups else ((0, k, 1),)
-        if len(groups) != 1 or groups[0][:2] != (0, k):
-            raise NotImplementedError("multi-structure contour groups are not ported yet "
-                                      "(ROADMAP.md Queue 1, item 10)")
-        self.label = int(groups[0][2])
+        self.groups = tuple(tuple(g) for g in contour_groups) if contour_groups else ((0, k, 1),)
+        if soft_mask and len(self.groups) > 1:
+            raise ValueError("soft_mask requires a single structure; the data has "
+                             f"{len(self.groups)} contour groups")
 
     @torch.inference_mode()
     def __call__(self, img, generator: Optional[torch.Generator] = None) -> Dict:
@@ -251,26 +296,34 @@ class AleatoricPredictor:
         mu, cov = fuse_epistemic_aleatoric(mu_te, cov_te)  # (V, N, K, 2)
         post_mu, post_cov = population_posterior(samples)
 
-        occupancy = rasterize_batch(samples, h, w)  # (V, N, T_e, T_a, H, W) {0,1}
+        labels = rasterize_labelmap(samples, self.groups, h, w)  # (V, N, T_e, T_a, H, W)
+        occupancy = (labels > 0).to(torch.float32)
         if self.soft_mask:
             occupancy = gaussian_blur(occupancy)
         frames = lambda a: a.flatten(0, 1)  # (V, N, ...) -> (V*N, ...)
+        lead = mu.shape[:2]
         if alpha_te is None:
             alpha, mode = None, mu
-            umap = uncertainty_map(frames(mu), frames(cov), (h, w)).unflatten(0, mu.shape[:2])
-            pred = torch.where(occupancy.mean(dim=(-4, -3)) > 0.5, self.label, 0)
+            umap = structure_umap_sum([
+                uncertainty_map(frames(mu[..., a:b, :]), frames(cov[..., a:b, :, :]), (h, w))
+                for a, b, _ in self.groups]).unflatten(0, lead)
+            if len(self.groups) == 1:
+                pred = torch.where(occupancy.mean(dim=(-4, -3)) > 0.5, self.groups[0][2], 0)
+            else:
+                pred = rasterize_labelmap(mu, self.groups, h, w)
         else:
             alpha = alpha_te.mean(dim=-3)
-            mode, umap = (a.unflatten(0, mu.shape[:2]) for a in
-                          skew_umap(frames(mu), frames(cov), frames(alpha), (h, w)))
-            pred = rasterize_batch(mode, h, w) * self.label
+            parts = skew_umap_groups(frames(mu), frames(cov), frames(alpha), self.groups, (h, w))
+            mode = torch.cat([m for m, _ in parts], dim=-2).unflatten(0, lead)
+            umap = structure_umap_sum([u for _, u in parts]).unflatten(0, lead)
+            pred = rasterize_labelmap(mode, self.groups, h, w)
         pred = pred.to(torch.int32)
         entropy = sample_entropy_map(occupancy)
         point_u, instant_u = point_instant_uncertainty(mu, cov, post_cov, umap,
-                                                       entropy, pred)
+                                                       entropy, pred, self.groups)
         # Hard-mask populations hold small integer labels: ship them as
         # uint8. Soft masks stay f32 in [0, 1].
-        pred_samples = occupancy if self.soft_mask else (occupancy * self.label).to(torch.uint8)
+        pred_samples = occupancy if self.soft_mask else labels.to(torch.uint8)
         return {
             "mu": mu, "cov": cov, "mode": mode, "alpha": alpha,
             "post_mu": post_mu, "post_cov": post_cov,

@@ -5,8 +5,9 @@ processor is a callable `(results: List[BatchResult], out_dir) -> dict`
 (with `device` too where it computes on the device) registered under the
 name the data configs list in `results_processors`; `run_processors` runs
 the configured ones and writes the same artifacts as the JAX package
-(instant_metrics.csv, clinical/{instant,view,patient,volume}_df.csv, the
-.npy dicts, metrics.json), without pandas and without figures.
+(instant_metrics.csv, clinical/{instant,view,patient,volume}_df.csv,
+lung_clinical/view_df.csv, the .npy dicts, metrics.json), without pandas
+and without figures.
 
 A processor that raises, a name nobody registered, and a name the JAX
 package registers but the port does not have yet are each recorded in the
@@ -29,7 +30,7 @@ PROCESSORS: Dict = {}  # name -> (fn, whether fn takes the device)
 
 # Processors of the JAX package the port does not have yet, with the
 # ROADMAP.md Queue 1 item each waits for.
-NOT_PORTED = {"lung_clinical": 10, "plotting": 13, "prediction_writer": 13}
+NOT_PORTED = {"plotting": 13, "prediction_writer": 13}
 # Ported processors whose JAX counterpart also draws a figure the port does
 # not draw yet, with that item.
 FIGURES_NOT_PORTED = {"skewness": 13}
@@ -52,6 +53,7 @@ def run_processors(results, out_dir: Path, cfg: Dict, device: DeviceLike = None)
         clinical,
         extras,
         instant_metrics,
+        lung_clinical,
         mutual_information,
         point_metrics,
     )

@@ -15,8 +15,10 @@ is given. A processor that fails is recorded in `result["processor_errors"]`;
 an eval-only run (`train=false`) with a failed processor or test pass exits
 non-zero from `main`.
 
-`task.sequence_sampler`, `task.seq_psm_path`, `task.soft_mask` and
-`predict_batch_views` reach `run_predict`. Not ported (ROADMAP.md Queue 1):
+`data=lung-cont` and `data=lung` read JSRT films from `data.dataset_path`
+(pass a `task.psm_path` of their own). `task.sequence_sampler`,
+`task.seq_psm_path`, `task.soft_mask` and `predict_batch_views` reach
+`run_predict`. Not ported (ROADMAP.md Queue 1):
 `train_ensemble` and ensemble directories, several devices
 (`predict_mesh`, `predict_sample_parallel`).
 """

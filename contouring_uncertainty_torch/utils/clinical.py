@@ -1,13 +1,14 @@
 """Clinical metric formulas on the device: area, perimeter, FAC, GLS, Simpson volumes.
 
-Counterpart of contouring_uncertainty_tpu/utils/clinical.py, all of it but
-the JSRT lung functions (ROADMAP.md Queue 1, item 10):
+Counterpart of contouring_uncertainty_tpu/utils/clinical.py:
 
 - area, perimeter, FAC and GLS from masks (pixel counts) or contours
   (dense-spline arc length and shoelace area, through ops/spline.py);
 - mask-space GLS from a marching-squares perimeter minus the base chord;
 - Simpson biplane volumes from the mask's principal axis: 20 disk
-  diameters measured by nearest-pixel sampling along chords normal to it.
+  diameters measured by nearest-pixel sampling along chords normal to it;
+- the JSRT lung and heart areas and the cardiothoracic ratio from label
+  maps.
 
 Every function takes (..., H, W) masks or (..., K, 2) contours and is
 batched over the leading axes (the JAX package vmaps a single-item
@@ -337,3 +338,40 @@ def compute_left_ventricle_volumes(a2c_ed, a2c_es, a2c_voxelspacing,
 
 def ejection_fraction(edv, esv):
     return (edv - esv) / edv
+
+
+# ------------------------------------------------------------ lung (JSRT)
+
+
+def mask_width(mask: torch.Tensor) -> torch.Tensor:
+    """Widest horizontal extent (px) of binary (..., H, W) masks: the
+    largest over rows of (rightmost - leftmost + 1), 0 for an empty mask."""
+    m = mask != 0
+    width = m.shape[-1]
+    xs = torch.arange(width, dtype=torch.float32, device=mask.device)
+    mx = torch.where(m, xs, -1.0).amax(dim=-1)
+    mn = torch.where(m, xs, float(width)).amin(dim=-1)
+    spans = torch.where(m.any(dim=-1), mx - mn + 1.0, 0.0)
+    return spans.amax(dim=-1)
+
+
+def cardiothoracic_ratio(seg: torch.Tensor, lung_label: int = 1,
+                         heart_label: int = 2) -> torch.Tensor:
+    """Cardiothoracic ratio of JSRT (..., H, W) label maps: the heart's
+    widest extent over the widest extent of lungs and heart together; NaN
+    where the thorax is empty."""
+    heart_w = mask_width(seg == heart_label)
+    thorax_w = mask_width((seg == lung_label) | (seg == heart_label))
+    return torch.where(thorax_w > 0, heart_w / torch.clamp(thorax_w, min=1.0),
+                       torch.full_like(thorax_w, math.nan))
+
+
+def lung_mask_metrics(seg: torch.Tensor, lung_label: int = 1,
+                      heart_label: int = 2) -> torch.Tensor:
+    """(..., H, W) label maps -> (..., 3) [lung area, heart area, CTR]
+    (areas in px^2, exact), so a view's whole (T_e, T_a) sample population
+    reduces in one call."""
+    lung_area = (seg == lung_label).sum(dim=(-2, -1)).to(torch.float32)
+    heart_area = (seg == heart_label).sum(dim=(-2, -1)).to(torch.float32)
+    return torch.stack([lung_area, heart_area,
+                        cardiothoracic_ratio(seg, lung_label, heart_label)], dim=-1)

@@ -8,9 +8,10 @@ Counterpart of contouring_uncertainty_tpu/utils/umap.py:
   pixel;
 - `skew_umap`: the projected mode contour, and 2L = 200 level-set contours
   of each point's projected skew-normal profile, rasterized as filled masks
-  (all frames' contours in one `rasterize_batch` call, so one launch of the
-  crossing selection), weighted-averaged and reduced to a per-pixel
-  two-class entropy.
+  (all frames' contours in one fill, so one launch of the crossing
+  selection), weighted-averaged and reduced to a per-pixel two-class
+  entropy; `skew_umap_groups` does it for each structure of a
+  multi-structure landmark vector, all structures in one launch.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+from contouring_uncertainty_torch.ops.rasterize import polygon_fill
 from contouring_uncertainty_torch.ops.spline import contour_spline, linspace
 from contouring_uncertainty_torch.utils.projection import projected_uncertainty
 
@@ -116,10 +117,26 @@ def skew_umap(mu: torch.Tensor, cov: torch.Tensor, alpha: torch.Tensor, shape=(2
     """Skew uncertainty map and projected mode: mu (B, K, 2), cov
     (B, K, 2, 2), alpha (B, K, 2) -> (projected mode (B, K, 2), map (B, H, W)):
     the two-class entropy of the weighted mean of the level contours' masks
-    (`skew_level_contours`), all B * 2L masks in one `rasterize_batch` call."""
-    projected_mode, contours, weights = skew_level_contours(mu, cov, alpha, levels, resolution)
-    masks = rasterize_batch(contours, shape[0], shape[1])  # (B, 2L, H, W)
-    mean_mask = (masks * weights[:, None, None]).sum(-3) / weights.sum()
-    entropy = -(mean_mask * torch.log(mean_mask + 1e-12)
-                + (1.0 - mean_mask) * torch.log(1.0 - mean_mask + 1e-12))
-    return projected_mode, entropy
+    (`skew_level_contours`), all B * 2L masks in one fill."""
+    return skew_umap_groups(mu, cov, alpha, ((0, mu.shape[-2], 1),), shape, levels,
+                            resolution)[0]
+
+
+def skew_umap_groups(mu: torch.Tensor, cov: torch.Tensor, alpha: torch.Tensor, groups,
+                     shape=(256, 256), levels: int = 100, resolution: int = 1000):
+    """`skew_umap` of each (start, end, label) landmark slice of `groups`:
+    a list of (projected mode (B, k, 2), map (B, H, W)), one per structure.
+    The level contours of all structures are splined to 1024 vertices (as
+    `rasterize_batch`) and filled in one `polygon_fill` call, so one
+    crossing-selection launch for all of them."""
+    parts = [skew_level_contours(mu[..., a:b, :], cov[..., a:b, :, :], alpha[..., a:b, :],
+                                 levels, resolution) for a, b, _ in groups]
+    dense = torch.stack([contour_spline(c, n=1024, close=False) for _, c, _ in parts])
+    masks = polygon_fill(dense, shape[0], shape[1])  # (G, B, 2L, H, W)
+    out = []
+    for (projected_mode, _, weights), m in zip(parts, masks):
+        mean_mask = (m * weights[:, None, None]).sum(-3) / weights.sum()
+        entropy = -(mean_mask * torch.log(mean_mask + 1e-12)
+                    + (1.0 - mean_mask) * torch.log(1.0 - mean_mask + 1e-12))
+        out.append((projected_mode, entropy))
+    return out

@@ -29,7 +29,7 @@ from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.convert import flax_to_torch_state
 from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
 from contouring_uncertainty_torch.tasks import DSNTAleatoric, DSNTSkew
-from contouring_uncertainty_torch.utils.umap import skew_umap
+from contouring_uncertainty_torch.utils.umap import skew_umap_groups
 from test_torch_port_skew_predict import _ViewBias
 
 torch.set_num_threads(1)
@@ -167,7 +167,7 @@ def test_batched_views_match_one_view_per_dispatch(path, monkeypatch):
     view differing, entropy within 1e-3 on average; the rest of the outputs
     within 1e-5 of their scale. The skew umap runs at 10 levels (100 when
     served), which keeps its plain crossing selection on the CPU small."""
-    monkeypatch.setattr(tpred, "skew_umap", functools.partial(skew_umap, levels=10))
+    monkeypatch.setattr(tpred, "skew_umap_groups", functools.partial(skew_umap_groups, levels=10))
     cls, task_cfg = PATHS[path]
     data = SyntheticContourData(n_patients=7, size=SIZE, seed=2)
     task = cls(data_params=data.data_params, t_e=2, t_a=8, model_kwargs=SMALL)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports no JAX, nothing of the JAX
-package and none of h5py, matplotlib, pandas, PyYAML and orbax; its entry points
+package and none of h5py (but inside the JSRT reader's load and writer
+functions), matplotlib, pandas, PyYAML and orbax; its entry points
 default to the GPU and raise without one instead of carrying on on the CPU;
 and chip_smoke.py refuses to run without a card or outside a checkout.
 """
@@ -36,20 +37,35 @@ def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+# The one exception: the JSRT reader's load and writer functions import
+# h5py inside themselves, as the JAX package's do (the machine with the
+# card has no h5py and feeds the reader from arrays).
+H5PY_FUNCTIONS = {PACKAGE / "data" / "lung.py": {"_load", "write_jsrt_hdf5"}}
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
 def test_no_forbidden_import_statement(path):
     """AST scan of every module of the package and of chip_smoke.py, at any
-    depth (function-local imports included)."""
+    depth (function-local imports included): no forbidden import, but for
+    h5py inside the functions of H5PY_FUNCTIONS."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    allowed = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef) and fn.name in H5PY_FUNCTIONS.get(path, ()):
+            allowed |= {id(node) for node in ast.walk(fn)}
     found = []
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names = [node.module or ""]
         else:
             continue
-        found += [n for n in names if n.split(".")[0] in FORBIDDEN]
+        found += [n for n in names if n.split(".")[0] in FORBIDDEN
+                  and not (n == "h5py" and id(node) in allowed)]
     assert not found, f"{path.relative_to(REPO)} imports {found}"
+    if path in H5PY_FUNCTIONS:
+        assert len(allowed) > 0
 
 
 def test_importing_the_port_loads_no_jax():

@@ -253,9 +253,9 @@ def test_runner_runs_the_processors_on_the_cpu(tmp_path, capsys):
     assert len(patient) == 1 and np.isfinite(patient["EF_mean"]).all()
 
     failing = overrides + ["train=false", "test=false",
-                           "data.results_processors=[instant_metrics, lung_clinical, nonsense]"]
+                           "data.results_processors=[instant_metrics, plotting, nonsense]"]
     evaluated = runner.run(failing, device="cpu")
-    assert set(evaluated["processor_errors"]) == {"lung_clinical", "nonsense"}
+    assert set(evaluated["processor_errors"]) == {"plotting", "nonsense"}
     with pytest.raises(SystemExit) as exit_info:
         runner.main(failing + ["--device=cpu"])
     assert exit_info.value.code == 1
