@@ -30,8 +30,11 @@ result line):
    overflow path are counted and must not be 0; then the NaN rule alone
    (rows with a NaN candidate are all NaN, and the fill counts no crossing
    there) on a circle with a NaN vertex and on NaN and infinite vertices;
-5. the main path: `run_predict` on synthetic CAMUS-like views with the
-   flagship TMI serving configuration (8-stage UNet at full width, bf16,
+5. the main path: `run_predict` on synthetic CAMUS-like views (the
+   `data=synthetic` source: CamusContourData over the films the JAX
+   package's write_camus_hdf5 draws, the landmarks extracted from the
+   label masks, as in every synthetic phase below) with the flagship TMI
+   serving configuration (8-stage UNet at full width, bf16,
    MC dropout T_e=10 x PSM T_a=25, 256^2, K=21) and seed-initialised
    weights; launch counters reset just before and read just after; outputs
    finite with the JAX package's shapes; steady-state views/s (without the
@@ -51,8 +54,8 @@ result line):
    path's shapes; K2's band splits at the row counts of T_e=1, 5 and 10;
    K1's launch at the serving shape and K1 at 21 and 42 columns;
    the kernels JSON line (K1, K2, K3, with the launches of the training,
-   skew, sequence, batched, epistemic, segmentation and JSRT paths), the
-   card line and the final {"ok": true, ...} line;
+   skew, sequence, batched, epistemic, segmentation, JSRT, CAMUS and
+   backbone paths), the card line and the final {"ok": true, ...} line;
 9. the training path, before the kernels line: `runner.run` at the
    flagship training configuration (8-stage UNet at full width, f32,
    `drop_block`, batch 32, 256^2, K=21, AdamW lr 1e-3 wd 1e-3, augmentation
@@ -155,7 +158,32 @@ result line):
    launches per step and per validation batch, peak memory, 10 steps in
    which the loss falls); K2 at (1200, 65536) bf16 and (3840, 65536) f32
    against f64 and K3 on one view's 750 structure polygons, bitwise, each
-   timed beside its bound.
+   timed beside its bound;
+14. the CAMUS source, before the kernels line: `data=camus-cont
+   task=dsnt-al` at the serving width of [5] on
+   `CamusContourData.from_arrays` over [5]'s films (6 test views), with
+   the LV alone (K=21: K2 1, K3 1 per view) and with [BG, LV, MYO] (K=42 in
+   two contour groups: K2 1 on 840 heatmaps, K3 2 per view: the samples'
+   label maps of both structures in one launch, and mu's), launch counters
+   reset just before and read just after; label maps in {0, 1(, 2)}, every
+   label painted; views/s over 2 passes, idle share; the `camus-cont`
+   processor list on LV+MYO and the `camus` list on the LV, card equal to
+   the CPU within PROCESSOR_TOL; LV+MYO on the card against the CPU at
+   64^2 (label maps of the same samples bitwise, the LV painted over the
+   MYO); LV+MYO DSNT-AL trained at the width of [9] on one batch of 32 (K2
+   1 per step on 1344 heatmaps; 8 steps in which the loss falls; a batch
+   of the val split K2 1, K3 1);
+15. the other backbones, before the kernels line: ENet, DeepLabV3, the
+   ResNet regressor and the UNet with residual and attention, each at its
+   JSON config's full width (f32): DSNT-AL trained on one batch of 32 at
+   256^2 (launches per step: K2 1, the regressor 0), served over [14]'s 6
+   LV views at T_e=10 (dropout 0.1 where the config has none) and T_a=25
+   (K2 1 per view on f32 (420, 65536), the regressor 0; K3 1), each
+   forward at 64^2 at a small depth on the card against the CPU within
+   BACKBONE_BAR; mcdropout served on ENet (no K2 or K3); then K2 on one
+   LV+MYO view's (840, 65536) bf16 logits and on one DeepLabV3 view's
+   (420, 65536) f32 logits against f64, and K3 on one LV+MYO view's 1,000
+   structure polygons, bitwise, each timed beside its bound.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -451,19 +479,28 @@ def check_non_finite() -> None:
             raise AssertionError(f"NaN rows of the circle: {nan_rows[0].nonzero().tolist()}")
 
 
+def camus_data(n_patients: int, size: int, seed: int, labels=("BG", "LV")):
+    """The `data=synthetic` source: the films the JAX package's
+    write_camus_hdf5 writes for these arguments, read from memory by
+    CamusContourData, the landmarks extracted from the label masks."""
+    from contouring_uncertainty_torch.data.config import Label
+    from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
+
+    return synthetic_camus_data(n_patients, size, seed,
+                                labels=tuple(Label[name] for name in labels))
+
+
 def main_path(profile_dir=None) -> dict:
     """run_predict on the flagship serving configuration."""
     import torch
 
-    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
     from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
     from contouring_uncertainty_torch.predict import run_predict
     from contouring_uncertainty_torch.tasks import DSNTAleatoric
 
     c = MAIN_CFG
     t0 = time.perf_counter()
-    data = SyntheticContourData(n_patients=c["n_patients"], k=c["k"], size=c["size"],
-                                seed=c["seed"])
+    data = camus_data(c["n_patients"], c["size"], c["seed"])
     task = DSNTAleatoric(
         data_params=data.data_params, t_e=c["t_e"], t_a=c["t_a"], covar=True,
         model_kwargs=dict(drop_block=True, dtype="bfloat16", head_dtype="bfloat16"))
@@ -1323,13 +1360,11 @@ def skew_serving(profile_dir=None) -> dict:
     passes and a profiled pass), then `grid` on one view."""
     import torch
 
-    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
     from contouring_uncertainty_torch.predict import run_predict
     from contouring_uncertainty_torch.tasks import DSNTSkew
 
     c = MAIN_CFG
-    data = SyntheticContourData(n_patients=c["n_patients"], k=c["k"], size=c["size"],
-                                seed=c["seed"])
+    data = camus_data(c["n_patients"], c["size"], c["seed"])
     task = DSNTSkew(data_params=data.data_params, t_e=c["t_e"], t_a=c["t_a"],
                     model_kwargs=dict(drop_block=True, dtype="bfloat16", head_dtype="bfloat16"))
     model = task.build_model(device="cuda", generator=torch.Generator().manual_seed(c["seed"]))
@@ -1682,7 +1717,6 @@ def sequence_serving(main_res: dict, skew: dict, profile_dir=None) -> dict:
     (a reading: the reference's fault, ROADMAP Queue 3)."""
     import torch
 
-    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
     from contouring_uncertainty_torch.predict import (
         get_or_fit_prior,
         get_or_fit_sequence_prior,
@@ -1692,8 +1726,7 @@ def sequence_serving(main_res: dict, skew: dict, profile_dir=None) -> dict:
 
     c = MAIN_CFG
     t0 = time.perf_counter()
-    data = TrainedOn(main_res["data"], SyntheticContourData(
-        n_patients=SEQ_PRIOR_PATIENTS, k=c["k"], size=c["size"], seed=c["seed"] + 1))
+    data = TrainedOn(main_res["data"], camus_data(SEQ_PRIOR_PATIENTS, c["size"], c["seed"] + 1))
     out = {"data_s": time.perf_counter() - t0}
     for name, base, extra in (("gaussian", main_res, {}),
                               ("skew", skew, {"skew_method": "esn", "grid_window": 64})):
@@ -2024,49 +2057,9 @@ def host_draw_ms(task, n: int, size: int) -> float:
 
 
 def seg_processors(results) -> dict:
-    """SEG_PROCESSORS on the card and on the CPU on the same views: no
-    processor error, the same summary keys and CSV rows and columns, and
-    the card's values equal to the CPU's within PROCESSOR_TOL (`differing`)."""
-    import tempfile
-
-    import torch
-
-    from contouring_uncertainty_torch.results import run_processors
-
-    cfg = {"data": {"results_processors": SEG_PROCESSORS}}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gpu = run_processors(results, tmp / "gpu", cfg, device="cuda")
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / len(results)
-        t0 = time.perf_counter()
-        cpu = run_processors(results, tmp / "cpu", cfg, device="cpu")
-        cpu_ms = (time.perf_counter() - t0) * 1e3 / len(results)
-        for side, metrics in (("card", gpu), ("CPU", cpu)):
-            if "processor_errors" in metrics:
-                raise AssertionError(f"processor errors on the {side}: "
-                                     f"{metrics['processor_errors']}")
-        if set(gpu) != set(cpu):
-            raise AssertionError(f"summary keys differ: {sorted(set(gpu) ^ set(cpu))}")
-        bad = {k: (gpu[k], cpu[k]) for k in cpu if differing(k, gpu[k], cpu[k])}
-        cells = 0
-        for name in SEG_CSVS:
-            header, rows = read_csv_cells(tmp / "gpu" / name)
-            ref_header, ref_rows = read_csv_cells(tmp / "cpu" / name)
-            if header != ref_header or [r[0] for r in rows] != [r[0] for r in ref_rows]:
-                raise AssertionError(f"{name}: the card's columns or rows differ from the CPU's")
-            for row, ref_row in zip(rows, ref_rows):
-                for col, got, ref in zip(header[1:], row[1:], ref_row[1:]):
-                    cells += 1
-                    if differing(col, got, ref):
-                        bad[f"{name}:{row[0]}:{col}"] = (got, ref)
-        if bad:
-            raise AssertionError(f"the card's processor outputs differ from the CPU's "
-                                 f"(tolerance {PROCESSOR_TOL}): {dict(list(bad.items())[:10])}")
-    return {"keys": len(gpu), "cells": cells, "host_ms_per_view": host_ms,
-            "cpu_ms_per_view": cpu_ms}
+    """SEG_PROCESSORS on the card and on the CPU on the same views
+    (`processors_card_vs_cpu`)."""
+    return processors_card_vs_cpu(results, SEG_PROCESSORS, SEG_CSVS)
 
 
 def seg_serving(main_res: dict, profile_dir=None) -> dict:
@@ -2204,49 +2197,21 @@ def seg_training() -> dict:
     import torch
 
     from contouring_uncertainty_torch.config import compose
-    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
     from contouring_uncertainty_torch.factory import build_task, build_trainer
-    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
-    from contouring_uncertainty_torch.train.trainer import _iterate, _to_device
 
-    data = SyntheticContourData(n_patients=SEG_TRAIN_PATIENTS, k=21, size=256,
-                                seed=TRAIN_CFG["seed"])
-    arrays = data.train_arrays("train")
+    data = camus_data(SEG_TRAIN_PATIENTS, 256, TRAIN_CFG["seed"])
+    batch = batch_of_32(data)
     out = {}
     for name in (*SEG_CFG, "epistemic"):
         cfg = compose(TRAIN_OVERRIDES + [f"task={name}"])  # drop_block on, as in [9]
         task = build_task(cfg, data.data_params)
         trainer = build_trainer(cfg, task)
-        trainer.init_state()
-        batch = _to_device(next(_iterate(arrays, TRAIN_CFG["batch"], np.random.default_rng(1))),
-                           trainer.device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses = [float(trainer.train_step(batch, 0)["loss"])]
-        dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
-        steps_ms = []
-        for step in range(1, 1 + SEG_TRAIN_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses.append(float(trainer.train_step(batch, step)["loss"]))
-            steps_ms.append((time.perf_counter() - t0) * 1e3)
-        launches = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
-                    "K3": select_kernel.launches}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if not np.isfinite(losses).all():
-            raise AssertionError(f"{name}: non-finite training loss {losses}")
+        row = train_steps(name, trainer, batch, SEG_TRAIN_STEPS, fit_steps=10)
         want = SEG_TRAIN_STEPS if name == "epistemic" else 0
-        if launches != {"K2": want, "K1": 0, "K3": 0}:
+        if row["launches"] != {"K2": want, "K1": 0, "K3": 0}:
             raise AssertionError(f"{name}: launches over {SEG_TRAIN_STEPS} train steps "
-                                 f"{launches}")
-        trainer.config.augment = False
-        fit = [float(trainer.train_step(batch, step)["loss"]) for step in range(5, 15)]
-        if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
-            raise AssertionError(f"{name}: the loss on one fixed batch did not fall: {fit}")
-        steps_ms.sort()
-        out[name] = {"step_ms": steps_ms[len(steps_ms) // 2], "step_ms_range":
-                     (steps_ms[0], steps_ms[-1]), "peak_gib": peak, "losses": losses,
-                     "fit": (fit[0], fit[-1]), "launches": launches}
+                                 f"{row['launches']}")
+        out[name] = row
         del trainer
         torch.cuda.empty_cache()
     return out
@@ -2516,6 +2481,83 @@ def jsrt_reference_check() -> dict:
     return row
 
 
+def k2_reading(rows, size: int) -> dict:
+    """K2 on (R, size^2) heatmap rows against f64 at the bars of [3], timed
+    beside its plain version and its bound."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel
+
+    raw = dsnt_kernel.raw_moments_cuda(rows, size, size)
+    ref = dsnt_kernel.raw_moments_plain(rows.double(), size, size)
+    err = moment_errors(raw, ref, size, size)
+    max_abs = (raw.double() - ref).abs().max().item()
+    del ref
+    if not within_dsnt_bars(err):
+        raise AssertionError(f"K2 at {tuple(rows.shape)} outside {DSNT_BARS}: {err}")
+    r, hw = rows.shape
+    bound = {"bytes": (r * hw * rows.element_size() + r * 8 * 4) / HBM_BYTES_PER_S * 1e3,
+             "operations": r * hw * 19 / F32_OPS_PER_S * 1e3}
+    out = {"shape": [r, hw], "dtype": str(rows.dtype), "err": err, "max_abs_err": max_abs,
+           "ms": cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(rows, size, size)),
+           "plain_ms": cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows, size, size), iters=3),
+           "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def k3_reading(dense, size: int, label: str) -> dict:
+    """K3 on (M, E, 2) polygons against its plain version (bitwise, NaN
+    positions matched), timed beside its plain version, its bound and
+    torch.topk over its candidates."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import select_kernel
+
+    check_selection(dense, size, size, label)
+    xs_k = select_kernel.min_k_crossings_kernel(dense, size)
+    xs_p = select_kernel.min_k_crossings_plain(dense, size)
+    err = torch.where(xs_k == xs_p, 0.0, (xs_k - xs_p).abs()).nan_to_num(0.0).max().item()
+    neg_cand = -select_kernel.crossing_candidates(dense, size)
+    n_cross = int(torch.isfinite(neg_cand).sum().item())
+    lib = cuda_ms(lambda: torch.topk(neg_cand, 16, dim=-1), iters=3)
+    del neg_cand
+    m, e, _ = dense.shape
+    bound = {"bytes": (m * e * 2 * 4 + m * size * 16 * 4) / HBM_BYTES_PER_S * 1e3,
+             "operations": (4 * m * e + 6 * n_cross) / F32_OPS_PER_S * 1e3}
+    return {"shape": [m, e, size], "crossings": n_cross, "max_abs_err": err,
+            "ms": cuda_ms(lambda: select_kernel.min_k_crossings_kernel(dense, size)),
+            "plain_ms": cuda_ms(lambda: select_kernel.min_k_crossings_plain(dense, size),
+                                iters=3),
+            "library_ms": lib, "bound_ms": max(bound.values()),
+            "bound_by": max(bound, key=bound.get)}
+
+
+def served_logits(row: dict, t_e: int):
+    """The head logits of one served view (its first frames' T_e MC
+    forwards), as the predictor computes them."""
+    import torch
+
+    from contouring_uncertainty_torch.tasks.dsnt_al import forward_views
+
+    view = row["results"][0]
+    with torch.inference_mode():
+        return forward_views(row["model"], torch.as_tensor(view.img, device="cuda")[None],
+                             t_e, [torch.Generator().manual_seed(1)])["out"]
+
+
+def structure_polygons(view, groups):
+    """A served view's sampled contours of each structure, splined to
+    closed polygons of 1024 vertices: (G * samples, 1024, 2)."""
+    import torch
+
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+
+    samples = torch.as_tensor(view.contour_samples, device="cuda")
+    return torch.stack([contour_spline(samples[..., a:b, :], n=1024, close=False)
+                        for a, b, _ in groups]).reshape(-1, 1024, 2).contiguous()
+
+
 def jsrt_kernel_checks(serving: dict, train_logits, groups) -> dict:
     """K2 on one served view's head logits (T_e x 1 frame x 120 = 1200
     heatmaps of 256^2, bf16) and on one training batch's (32 x 120 = 3840,
@@ -2523,70 +2565,23 @@ def jsrt_kernel_checks(serving: dict, train_logits, groups) -> dict:
     polygons (3 x 250 samples, 1024 vertices) against its plain version
     (bitwise, NaN positions matched); each timed beside its bound, K3 also
     beside torch.topk over its candidates."""
-    import torch
-
-    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
-    from contouring_uncertainty_torch.ops.spline import contour_spline
-    from contouring_uncertainty_torch.tasks.dsnt_al import forward_views
-
     c = MAIN_CFG
     size = c["size"]
     al = serving["dsnt-al"]
-    view = al["results"][0]
-    with torch.inference_mode():
-        served = forward_views(al["model"], torch.as_tensor(view.img, device="cuda")[None],
-                               c["t_e"], [torch.Generator().manual_seed(1)])["out"]
-    out = {}
-    for label, logits in (("serving", served), ("training", train_logits)):
-        rows = logits.reshape(-1, size * size)
-        raw = dsnt_kernel.raw_moments_cuda(rows, size, size)
-        ref = dsnt_kernel.raw_moments_plain(rows.double(), size, size)
-        err = moment_errors(raw, ref, size, size)
-        max_abs = (raw.double() - ref).abs().max().item()
-        del ref
-        if not within_dsnt_bars(err):
-            raise AssertionError(f"K2 at {tuple(rows.shape)} outside {DSNT_BARS}: {err}")
-        r, hw = rows.shape
-        bound = {"bytes": (r * hw * rows.element_size() + r * 8 * 4) / HBM_BYTES_PER_S * 1e3,
-                 "operations": r * hw * 19 / F32_OPS_PER_S * 1e3}
-        out[f"k2_{label}"] = {
-            "shape": [r, hw], "dtype": str(rows.dtype), "err": err, "max_abs_err": max_abs,
-            "ms": cuda_ms(lambda: dsnt_kernel.raw_moments_cuda(rows, size, size)),
-            "plain_ms": cuda_ms(lambda: dsnt_kernel.raw_moments_plain(rows, size, size),
-                                iters=3),
-            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get)}
-        torch.cuda.empty_cache()
-
-    samples = torch.as_tensor(view.contour_samples, device="cuda")
-    dense = torch.stack([contour_spline(samples[..., a:b, :], n=1024, close=False)
-                         for a, b, _ in groups]).reshape(-1, 1024, 2).contiguous()
-    check_selection(dense, size, size, f"one JSRT view's structure polygons ({dense.shape[0]})")
-    xs_k = select_kernel.min_k_crossings_kernel(dense, size)
-    xs_p = select_kernel.min_k_crossings_plain(dense, size)
-    k3_err = torch.where(xs_k == xs_p, 0.0, (xs_k - xs_p).abs()).nan_to_num(0.0).max().item()
-    neg_cand = -select_kernel.crossing_candidates(dense, size)
-    n_cross = int(torch.isfinite(neg_cand).sum().item())
-    k3_lib = cuda_ms(lambda: torch.topk(neg_cand, 16, dim=-1), iters=3)
-    del neg_cand
-    m, e, _ = dense.shape
-    bound = {"bytes": (m * e * 2 * 4 + m * size * 16 * 4) / HBM_BYTES_PER_S * 1e3,
-             "operations": (4 * m * e + 6 * n_cross) / F32_OPS_PER_S * 1e3}
-    out["k3"] = {"shape": [m, e, size], "crossings": n_cross, "max_abs_err": k3_err,
-                 "ms": cuda_ms(lambda: select_kernel.min_k_crossings_kernel(dense, size)),
-                 "plain_ms": cuda_ms(lambda: select_kernel.min_k_crossings_plain(dense, size),
-                                     iters=3),
-                 "library_ms": k3_lib, "bound_ms": max(bound.values()),
-                 "bound_by": max(bound, key=bound.get)}
+    out = {f"k2_{label}": k2_reading(logits.reshape(-1, size * size), size)
+           for label, logits in (("serving", served_logits(al, c["t_e"])),
+                                 ("training", train_logits))}
+    dense = structure_polygons(al["results"][0], groups)
+    out["k3"] = k3_reading(dense, size, f"one JSRT view's structure polygons ({dense.shape[0]})")
     return out
 
 
 def jsrt_training(data) -> dict:
     """DSNT-AL on the JSRT training films at the width of [9] (f32, batch
-    32, AdamW, augmentation on): a warm-up step, JSRT_TRAIN_STEPS timed
-    steps (every loss finite; launches per step counted), peak memory, one
-    validation batch (launches counted, finite loss and Dice); then 10
-    steps on the batch without augmentation, in which the loss must fall.
-    Returns the trained head's f32 logits of the batch for K2's check."""
+    32, AdamW, augmentation on): `train_steps` (JSRT_TRAIN_STEPS timed, K2
+    1 per step, then 10 in which the loss must fall), then one validation
+    batch (launches counted, finite loss and Dice). Returns the trained
+    head's f32 logits of the batch for K2's check."""
     import torch
 
     from contouring_uncertainty_torch.config import compose
@@ -2601,52 +2596,431 @@ def jsrt_training(data) -> dict:
                    f"save_path={JSRT_DIR}"])
     task = build_task(cfg, data.data_params)
     trainer = build_trainer(cfg, task)
-    trainer.init_state()
-
-    def counts():
-        return {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
-                "K3": select_kernel.launches}
-
-    batch = _to_device(next(_iterate(data.train_arrays("train"), TRAIN_CFG["batch"],
-                                     np.random.default_rng(1))), trainer.device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses = [float(trainer.train_step(batch, 0)["loss"])]
-    dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
-    steps_ms = []
-    for step in range(1, 1 + JSRT_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(float(trainer.train_step(batch, step)["loss"]))
-        steps_ms.append((time.perf_counter() - t0) * 1e3)
-    per_step = {k: v / JSRT_TRAIN_STEPS for k, v in counts().items()}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"JSRT training: non-finite loss {losses}")
-    if per_step != {"K2": 1, "K1": 0, "K3": 0}:
-        raise AssertionError(f"JSRT training: launches per step {per_step}")
+    batch = batch_of_32(data)
+    row = train_steps("JSRT training", trainer, batch, JSRT_TRAIN_STEPS, fit_steps=10)
+    if row["per_step"] != {"K2": 1, "K1": 0, "K3": 0}:
+        raise AssertionError(f"JSRT training: launches per step {row['per_step']}")
     val = _to_device(next(_iterate(data.train_arrays("val"), TRAIN_CFG["batch"],
                                    np.random.default_rng(0), shuffle=False, drop_last=False)),
                      trainer.device)
     dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
     with torch.no_grad():
         logs = {k: float(v) for k, v in task.val_metrics(trainer.model, val).items()}
-    per_val = counts()
+    per_val = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
+               "K3": select_kernel.launches}
     if per_val != {"K2": 1, "K1": 0, "K3": 1} or not all(np.isfinite(list(logs.values()))):
         raise AssertionError(f"JSRT validation batch: launches {per_val}, logs {logs}")
-    trainer.config.augment = False
-    fit = [float(trainer.train_step(batch, step)["loss"]) for step in range(5, 15)]
-    if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
-        raise AssertionError(f"JSRT: the loss on one fixed batch did not fall: {fit}")
     with torch.no_grad():
         logits = trainer.model(batch["img"], deterministic=True)["out"].float()
-    steps_ms.sort()
     del trainer
     torch.cuda.empty_cache()
-    return {"step_ms": steps_ms[len(steps_ms) // 2], "step_ms_range": (steps_ms[0], steps_ms[-1]),
-            "peak_gib": peak, "losses": losses, "fit": (fit[0], fit[-1]), "per_step": per_step,
-            "per_val_batch": per_val, "val": logs, "val_rows": int(val["img"].shape[0]),
+    return {**row, "per_val_batch": per_val, "val": logs, "val_rows": int(val["img"].shape[0]),
             "logits": logits}
+
+
+# The CAMUS source ([14]): CamusContourData.from_arrays over the films of
+# [5]'s draws (8 patients, 6 test views, 256^2), the landmarks extracted
+# from the label masks; served as `data=camus-cont task=dsnt-al` at the
+# width of [5] with the LV alone (K=21) and with [BG, LV, MYO] (K=42 in two
+# contour groups, MYO painted first and the LV last); LV+MYO trained at the
+# width of [9] on one batch of 32.
+CAMUS_LABELS = {"LV": ("BG", "LV"), "LV+MYO": ("BG", "LV", "MYO")}
+CAMUS_PER_VIEW = {"LV": (1, 0, 1), "LV+MYO": (1, 0, 2)}  # (K2, K1, K3) per view
+CAMUS_PASSES = 2  # timed passes over the test views after the first
+CAMUS_DIR = Path("outputs") / "chip_smoke_camus"  # git-ignored, removed at the end
+CAMUS_TRAIN_STEPS = 3  # timed steps after a warm-up step
+# The other backbones ([15]), each at its JSON config's full width (f32),
+# DSNT-AL trained on one batch of 32 at 256^2 (K=21) and served over the 6
+# test views at T_e=10 (dropout 0.1 where the config has none) and T_a=25;
+# then mcdropout served on ENet.
+BACKBONES = {"enet": ["task/model=enet"], "deeplabv3": ["task/model=deeplabv3"],
+             "resnet": ["task/model=resnet"],
+             "unet2 residual attention": ["task/model=unet2", "task.model.drop_block=true",
+                                          "task.model.residual=true",
+                                          "task.model.attention=true"]}
+BACKBONE_PASSES = 2  # timed passes over the test views after the first
+BACKBONE_TRAIN_STEPS = 3
+# Each backbone's GPU forward against the CPU at 64^2 at a small depth,
+# relative to the output's largest magnitude (f32, TF32 off).
+BACKBONE_SMALL = {"enet": dict(init_channels=8), "deeplabv3": dict(base=8, layers=(1, 1, 1, 1)),
+                  "resnet": dict(layers=(1, 1, 1, 1), sigma_out=3),
+                  "unet2 residual attention": dict(
+                      kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3,
+                      residual=True, attention=True, drop_block=True)}
+BACKBONE_BAR = 3e-4
+
+
+def check_camus_results(results, k: int, labels) -> None:
+    """Shapes of K landmarks, finite values, uint8 sample label maps in
+    {0} + labels with every label painted, an int32 `pred`, the umap in
+    [0, 1]."""
+    c = MAIN_CFG
+    n, s = 2, c["size"]
+    shapes = {"mu": (n, k, 2), "cov": (n, k, 2, 2),
+              "contour_samples": (n, c["t_e"], c["t_a"], k, 2),
+              "pred_samples": (n, c["t_e"], c["t_a"], s, s), "pred": (n, s, s),
+              "uncertainty_map": (n, s, s), "entropy_map": (n, s, s)}
+    for res in results:
+        for key, shape in shapes.items():
+            value = getattr(res, key)
+            if value.shape != shape or not np.isfinite(value.astype(np.float64)).all():
+                raise AssertionError(f"{key}: shape {value.shape} (want {shape}) or not finite")
+        if res.pred_samples.dtype != np.uint8 or res.pred.dtype != np.int32:
+            raise AssertionError(f"label map dtypes {res.pred_samples.dtype} {res.pred.dtype}")
+        painted = set(np.unique(res.pred_samples).tolist())
+        if painted != {0, *labels}:
+            raise AssertionError(f"sample label maps hold {painted}, want {{0, *{labels}}}")
+        if not set(np.unique(res.pred).tolist()) <= {0, *labels}:
+            raise AssertionError(f"pred holds {np.unique(res.pred)}")
+        if res.uncertainty_map.min() < 0 or res.uncertainty_map.max() > 1:
+            raise AssertionError("umap outside [0, 1]")
+
+
+def processors_card_vs_cpu(results, names, csvs) -> dict:
+    """The results processors `names` on the card and on the CPU on the same
+    views: no processor error, the same summary keys and CSV rows and
+    columns, the card's values equal to the CPU's within PROCESSOR_TOL
+    (`differing`)."""
+    import tempfile
+
+    import torch
+
+    from contouring_uncertainty_torch.results import run_processors
+
+    cfg = {"data": {"results_processors": list(names)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu = run_processors(results, tmp / "gpu", cfg, device="cuda")
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(results)
+        t0 = time.perf_counter()
+        cpu = run_processors(results, tmp / "cpu", cfg, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3 / len(results)
+        for side, metrics in (("card", gpu), ("CPU", cpu)):
+            if "processor_errors" in metrics:
+                raise AssertionError(f"processor errors on the {side}: "
+                                     f"{metrics['processor_errors']}")
+        if set(gpu) != set(cpu):
+            raise AssertionError(f"summary keys differ: {sorted(set(gpu) ^ set(cpu))}")
+        bad = {k: (gpu[k], cpu[k]) for k in cpu if differing(k, gpu[k], cpu[k])}
+        cells = 0
+        for name in csvs:
+            header, rows = read_csv_cells(tmp / "gpu" / name)
+            ref_header, ref_rows = read_csv_cells(tmp / "cpu" / name)
+            if header != ref_header or [r[0] for r in rows] != [r[0] for r in ref_rows]:
+                raise AssertionError(f"{name}: the card's columns or rows differ from the CPU's")
+            for row, ref_row in zip(rows, ref_rows):
+                for col, got, ref in zip(header[1:], row[1:], ref_row[1:]):
+                    cells += 1
+                    if differing(col, got, ref):
+                        bad[f"{name}:{row[0]}:{col}"] = (got, ref)
+        if bad:
+            raise AssertionError(f"the card's processor outputs differ from the CPU's "
+                                 f"(tolerance {PROCESSOR_TOL}): {dict(list(bad.items())[:10])}")
+    return {"keys": len(gpu), "cells": cells, "host_ms_per_view": host_ms,
+            "cpu_ms_per_view": cpu_ms}
+
+
+def camus_serving(profile_dir=None) -> dict:
+    """`data=camus-cont task=dsnt-al` at the serving width of [5] on the
+    CAMUS source, LV alone and LV+MYO: launches per view counted from 0,
+    outputs checked, views/s over CAMUS_PASSES passes and the idle share
+    of a profiled pass over 2 views; the `camus-cont` processor list on
+    LV+MYO and the `camus` list on the LV, card against CPU."""
+    import torch
+
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+
+    c = MAIN_CFG
+    out = {}
+    for name, labels in CAMUS_LABELS.items():
+        t_start = time.perf_counter()
+        data = camus_data(c["n_patients"], c["size"], c["seed"], labels)
+        data_s = time.perf_counter() - t_start
+        task = DSNTAleatoric(data_params=data.data_params, t_e=c["t_e"], t_a=c["t_a"],
+                             model_kwargs=dict(drop_block=True, dtype="bfloat16",
+                                               head_dtype="bfloat16"))
+        model = task.build_model(device="cuda", generator=torch.Generator().manual_seed(c["seed"]))
+        cfg = {"seed": c["seed"], "task": {"psm_path": str(CAMUS_DIR / f"psm_{name}.npz")}}
+        run = serve(task, model, data, cfg, CAMUS_PASSES,
+                    profile_dir / f"camus_{name}" if profile_dir is not None else None,
+                    profile_views=2)
+        n, want = run["views"], CAMUS_PER_VIEW[name]
+        if (run["per_dispatch"] != [want] * n
+                or run["launches"] != dict(zip(("K2", "K1", "K3"), (n * w for w in want)))):
+            raise AssertionError(f"camus {name}: launches {run['launches']}, per view "
+                                 f"{run['per_dispatch']}; expected {want} (K2, K1, K3) per view")
+        k = 21 * (len(labels) - 1)
+        check_camus_results(run["results"], k, list(range(1, len(labels))))
+        names, csvs = ((PROCESSOR_NAMES, CSV_FILES) if name == "LV+MYO"
+                       else (SEG_PROCESSORS, SEG_CSVS))
+        t_proc = time.perf_counter()
+        proc = processors_card_vs_cpu(run["results"], names, csvs)
+        proc.update(names=names, seconds=time.perf_counter() - t_proc)
+        out[name] = {**rate(run, run["pass_s"]), "views": n, "k": k, "launches": run["launches"],
+                     "first_s": run["first_s"], "profile": run["profile"], "data_s": data_s,
+                     "kernel_ms_per_view": run["kernel_ms_per_view"],
+                     "copy_ms_per_view": run["copy_ms_per_view"], "processors": proc,
+                     "results": run["results"], "model": model, "task": task, "data": data,
+                     "seconds": time.perf_counter() - t_start}
+        torch.cuda.empty_cache()
+    return out
+
+
+def camus_reference_check() -> dict:
+    """DSNT-AL on LV+MYO on the card against the CPU at 64^2 (a 4-stage f32
+    UNet, the same weights, prior and draws, 2 views in one dispatch): mu
+    and cov within the bars of [7]; the label maps of the same (CPU)
+    samples bitwise on both; and in them the LV (1) painted over the MYO
+    (2): label 1 wherever the LV polygon is filled, 2 where only the
+    epicardium's is."""
+    import torch
+
+    from contouring_uncertainty_torch.ops.rasterize import rasterize_batch
+    from contouring_uncertainty_torch.predict import (
+        AleatoricPredictor,
+        rasterize_labelmap,
+        view_generator,
+    )
+    from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+
+    data = camus_data(5, 64, 2, CAMUS_LABELS["LV+MYO"])
+    views = list(data.predict_views("test"))
+    imgs = np.stack([v["img"] for v in views])
+    groups = data.contour_groups
+    task = DSNTAleatoric(data_params=data.data_params, t_e=2, t_a=8, model_kwargs=dict(
+        kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3, drop_block=True))
+    prior = fit_shape_prior(data.train_arrays("train")["contour"])
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = task.build_model(device=device, generator=torch.Generator().manual_seed(3))
+        sampler = PosteriorShapeModelSampler(prior, device=device)
+        predictor = AleatoricPredictor(task, model, sampler, contour_groups=groups,
+                                       device=device)
+        gens = [view_generator(5, i) for i in range(len(views))]
+        outs[device] = {k: v.cpu() for k, v in predictor.batched(imgs, gens).items()
+                        if isinstance(v, torch.Tensor)}
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    mu_err = (gpu["mu"] - cpu["mu"]).abs().max().item()
+    cov_err = ((gpu["cov"] - cpu["cov"]).abs().max() / cpu["cov"].abs().max()).item()
+    samples = cpu["contour_samples"]
+    maps = rasterize_labelmap(samples.cuda(), groups, 64, 64).cpu()
+    lv = rasterize_batch(samples[..., :21, :], 64, 64) > 0
+    myo = rasterize_batch(samples[..., 21:, :], 64, 64) > 0
+    want = torch.where(lv, 1.0, torch.where(myo, 2.0, 0.0))
+    if not (torch.equal(maps, rasterize_labelmap(samples, groups, 64, 64))
+            and torch.equal(maps, want)):
+        raise AssertionError("LV+MYO label maps: card and CPU differ, or the LV is not painted "
+                             "over the MYO")
+    overlap = int((lv & myo).sum().item())
+    if overlap == 0 or mu_err > 1e-3 or cov_err > 1e-3:
+        raise AssertionError(f"LV+MYO card vs CPU: mu {mu_err:.2e} px, cov {cov_err:.2e}, "
+                             f"LV/MYO overlap {overlap} px")
+    return {"mu_px": mu_err, "cov_rel": cov_err, "overlap_px": overlap,
+            "maps": int(maps[..., 0, 0].numel())}
+
+
+def batch_of_32(data):
+    """One batch of 32 training frames of `data` (its training split
+    repeated as needed), on the card."""
+    from contouring_uncertainty_torch.train.trainer import _iterate, _to_device
+
+    arrays = data.train_arrays("train")
+    reps = -(-TRAIN_CFG["batch"] // len(arrays["img"]))
+    arrays = {k: np.concatenate([v] * reps) for k, v in arrays.items()}
+    return _to_device(next(_iterate(arrays, TRAIN_CFG["batch"], np.random.default_rng(1))),
+                      "cuda")
+
+
+def train_steps(label: str, trainer, batch, steps: int, fit_steps: int = 0) -> dict:
+    """A warm-up step, then `steps` timed steps (every loss finite, launches
+    counted from 0: their totals and per step), peak memory; with
+    `fit_steps`, that many more steps without augmentation, in which the
+    loss must fall."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+
+    trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(trainer.train_step(batch, 0)["loss"])]
+    dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+    steps_ms = []
+    for step in range(1, 1 + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch, step)["loss"]))
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
+                "K3": select_kernel.launches}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: non-finite training loss {losses}")
+    out = {"losses": losses, "launches": launches,
+           "per_step": {k: v / steps for k, v in launches.items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if fit_steps:
+        trainer.config.augment = False
+        fit = [float(trainer.train_step(batch, s)["loss"])
+               for s in range(steps + 1, steps + 1 + fit_steps)]
+        if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
+            raise AssertionError(f"{label}: the loss on one fixed batch did not fall: {fit}")
+        out["fit"] = (fit[0], fit[-1])
+    steps_ms.sort()
+    out.update(step_ms=steps_ms[len(steps_ms) // 2], step_ms_range=(steps_ms[0], steps_ms[-1]))
+    return out
+
+
+def camus_training(data) -> dict:
+    """`data=camus-cont` with [BG, LV, MYO] (K=42) at the training width of
+    [9] on one batch of 32: CAMUS_TRAIN_STEPS timed steps (K2 1 per step,
+    on (1344, 65536) f32), peak memory, then 8 steps in which the loss must
+    fall, and one batch of the val split (K2 1, K3 1)."""
+    import torch
+
+    from contouring_uncertainty_torch.config import compose
+    from contouring_uncertainty_torch.factory import build_task, build_trainer
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.train.trainer import _iterate, _to_device
+
+    cfg = compose(["data=camus-cont", "data.labels=[BG, LV, MYO]", "task=dsnt-al",
+                   "task.model.drop_block=true", "task.optim.name=adamw", "task.optim.lr=1e-3",
+                   "task.optim.weight_decay=1e-3", f"trainer.batch_size={TRAIN_CFG['batch']}",
+                   "trainer.augment=true", f"seed={TRAIN_CFG['seed']}",
+                   f"save_path={CAMUS_DIR}"])
+    task = build_task(cfg, data.data_params)
+    trainer = build_trainer(cfg, task)
+    batch = batch_of_32(data)
+    out = train_steps("LV+MYO training", trainer, batch, CAMUS_TRAIN_STEPS, fit_steps=8)
+    if out["per_step"] != {"K2": 1, "K1": 0, "K3": 0}:
+        raise AssertionError(f"LV+MYO training: launches per step {out['per_step']}")
+    val = _to_device(next(_iterate(data.train_arrays("val"), TRAIN_CFG["batch"],
+                                   np.random.default_rng(0), shuffle=False, drop_last=False)),
+                     trainer.device)
+    dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+    with torch.no_grad():
+        logs = {k: float(v) for k, v in task.val_metrics(trainer.model, val).items()}
+    per_val = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
+               "K3": select_kernel.launches}
+    if per_val != {"K2": 1, "K1": 0, "K3": 1} or not all(np.isfinite(list(logs.values()))):
+        raise AssertionError(f"LV+MYO validation batch: launches {per_val}, logs {logs}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {**out, "per_val_batch": per_val, "val": logs, "val_rows": int(val["img"].shape[0])}
+
+
+def backbone_reference_check(name: str) -> float:
+    """The backbone at a small depth at 64^2, the same weights on the card
+    and on the CPU, deterministic: the largest difference of any output
+    relative to that output's largest magnitude (bar BACKBONE_BAR)."""
+    import torch
+
+    from contouring_uncertainty_torch.models import build_backbone
+
+    model_name = name.split()[0]
+    out_shape = (21, 2) if model_name == "resnet" else (21, 64, 64)
+    img = torch.as_tensor(np.random.default_rng(4).normal(size=(2, 1, 64, 64)), dtype=torch.float32)
+    model = build_backbone(model_name, (1, 64, 64), out_shape, **BACKBONE_SMALL[name])
+    model.reset_parameters(torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        ref = model.eval()(img)
+        got = model.cuda()(img.cuda())
+    worst = 0.0
+    for key, value in ref.items():
+        for r, g in zip(value if isinstance(value, list) else [value],
+                        got[key] if isinstance(value, list) else [got[key]]):
+            worst = max(worst, ((g.cpu() - r).abs().max() / r.abs().max()).item())
+    if worst > BACKBONE_BAR:
+        raise AssertionError(f"{name} on the card vs the CPU at 64^2: {worst:.2e} of the output "
+                             f"(bar {BACKBONE_BAR})")
+    return worst
+
+
+def backbones(camus: dict, profile_dir=None) -> dict:
+    """Each of BACKBONES at its config's full width: DSNT-AL trained on one
+    batch of 32 (launches per step: K2 1, Resnet 0), served over the LV
+    test views of [14] at T_e=10, T_a=25 (K2 1 per view, Resnet 0; K3 1),
+    its small forward on the card against the CPU; then mcdropout served on
+    ENet (no K2 or K3)."""
+    import torch
+
+    from contouring_uncertainty_torch.config import compose
+    from contouring_uncertainty_torch.factory import build_task, build_trainer
+
+    c = MAIN_CFG
+    data = camus["LV"]["data"]
+    train_data = camus_data(SEG_TRAIN_PATIENTS, 256, TRAIN_CFG["seed"])
+    batch = batch_of_32(train_data)
+    out = {}
+    for name, overrides in BACKBONES.items():
+        t_start = time.perf_counter()
+        cfg = compose(["data=camus-cont", "task=dsnt-al", *overrides, "task.optim.name=adamw",
+                       f"trainer.batch_size={TRAIN_CFG['batch']}", "trainer.augment=true",
+                       f"seed={TRAIN_CFG['seed']}", f"save_path={CAMUS_DIR}"])
+        task = build_task(cfg, train_data.data_params)
+        trainer = build_trainer(cfg, task)
+        train = train_steps(f"{name} training", trainer, batch, BACKBONE_TRAIN_STEPS)
+        k2 = 0 if name == "resnet" else 1
+        if train["per_step"] != {"K2": k2, "K1": 0, "K3": 0}:
+            raise AssertionError(f"{name} training: launches per step {train['per_step']}")
+        del trainer
+        serve_cfg = compose(["data=camus-cont", "task=dsnt-al", *overrides,
+                             f"task.t_e={c['t_e']}", f"task.t_a={c['t_a']}"])
+        if serve_cfg["task"]["model"].get("dropout") == 0.0:  # DeepLabV3, Resnet
+            serve_cfg["task"]["model"]["dropout"] = 0.1
+        task = build_task(serve_cfg, data.data_params)
+        model = task.build_model(device="cuda", generator=torch.Generator().manual_seed(c["seed"]))
+        run = serve(task, model, data, {"seed": c["seed"], "task": {
+            "psm_path": str(CAMUS_DIR / "psm_LV.npz")}}, BACKBONE_PASSES,
+            profile_dir / f"backbone_{name.split()[0]}" if profile_dir is not None else None,
+            profile_views=2)
+        n, want = run["views"], (k2, 0, 1)
+        if run["per_dispatch"] != [want] * n:
+            raise AssertionError(f"{name} serving: launches per view {run['per_dispatch']}, "
+                                 f"expected {want}")
+        check_camus_results(run["results"], 21, [1])
+        out[name] = {**rate(run, run["pass_s"]), "views": n, "launches": run["launches"],
+                     "first_s": run["first_s"], "train": train,
+                     "kernel_ms_per_view": run["kernel_ms_per_view"],
+                     "copy_ms_per_view": run["copy_ms_per_view"],
+                     "reference_err": backbone_reference_check(name),
+                     "params": sum(p.numel() for p in model.parameters()),
+                     "results": run["results"], "model": model,
+                     "seconds": time.perf_counter() - t_start}
+        torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    seg_cfg = compose(["data=camus", "task=mcdropout", "task/model=enet", f"task.t_e={c['t_e']}"])
+    task = build_task(seg_cfg, data.data_params)
+    model = task.build_model(device="cuda", generator=torch.Generator().manual_seed(c["seed"]))
+    run = serve(task, model, data, {"seed": c["seed"]}, BACKBONE_PASSES, profile_views=2)
+    if run["launches"] != {"K2": 0, "K1": 0, "K3": 0}:
+        raise AssertionError(f"mcdropout on ENet launched {run['launches']}")
+    check_seg_results(run["results"], c["t_e"], 1, c["size"])
+    out["mcdropout enet"] = {**rate(run, run["pass_s"]), "views": run["views"],
+                             "launches": run["launches"], "first_s": run["first_s"],
+                             "kernel_ms_per_view": run["kernel_ms_per_view"],
+                             "copy_ms_per_view": run["copy_ms_per_view"],
+                             "seconds": time.perf_counter() - t_start}
+    return out
+
+
+def camus_kernel_checks(camus: dict, bb: dict) -> dict:
+    """K2 on one LV+MYO served view's bf16 logits (T_e x 2 frames x 42 = 840
+    heatmaps of 256^2) and on one DeepLabV3 served view's f32 logits (420),
+    against f64 at the bars of [3]; K3 on one LV+MYO view's 1,000 structure
+    polygons (2 x 500 samples) against its plain version; each timed beside
+    its bound and its plain version."""
+    size, t_e = MAIN_CFG["size"], MAIN_CFG["t_e"]
+    myo = camus["LV+MYO"]
+    out = {"k2_lv_myo": k2_reading(served_logits(myo, t_e).reshape(-1, size * size), size),
+           "k2_deeplabv3": k2_reading(served_logits(bb["deeplabv3"], t_e)
+                                      .reshape(-1, size * size), size)}
+    dense = structure_polygons(myo["results"][0], myo["data"].contour_groups)
+    out["k3_lv_myo"] = k3_reading(dense, size, f"one LV+MYO view's polygons ({dense.shape[0]})")
+    return out
 
 
 def main(argv) -> int:
@@ -2981,6 +3355,71 @@ def main(argv) -> int:
           f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, torch.topk {r['library_ms']:.4f} ms")
     shutil.rmtree(JSRT_DIR, ignore_errors=True)
 
+    phase_start[14] = time.perf_counter()
+    print("[14] CAMUS source: data=camus-cont task=dsnt-al served (flagship serving width) on "
+          "CamusContourData.from_arrays, LV (K=21) and LV+MYO (K=42), landmarks extracted "
+          "from the masks; LV+MYO trained (flagship training width)")
+    shutil.rmtree(CAMUS_DIR, ignore_errors=True)
+    camus = camus_serving(profile_dir)
+    for name, row in camus.items():
+        lo, hi = row["ms_range"]
+        proc = row["processors"]
+        print(f"    {name} (K={row['k']}): {row['views']} views, first run {row['first_s']:.2f} s "
+              f"(landmarks extracted in {row['data_s']:.1f} s); launches {row['launches']} "
+              f"({CAMUS_PER_VIEW[name]} (K2, K1, K3) per view); steady state "
+              f"{row['views_per_s']:.2f} views/s, median {row['ms_per_view']:.1f} ms/view over "
+              f"{CAMUS_PASSES} passes (range {lo:.1f}-{hi:.1f}); kernels "
+              f"{row['kernel_ms_per_view']:.2f} + copies {row['copy_ms_per_view']:.2f} ms/view, "
+              f"idle share {row['idle_share']:.1%}; [5]'s DSNT-AL {main_res['views_per_s']:.2f} "
+              f"views/s, on {card}; {row['seconds']:.1f} s")
+        print(f"      processors {proc['names']}: no error, {proc['keys']} summary keys, "
+              f"{proc['cells']} CSV cells, card equal to the CPU within {PROCESSOR_TOL}; "
+              f"{proc['host_ms_per_view']:.1f} ms/view on the card ({proc['seconds']:.1f} s)")
+        print(row["profile"])
+    camus_ref = camus_reference_check()
+    print(f"    LV+MYO card vs CPU at 64^2 (4-stage f32, same draws): mu {camus_ref['mu_px']:.2e} "
+          f"px, cov {camus_ref['cov_rel']:.2e} of its scale; {camus_ref['maps']} label maps of "
+          f"the same samples bitwise, the LV painted over the MYO ({camus_ref['overlap_px']} "
+          f"overlapping px)")
+    ctrain = camus_training(camus["LV+MYO"]["data"])
+    lo, hi = ctrain["step_ms_range"]
+    print(f"    LV+MYO DSNT-AL training (batch {TRAIN_CFG['batch']}, 256^2, K=42, f32): median "
+          f"{ctrain['step_ms']:.1f} ms/step over {CAMUS_TRAIN_STEPS} steps (range {lo:.1f}-"
+          f"{hi:.1f}), peak {ctrain['peak_gib']:.2f} GiB, losses "
+          f"{[round(v, 4) for v in ctrain['losses']]}, launches per step {ctrain['per_step']}; "
+          f"val-split batch of {ctrain['val_rows']}: launches {ctrain['per_val_batch']}, dice "
+          f"{ctrain['val']['dice']:.4f}; one batch, 8 steps: {ctrain['fit'][0]:.4f} -> "
+          f"{ctrain['fit'][1]:.4f}; [9]'s DSNT-AL {train['step_ms']:.1f} ms/step, on {card}")
+
+    phase_start[15] = time.perf_counter()
+    print("[15] other backbones (ENet, DeepLabV3, the ResNet regressor, UNet with residual and "
+          "attention): DSNT-AL trained and served at their configs' full width; mcdropout on "
+          "ENet")
+    bb = backbones(camus, profile_dir)
+    for name, row in bb.items():
+        lo, hi = row["ms_range"]
+        line = (f"    {name}: {row['views']} views, first run {row['first_s']:.2f} s; launches "
+                f"{row['launches']}; steady state {row['views_per_s']:.2f} views/s, median "
+                f"{row['ms_per_view']:.1f} ms/view over {BACKBONE_PASSES} passes (range "
+                f"{lo:.1f}-{hi:.1f}); kernels {row['kernel_ms_per_view']:.2f} + copies "
+                f"{row['copy_ms_per_view']:.2f} ms/view, idle share {row['idle_share']:.1%}")
+        if "train" in row:
+            t = row["train"]
+            line += (f"; {row['params']} parameters; training median {t['step_ms']:.1f} "
+                     f"ms/step over {BACKBONE_TRAIN_STEPS} steps, peak {t['peak_gib']:.2f} GiB, "
+                     f"losses {[round(v, 4) for v in t['losses']]}, launches per step "
+                     f"{t['per_step']}; 64^2 card vs CPU {row['reference_err']:.2e} (bar "
+                     f"{BACKBONE_BAR})")
+        print(line + f", on {card}; {row['seconds']:.1f} s")
+    ck = camus_kernel_checks(camus, bb)
+    for key, r in ck.items():
+        what = f"K2 at {r['shape']} {r['dtype']}" if key.startswith("k2") else f"K3 at {r['shape']}"
+        err = (f"mu err {r['err']['mu_px']:.3e} px, sigma rel err {r['err']['sigma_rel']:.3e}"
+               if key.startswith("k2") else f"bitwise, torch.topk {r['library_ms']:.4f} ms")
+        print(f"    {key}: {what}: {err}; {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+    shutil.rmtree(CAMUS_DIR, ignore_errors=True)
+
     for kern in kernels:
         short = kern["name"].split(" ")[0]
         kern["jsrt"] = {name: {"launches": row["launches"][short],
@@ -3032,6 +3471,20 @@ def main(argv) -> int:
                            for name, row in batch.items()}
         if short in ("K2", "K3"):
             kern["batched"]["kernel"] = bk[short.lower()]
+        kern["camus"] = {name: {"launches": row["launches"][short],
+                                "launches_per_view": row["launches"][short] / row["views"]}
+                         for name, row in camus.items()}
+        kern["camus"]["LV+MYO training_launches_per_step"] = ctrain["per_step"][short]
+        kern["backbones"] = {name: {"launches": row["launches"][short],
+                                    "launches_per_view": row["launches"][short] / row["views"],
+                                    **({"training_launches_per_step":
+                                        row["train"]["per_step"][short]}
+                                       if "train" in row else {})}
+                             for name, row in bb.items()}
+        if short == "K2":
+            kern["camus"]["kernel"] = {"lv_myo": ck["k2_lv_myo"], "deeplabv3": ck["k2_deeplabv3"]}
+        if short == "K3":
+            kern["camus"]["kernel"] = ck["k3_lv_myo"]
     t_end = time.perf_counter()
     starts = sorted(phase_start.items())
     spans = {f"[{n}]": round(b - a, 1) for (n, a), (_, b) in zip(starts, starts[1:] + [(0, t_end)])}

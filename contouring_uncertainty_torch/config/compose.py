@@ -25,12 +25,12 @@ from typing import Any, Dict, List, Optional
 
 CONFIG_DIR = Path(__file__).parent / "json"
 
-_ENV_RE = re.compile(r"\$\{env:([A-Za-z_][A-Za-z0-9_]*)(?:,([^}]*))?\}")
+ENV_RE = re.compile(r"\$\{env:([A-Za-z_][A-Za-z0-9_]*)(?:,([^}]*))?\}")
 
 
 def _resolve_env(value: Any) -> Any:
     if isinstance(value, str):
-        return _ENV_RE.sub(lambda m: os.environ.get(m.group(1), m.group(2) or ""), value)
+        return ENV_RE.sub(lambda m: os.environ.get(m.group(1), m.group(2) or ""), value)
     return value
 
 

@@ -40,7 +40,7 @@ def split_structures(contour: np.ndarray) -> Dict[str, np.ndarray]:
     return {name: contour[a:b] for name, a, b, _ in STRUCTURES}
 
 
-def _inside_polygon(vertices: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+def inside_polygon(vertices: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
     """Even-odd test of every pixel (x = column, y = row, integer
     coordinates) against the closed polygon `vertices` (P, 2), in f64 with
     matplotlib's crossing predicate: an edge (x0, y0) -> (x1, y1) counts
@@ -71,7 +71,7 @@ def lung_contour_to_mask(contour: np.ndarray, shape: Tuple[int, int]) -> np.ndar
     the heart where they overlap."""
     out = np.zeros(shape, np.uint8)
     for _, a, b, label in sorted(STRUCTURES, key=lambda s: -s[3]):
-        out[_inside_polygon(contour[a:b], shape)] = label
+        out[inside_polygon(contour[a:b], shape)] = label
     return out
 
 

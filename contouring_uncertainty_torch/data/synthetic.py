@@ -1,24 +1,25 @@
-"""Synthetic echo-like data, in memory (no h5py, no matplotlib).
+"""Synthetic echo-like data (no matplotlib; h5py only inside the writer).
 
-Counterpart of contouring_uncertainty_tpu/data/synthetic.py (contour, image
-and label generators, ported draw for draw) plus an in-memory data source
-exposing what `predict.run_predict` uses of the JAX package's
-`data/camus.py CamusContourData`: `predict_views`, `train_arrays`,
-`data_params` and `contour_groups`.
+Counterpart of contouring_uncertainty_tpu/data/synthetic.py: the contour,
+image and label generators, ported draw for draw, and `write_camus_hdf5`.
+The films it writes are also built in memory (`make_camus_tree`), which
+`synthetic_camus_data` reads through `data/camus.py
+CamusContourData.from_arrays` with the landmarks extracted from the label
+masks, as the JAX package reads its file back.
 
-Differences from the JAX module: the polygon fill is a numpy even-odd test
-at pixel centres instead of matplotlib's `Path.contains_points`, and the
-landmark contours are the generating contours themselves (the HDF5 reader
-re-extracts them from the label masks).
+Difference from the JAX module: the polygon fill is a numpy even-odd test
+at pixel centres instead of matplotlib's `Path.contains_points`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
-from contouring_uncertainty_torch.data.config import DataParams, Label, Tags
+from contouring_uncertainty_torch.data.camus import CamusContourData, Group
+from contouring_uncertainty_torch.data.config import Label
 
 
 def lv_contour_points(
@@ -114,73 +115,64 @@ def make_arrays(n: int, k: int = 21, size: int = 256, seed: int = 0):
     return np.stack(imgs), np.stack(gts), np.stack(contours)
 
 
-class SyntheticContourData:
-    """In-memory CAMUS-like contour data: `n_patients` patients with a 2CH
-    and a 4CH view of two frames (ED, ES) each, split train/val/test by the
-    same rule and drawn in the same order as the JAX package's
-    `write_camus_hdf5`. Single contour group: the LV, label 1.
+def make_camus_tree(n_patients: int = 8, k: int = 21, size: int = 256, seed: int = 0,
+                    fold: int = 5) -> Group:
+    """The CAMUS-layout file the JAX package's `write_camus_hdf5` writes for
+    the same arguments, as an in-memory `Group` tree, drawn in its order:
+    `n_patients` patients split 60/20/20 (at least one each), a 2CH and a
+    4CH view of two frames (ED, ES) per patient."""
+    rng = np.random.default_rng(seed)
+    patients = [f"patient{i:04d}" for i in range(1, n_patients + 1)]
+    n_train = max(1, int(n_patients * 0.6))
+    n_val = max(1, int(n_patients * 0.2))
+    splits = {
+        "train": patients[:n_train],
+        "val": patients[n_train:n_train + n_val],
+        "test": patients[n_train + n_val:] or patients[-1:],
+    }
+    folds = Group({split: np.array(ids, dtype="S") for split, ids in splits.items()})
+    tree = Group({"cross_validation": Group({f"fold_{fold}": folds})},
+                 attrs={"register": False, "sequence": False})
+    for pid in patients:
+        views = Group()
+        for view in ("2CH", "4CH"):
+            frames = [make_sample(rng, k, size) for _ in range(2)]  # ED, ES
+            views.members[view] = Group(
+                {"img_proc": np.stack([f[0] for f in frames]),
+                 "gt_proc": np.stack([f[1] for f in frames])},
+                attrs={"voxelspacing": np.array([1.0, 0.62, 0.42]),
+                       "instants": np.array(["ED", "ES"], dtype="S"),
+                       "ED": 0, "ES": 1, "ImageQuality": "Good"})
+        tree.members[pid] = views
+    return tree
 
-    `transform` (data/transforms.py `build_transform`) is applied once to
-    each view's (frames, H, W) image stack, as the JAX package's CAMUS
-    reader applies it at load time, so training arrays and predicted views
-    both hold the transformed images."""
 
-    def __init__(self, n_patients: int = 8, k: int = 21, size: int = 256,
-                 seed: int = 0, transform: Optional[Callable] = None):
-        self.k = k
-        self.size = size
-        rng = np.random.default_rng(seed)
-        patients = [f"patient{i:04d}" for i in range(1, n_patients + 1)]
-        n_train = max(1, int(n_patients * 0.6))
-        n_val = max(1, int(n_patients * 0.2))
-        self._splits = {
-            "train": patients[:n_train],
-            "val": patients[n_train:n_train + n_val],
-            "test": patients[n_train + n_val:] or patients[-1:],
-        }
-        self._views: Dict[str, Dict] = {}
-        for pid in patients:
-            for view in ("2CH", "4CH"):
-                frames = [make_sample(rng, k, size) for _ in range(2)]  # ED, ES
-                img = np.stack([f[0] for f in frames])
-                if transform is not None:
-                    img = np.asarray(transform(img), np.float32)
-                self._views[f"{pid}/{view}"] = {
-                    Tags.id: f"{pid}/{view}",
-                    Tags.img: img[:, None],
-                    Tags.gt: np.stack([f[1] for f in frames]),
-                    Tags.contour: np.stack([f[2] for f in frames]),
-                    Tags.voxelspacing: np.array([1.0, 0.62, 0.42]),
-                    Tags.instants: {"ED": 0, "ES": 1},
-                    Tags.image_quality: "Good",
-                }
+def write_camus_hdf5(path, n_patients: int = 8, k: int = 21, size: int = 256,
+                     seed: int = 0, fold: int = 5) -> Path:
+    """`make_camus_tree` written as a CAMUS-layout HDF5 file."""
+    import h5py
 
-    def _split_views(self, split: str) -> List[Dict]:
-        return [v for vid, v in self._views.items()
-                if vid.split("/")[0] in self._splits[split]]
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
 
-    def predict_views(self, split: str = "test") -> Iterator[Dict]:
-        """Whole-view prediction items (all frames of one patient view)."""
-        for v in self._split_views(split):
-            yield dict(v)
+    def write(h5, group: Group):
+        h5.attrs.update(group.attrs)
+        for name, member in group.members.items():
+            if isinstance(member, Group):
+                write(h5.create_group(name), member)
+            else:
+                h5.create_dataset(name, data=member)
 
-    def train_arrays(self, split: str = "train") -> Dict[str, np.ndarray]:
-        """Every frame of the split stacked into flat arrays."""
-        views = self._split_views(split)
-        return {
-            Tags.img: np.concatenate([v[Tags.img] for v in views]),
-            Tags.gt: np.concatenate([v[Tags.gt] for v in views]),
-            Tags.contour: np.concatenate([v[Tags.contour] for v in views]),
-            Tags.id: np.array([f"{v[Tags.id]}_{i}" for v in views
-                               for i in range(len(v[Tags.img]))]),
-        }
+    with h5py.File(path, "w") as f:
+        write(f, make_camus_tree(n_patients, k, size, seed, fold))
+    return path
 
-    @property
-    def data_params(self) -> DataParams:
-        return DataParams(in_shape=(1, self.size, self.size),
-                          out_shape=(self.k, 2), labels=(Label.BG, Label.LV))
 
-    @property
-    def contour_groups(self):
-        """(start, end, label) landmark slices for the predict pipeline."""
-        return ((0, self.k, int(Label.LV)),)
+def synthetic_camus_data(n_patients: int = 8, size: int = 256, seed: int = 0, fold: int = 5,
+                         k: int = 21, **kwargs) -> CamusContourData:
+    """The `data=synthetic` source: the films of `make_camus_tree` read from
+    memory by `CamusContourData` (keyword arguments as its constructor's),
+    the landmarks extracted from the label masks."""
+    return CamusContourData.from_arrays(
+        make_camus_tree(n_patients=n_patients, k=k, size=size, seed=seed, fold=fold),
+        fold=fold, **kwargs)

@@ -1,59 +1,77 @@
 """Config -> objects: data source, task, trainer, experiment name.
 
 Counterpart of contouring_uncertainty_tpu/factory.py for what the port
-implements. `synthetic` builds the in-memory `SyntheticContourData`
-(where the JAX package writes and reads a CAMUS-layout HDF5 file); `lung`
-and `lung-cont` build `JSRTContourData` on `data.dataset_path`, labelled
-with `LungLabel` (default [BG, LUNG, HEART]), with no generated stand-in
-for a missing file. The tasks are every task of the JAX factory:
-`dsnt-al`, `dsnt-skew` (`dsnt-skew5`, `dsnt-skew9`), `epistemic`, and the
-segmentation baselines `mcdropout`, `aleatoric`, `tta` and `ssn`. A data
-source or a backbone the port does not have raises, naming its ROADMAP.md
-item.
+implements. `camus-cont` and `camus` read a CAMUS-layout HDF5 file
+(`CamusContourData`); `synthetic` reads `data.dataset_path` where the caller
+names an existing file other than the group's shared default, and otherwise
+the films the JAX package would write there, from memory
+(`data/synthetic.py synthetic_camus_data`), their landmarks extracted from
+the masks in both cases; `lung` and `lung-cont` build `JSRTContourData` on
+`data.dataset_path`, labelled with `LungLabel` (default [BG, LUNG, HEART]),
+with no generated stand-in for a missing file. The tasks are every task of
+the JAX factory: `dsnt-al`, `dsnt-skew` (`dsnt-skew5`, `dsnt-skew9`),
+`epistemic`, and the segmentation baselines `mcdropout`, `aleatoric`,
+`tta` and `ssn`, on every backbone of `models.build_backbone`.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict
 
+from contouring_uncertainty_torch.config.compose import CONFIG_DIR, ENV_RE
 from contouring_uncertainty_torch.device import DeviceLike
 from contouring_uncertainty_torch.models import as_dtype, check_backbone
 from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
-# Config names the JAX factory builds and the port does not yet, with
-# where ROADMAP.md Queue 1 lists them.
-_DATA_NOT_PORTED = {"camus-cont": 2, "camus": 2}
 _SKEW_TASKS = ("dsnt-skew", "dsnt-skew5", "dsnt-skew9")
 
 
+def shared_synthetic_path() -> str:
+    """`data=synthetic`'s default `dataset_path` (the fallback of its
+    `${env:SYNTH_DATA_PATH,...}`): one fixed file that every run on a
+    machine meets, which may hold another run's films. The port never reads
+    it; it reads a synthetic file only where the caller names another."""
+    raw = json.loads((CONFIG_DIR / "data" / "synthetic.json").read_text())["dataset_path"]
+    return ENV_RE.fullmatch(raw).group(2)
+
+
 def build_data(cfg: Dict):
-    from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+    from contouring_uncertainty_torch.data.camus import CamusContourData
+    from contouring_uncertainty_torch.data.config import Label, LungLabel
     from contouring_uncertainty_torch.data.transforms import build_transform
 
     data_cfg = cfg["data"]
     name = data_cfg.get("name", "camus-cont")
-    if name in _DATA_NOT_PORTED:
-        raise NotImplementedError(f"data '{name}' is not ported yet "
-                                  f"(ROADMAP.md Queue 1, item {_DATA_NOT_PORTED[name]})")
+    # Each dataset family has its own label enum.
+    enum = LungLabel if name.startswith("lung") else Label
+    default_labels = ["BG", "LUNG", "HEART"] if enum is LungLabel else ["BG", "LV"]
+    labels = tuple(enum[l] if isinstance(l, str) else enum(l)
+                   for l in data_cfg.get("labels") or default_labels)
+    transform = build_transform(data_cfg.get("transform"))
+    camus_kw = dict(fold=data_cfg.get("fold", 5),
+                    points_per_side=data_cfg.get("points_per_side", 11), labels=labels,
+                    transform=transform)
+    if name == "synthetic":
+        from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
+
+        path = data_cfg.get("dataset_path")
+        if path and str(path) != shared_synthetic_path() and Path(path).exists():
+            return CamusContourData(path, **camus_kw)
+        # The films the JAX package writes to a missing `dataset_path`, read
+        # from memory (no h5py needed).
+        return synthetic_camus_data(n_patients=data_cfg.get("n_patients", 16),
+                                    size=data_cfg.get("image_size", 256),
+                                    seed=cfg.get("seed", 10), **camus_kw)
+    if name in ("camus-cont", "camus"):
+        return CamusContourData(data_cfg["dataset_path"],
+                                use_sequence=data_cfg.get("use_sequence", False), **camus_kw)
     if name in ("lung", "lung-cont"):
-        from contouring_uncertainty_torch.data.config import LungLabel
         from contouring_uncertainty_torch.data.lung import JSRTContourData
 
-        labels = tuple(LungLabel[l] if isinstance(l, str) else LungLabel(l)
-                       for l in data_cfg.get("labels") or ["BG", "LUNG", "HEART"])
-        return JSRTContourData(data_cfg["dataset_path"], labels=labels,
-                               transform=build_transform(data_cfg.get("transform")))
-    if name != "synthetic":
-        raise ValueError(f"Unknown data config '{name}'")
-    labels = data_cfg.get("labels") or ["BG", "LV"]
-    if [str(label) for label in labels] != ["BG", "LV"]:
-        raise NotImplementedError(f"synthetic data has the labels [BG, LV], got {labels}")
-    return SyntheticContourData(
-        n_patients=data_cfg.get("n_patients", 16),
-        k=2 * data_cfg.get("points_per_side", 11) - 1,
-        size=data_cfg.get("image_size", 256),
-        seed=cfg.get("seed", 10),
-        transform=build_transform(data_cfg.get("transform")))
+        return JSRTContourData(data_cfg["dataset_path"], labels=labels, transform=transform)
+    raise ValueError(f"Unknown data config '{name}'")
 
 
 def model_kwargs_from_cfg(model_cfg: Dict) -> Dict:
@@ -88,7 +106,7 @@ def build_task(cfg: Dict, data_params):
         model_kwargs=model_kwargs_from_cfg(model_cfg),
         model_name=model_cfg.get("name", "unet2"),
     )
-    check_backbone(common["model_name"], common["model_kwargs"])
+    check_backbone(common["model_name"])
     weights = dict(mse_weight=task_cfg.get("mse_weight", 1.0),
                    log_penalty_weight=task_cfg.get("log_penalty_weight", 1.0))
     if name == "dsnt-al":

@@ -1,4 +1,5 @@
-"""Model zoo: the nnU-Net-style UNet (`unet2`) and its ConfidenceNet skew head."""
+"""Model zoo: the nnU-Net-style UNet (`unet2`, with its ConfidenceNet skew
+head), DeepLabV3, the ResNet landmark regressor and ENet."""
 
 from __future__ import annotations
 
@@ -6,13 +7,18 @@ import torch
 
 from contouring_uncertainty_torch.models.unet import ConfidenceNet, UNet
 
-# Backbones and UNet flags of the JAX package that this port does not
-# implement yet (ROADMAP.md Queue 1, item 9): building one raises instead of
-# silently dropping it.
-_BACKBONES_NOT_PORTED = ("enet", "deeplabv3", "resnet")
-_UNPORTED_FLAGS = ("attention", "residual")
-_UNET_KWARGS = {"kernels", "strides", "drop_block", "bottleneck_out", "deep_supervision",
-                "out_seg_bias", "ssn_rank", "dtype", "head_dtype"}
+# The config keys each backbone takes (those of the JAX package's
+# `build_backbone`, and the UNet's serving `head_dtype`); the others of the
+# shared model config are dropped.
+ALLOWED_KWARGS = {
+    "unet2": {"kernels", "strides", "deep_supervision", "attention", "drop_block",
+              "residual", "out_seg_bias", "ssn_rank", "bottleneck_out", "dtype", "head_dtype"},
+    "deeplabv3": {"layers", "base", "dropout", "n_heads", "ssn_rank", "bottleneck_out", "dtype"},
+    "resnet": {"layers", "dropout", "sigma_out", "dtype"},
+    "enet": {"init_channels", "dropout", "encoder_relu", "decoder_relu", "bottleneck_out",
+             "n_heads", "ssn_rank", "dtype"},
+}
+ALLOWED_KWARGS["unet"] = ALLOWED_KWARGS["unet2"]
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -20,25 +26,32 @@ def as_dtype(dtype) -> torch.dtype:
     return dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
 
 
-def check_backbone(name: str, kwargs) -> None:
-    """Raise on a backbone or UNet flag that is not ported, naming its
-    ROADMAP.md item."""
-    if name in _BACKBONES_NOT_PORTED:
-        raise NotImplementedError(f"model '{name}' is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 9)")
-    if name not in ("unet2", "unet"):
+def check_backbone(name: str) -> None:
+    """Raise ValueError on a model name no backbone answers to."""
+    if name not in ALLOWED_KWARGS:
         raise ValueError(f"Unknown model '{name}'")
-    unported = [k for k in _UNPORTED_FLAGS if kwargs.get(k)]
-    if unported:
-        raise NotImplementedError(f"UNet flags {unported} are not ported yet "
-                                  "(ROADMAP.md Queue 1, item 9)")
 
 
 def build_backbone(name: str, input_shape, output_shape, **kwargs):
-    """Model-zoo dispatch (counterpart of the JAX `models.build_backbone`)."""
-    check_backbone(name, kwargs)
-    kwargs = {k: v for k, v in kwargs.items() if k in _UNET_KWARGS}
+    """Model-zoo dispatch (counterpart of the JAX `models.build_backbone`):
+    each backbone receives only the config keys it takes."""
+    check_backbone(name)
+    kwargs = {k: v for k, v in kwargs.items() if k in ALLOWED_KWARGS[name]}
     for key in ("dtype", "head_dtype"):
         if key in kwargs:
             kwargs[key] = as_dtype(kwargs[key])
-    return UNet(input_shape=input_shape, output_shape=output_shape, **kwargs)
+    if "layers" in kwargs:
+        kwargs["layers"] = tuple(kwargs["layers"])
+    if name in ("unet2", "unet"):
+        return UNet(input_shape=input_shape, output_shape=output_shape, **kwargs)
+    if name == "deeplabv3":
+        from contouring_uncertainty_torch.models.deeplabv3 import DeepLabV3
+
+        return DeepLabV3(input_shape=input_shape, output_shape=output_shape, **kwargs)
+    if name == "resnet":
+        from contouring_uncertainty_torch.models.resnet import Resnet
+
+        return Resnet(input_shape=input_shape, output_shape=output_shape, **kwargs)
+    from contouring_uncertainty_torch.models.enet import Enet
+
+    return Enet(input_shape=input_shape, output_shape=output_shape, **kwargs)

@@ -10,11 +10,12 @@ upsampled tensor, a 1x1 head, `dtype`/`head_dtype` compute types, the
 `bottleneck_out` with the `ConfidenceNet` skew head that reads it, and the
 heads of the segmentation baselines: `ssn_rank` (the SSN heads `ssn_sigma`
 and, above rank 1, `ssn_factor`), `deep_supervision` (lower-resolution
-heads, in training only) and `out_seg_bias`. (`residual` and `attention`
-are not ported yet.)
+heads, in training only) and `out_seg_bias`; `residual` (ResidBlock
+stages) and `attention` (an AttentionGate on each skip).
 
-Submodules carry the flax auto-names (ConvBlock_i, UpsampleBlock_j,
-OutputBlock_0, ConvLayer_0, Conv_0, InstanceNorm_0, ConvTranspose_0), so
+Submodules carry the flax auto-names (ConvBlock_i or ResidBlock_i,
+UpsampleBlock_j, AttentionGate_0, OutputBlock_0, ConvLayer_0, Conv_0,
+InstanceNorm_0, ConvTranspose_0), so
 convert.py maps a JAX parameter tree onto `state_dict` keys one to one.
 Parameters are float32; convolutions run in `dtype` (weights cast per call),
 instance-norm statistics in f32 (f64 in an f64 model). `set_compute_dtype`
@@ -43,14 +44,27 @@ _KAIMING_SCALE = 2.0 / (1.0 + 0.01 ** 2)
 _TRUNC_STD = 0.87962566103423978
 
 
-def _kaiming_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
-    std = math.sqrt(_KAIMING_SCALE / fan_in) / _TRUNC_STD
+def _kaiming_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator],
+              scale: float = _KAIMING_SCALE):
+    """flax variance_scaling(scale, "fan_in", "truncated_normal"); scale 1
+    is flax's default (lecun) initializer."""
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def torch_padding(kernel_size) -> tuple:
     """Symmetric padding (k//2, k//2) per spatial dim (not XLA's "SAME")."""
     return tuple(k // 2 for k in kernel_size)
+
+
+def same_padding(size, kernel_size, stride, dilation) -> list:
+    """XLA's "SAME" padding of each spatial dim, [(lo, hi), ...]: the output
+    has ceil(size / stride) elements and the extra pad goes high."""
+    pads = []
+    for n, k, s, d in zip(size, kernel_size, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
 
 
 def channel_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
@@ -85,45 +99,85 @@ class InstanceNorm(nn.Module):
 
 
 class Conv(nn.Module):
-    """Conv2d with f32 parameters computed in `dtype`."""
+    """Conv2d with f32 parameters computed in `dtype`. `padding` is
+    symmetric per dim, or "SAME" (XLA's, flax's default: the odd extra
+    pixel goes high). `init_scale` is the variance scale of the
+    truncated-normal fan-in init (Kaiming for LeakyReLU by default, 1 for
+    flax's default)."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size=(3, 3), stride=(1, 1),
-                 padding=(0, 0), bias: bool = True, dtype=torch.float32):
+                 padding=(0, 0), bias: bool = True, dtype=torch.float32,
+                 dilation=(1, 1), init_scale: float = _KAIMING_SCALE):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, c_in, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
         self.stride = tuple(stride)
-        self.padding = tuple(padding)
+        self.padding = padding if padding == "SAME" else tuple(padding)
+        self.dilation = tuple(dilation)
         self.dtype = dtype
+        self.init_scale = init_scale
 
     def reset_parameters(self, generator=None):
-        _kaiming_(self.weight, self.weight[0].numel(), generator)
+        _kaiming_(self.weight, self.weight[0].numel(), generator, self.init_scale)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                        self.stride, self.padding)
+        x = x.to(self.dtype)
+        padding = self.padding
+        if padding == "SAME":
+            pads = same_padding(x.shape[2:], self.weight.shape[2:], self.stride, self.dilation)
+            if all(lo == hi for lo, hi in pads):
+                padding = tuple(lo for lo, _ in pads)
+            else:
+                (top, bottom), (left, right) = pads
+                x, padding = F.pad(x, (left, right, top, bottom)), (0, 0)
+        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding, self.dilation)
+
+
+def _transpose_crop(k: int, s: int, padding: str):
+    """lax.conv_transpose's (lo, hi) padding of the dilated input for
+    `padding` -> where its output starts in torch's unpadded transposed
+    conv (which pads k - 1 both sides) and how long it is, less the
+    dilated input's length."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-pad_len // 2)
+    else:  # VALID
+        pad_len = k + s - 2 + max(k - s, 0)
+        lo = k - 1
+    return (k - 1) - lo, pad_len - k + 1
 
 
 class ConvTranspose(nn.Module):
-    """Stride-s, kernel-s transposed conv without bias (flax ConvTranspose,
-    padding VALID); the weight is in torch's (ci, co, kh, kw) orientation."""
+    """flax ConvTranspose without bias: a stride-s transposed conv with
+    kernel `kernel_size` (default s) and padding "VALID" or "SAME" (lax's,
+    cropped out of torch's unpadded output); the weight is in torch's
+    (ci, co, kh, kw) orientation, the flax kernel flipped (convert.py)."""
 
-    def __init__(self, c_in: int, c_out: int, stride=(2, 2), dtype=torch.float32):
+    def __init__(self, c_in: int, c_out: int, stride=(2, 2), dtype=torch.float32,
+                 kernel_size=None, padding: str = "VALID",
+                 init_scale: float = _KAIMING_SCALE):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(c_in, c_out, *stride))
+        kernel_size = tuple(kernel_size or stride)
+        self.weight = nn.Parameter(torch.empty(c_in, c_out, *kernel_size))
         self.stride = tuple(stride)
+        self.padding = padding
         self.dtype = dtype
+        self.init_scale = init_scale
 
     def reset_parameters(self, generator=None):
         c_in, _, kh, kw = self.weight.shape
-        _kaiming_(self.weight, c_in * kh * kw, generator)
+        _kaiming_(self.weight, c_in * kh * kw, generator, self.init_scale)
 
     def forward(self, x):
-        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                                  stride=self.stride)
+        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                               stride=self.stride)
+        for dim, (n, k, s) in enumerate(zip(x.shape[2:], self.weight.shape[2:], self.stride)):
+            start, extra = _transpose_crop(k, s, self.padding)
+            y = y.narrow(2 + dim, start, (n - 1) * s + 1 + extra)
+        return y
 
 
 class ConvLayer(nn.Module):
@@ -162,19 +216,81 @@ class ConvBlock(nn.Module):
         return self.ConvLayer_1(x, deterministic, generator)
 
 
+class ResidBlock(nn.Module):
+    """Residual double conv: ConvLayer (carrying the stride), conv ->
+    [channel dropout 0.5] -> instance norm, plus the input, projected by a
+    strided conv -> [dropout] -> norm where the stride or the width
+    changes; LeakyReLU of the sum. Dropout draws in that order."""
+
+    def __init__(self, c_in, features, kernel_size=(3, 3), strides=(1, 1),
+                 drop_block=False, dtype=torch.float32):
+        super().__init__()
+        self.ConvLayer_0 = ConvLayer(c_in, features, kernel_size, strides, drop_block,
+                                     dtype=dtype)
+        self.Conv_0 = Conv(features, features, kernel_size, padding=torch_padding(kernel_size),
+                           dtype=dtype)
+        self.InstanceNorm_0 = InstanceNorm(features, dtype=dtype)
+        self.project = max(strides) > 1 or c_in != features
+        if self.project:
+            self.Conv_1 = Conv(c_in, features, kernel_size, strides,
+                               torch_padding(kernel_size), dtype=dtype)
+            self.InstanceNorm_1 = InstanceNorm(features, dtype=dtype)
+        self.drop_block = drop_block
+
+    def forward(self, x, deterministic=True, generator=None):
+        drop = self.drop_block and not deterministic
+        out = self.Conv_0(self.ConvLayer_0(x, deterministic, generator))
+        if drop:
+            out = channel_dropout(out, 0.5, generator)
+        out = self.InstanceNorm_0(out)
+        residual = x
+        if self.project:
+            residual = self.Conv_1(x)
+            if drop:
+                residual = channel_dropout(residual, 0.5, generator)
+            residual = self.InstanceNorm_1(residual)
+        return F.leaky_relu(out + residual, _NEG_SLOPE)
+
+
+class AttentionGate(nn.Module):
+    """Additive attention on a skip connection: skip * sigmoid(psi), psi a
+    conv -> instance norm of relu(g + s), g and s the same of the gate and
+    the skip at half the gate's width."""
+
+    def __init__(self, c_gate, c_skip, features, dtype=torch.float32):
+        super().__init__()
+        half = features // 2
+        for i, (c_in, c_out) in enumerate(((c_gate, half), (c_skip, half), (half, 1))):
+            self.add_module(f"Conv_{i}", Conv(c_in, c_out, (3, 3), padding=torch_padding((3, 3)),
+                                              dtype=dtype))
+            self.add_module(f"InstanceNorm_{i}", InstanceNorm(c_out, dtype=dtype))
+
+    def forward(self, gate, skip):
+        layer = lambda i, h: getattr(self, f"InstanceNorm_{i}")(getattr(self, f"Conv_{i}")(h))
+        psi = layer(2, F.relu(layer(0, gate) + layer(1, skip)))
+        return skip * torch.sigmoid(psi)
+
+
 class UpsampleBlock(nn.Module):
-    """Transposed-conv upsample, concat [upsampled, skip], double conv."""
+    """Transposed-conv upsample, concat [upsampled, (gated) skip], double
+    conv."""
 
     def __init__(self, c_in, c_skip, features, kernel_size=(3, 3), strides=(2, 2),
-                 dtype=torch.float32):
+                 attention: bool = False, dtype=torch.float32):
         super().__init__()
         self.ConvTranspose_0 = ConvTranspose(c_in, features, strides, dtype=dtype)
+        if attention:
+            self.AttentionGate_0 = AttentionGate(features, c_skip, features, dtype=dtype)
+        self.attention = attention
         self.ConvBlock_0 = ConvBlock(features + c_skip, features, kernel_size,
                                      (1, 1), False, dtype=dtype)
 
     def forward(self, x, skip, deterministic=True, generator=None):
         x = self.ConvTranspose_0(x)
-        x = torch.cat([x, skip.to(x.dtype)], dim=1)
+        skip = skip.to(x.dtype)
+        if self.attention:
+            skip = self.AttentionGate_0(x, skip)
+        x = torch.cat([x, skip], dim=1)
         return self.ConvBlock_0(x, deterministic, generator)
 
 
@@ -255,7 +371,8 @@ class UNet(nn.Module):
                  kernels=((3, 3),) * 8, strides=((1, 1),) + ((2, 2),) * 7,
                  drop_block: bool = False, bottleneck_out: bool = False,
                  deep_supervision: bool = False, out_seg_bias: bool = False,
-                 ssn_rank: int = 0, dtype=torch.float32, head_dtype=torch.float32):
+                 ssn_rank: int = 0, residual: bool = False, attention: bool = False,
+                 dtype=torch.float32, head_dtype=torch.float32):
         super().__init__()
         self.input_shape = tuple(input_shape)
         self.output_shape = tuple(output_shape)
@@ -274,13 +391,15 @@ class UNet(nn.Module):
         # First stochastic encoder stage; the prefix is everything before it.
         self.first_drop = next((i for i, f in enumerate(self.drop_flags) if f), n_down)
 
+        block = ResidBlock if residual else ConvBlock
+        self.block_name = block.__name__
         c_in = input_shape[0]
         enc_ch = []
         for idx in range(n_down + 2):
             f = filters[idx] if idx <= n_down else filters[-1]
             use_drop = (self.drop_flags[idx - 1] if 1 <= idx <= n_down
                         else drop_block if idx == n_down + 1 else False)
-            self.add_module(f"ConvBlock_{idx}", ConvBlock(
+            self.add_module(f"{self.block_name}_{idx}", block(
                 c_in, f, self.kernels[idx], self.strides[idx], use_drop, dtype=dtype))
             c_in = f
             enc_ch.append(f)
@@ -290,7 +409,8 @@ class UNet(nn.Module):
         up_strides = list(self.strides[1:])[::-1]
         for j, c_skip in enumerate(reversed(skips_ch)):
             self.add_module(f"UpsampleBlock_{j}", UpsampleBlock(
-                c_in, c_skip, up_filters[j], up_kernels[j], up_strides[j], dtype=dtype))
+                c_in, c_skip, up_filters[j], up_kernels[j], up_strides[j], attention,
+                dtype=dtype))
             c_in = up_filters[j]
         n_classes = output_shape[0]
         head_compute = torch.promote_types(dtype, head_dtype)
@@ -310,6 +430,10 @@ class UNet(nn.Module):
     @property
     def filters(self):
         return [min(2 ** (5 + i), 480) for i in range(len(self.strides))]
+
+    def stage(self, idx: int) -> nn.Module:
+        """The encoder block of stage `idx` (ConvBlock_idx or ResidBlock_idx)."""
+        return getattr(self, f"{self.block_name}_{idx}")
 
     @property
     def bottleneck_shape(self):
@@ -344,18 +468,18 @@ class UNet(nn.Module):
             skips = [s.to(self.dtype) for s in prefix["skips"]]
             out = skips[-1]
             for i in range(self.first_drop, self.n_down):
-                out = getattr(self, f"ConvBlock_{i + 1}")(out, deterministic, generator)
+                out = self.stage(i + 1)(out, deterministic, generator)
                 skips.append(out)
         else:
-            out = self.ConvBlock_0(x.to(self.dtype), deterministic, generator)
+            out = self.stage(0)(x.to(self.dtype), deterministic, generator)
             skips = [out]
             stop = self.first_drop if mode == "encode_prefix" else self.n_down
             for i in range(stop):
-                out = getattr(self, f"ConvBlock_{i + 1}")(out, deterministic, generator)
+                out = self.stage(i + 1)(out, deterministic, generator)
                 skips.append(out)
             if mode == "encode_prefix":
                 return {"skips": skips}
-        out = getattr(self, f"ConvBlock_{self.n_down + 1}")(out, deterministic, generator)
+        out = self.stage(self.n_down + 1)(out, deterministic, generator)
         bottleneck = out
         decoder_outputs = []
         for j, skip in enumerate(reversed(skips)):

@@ -225,7 +225,7 @@ def rasterize_labelmap(points: torch.Tensor, groups, height: int, width: int,
     are filled in one `polygon_fill` call, so one crossing-selection
     launch; the masks are painted in descending label order, the first as
     mask * label and each next where it is set, so the lowest label wins
-    overlaps (JSRT: the lungs over the heart)."""
+    overlaps (JSRT: the lungs over the heart; CAMUS: the LV over the MYO)."""
     dense = torch.stack([contour_spline(points[..., a:b, :], n=n_dense, close=False)
                          for a, b, _ in groups])
     masks = polygon_fill(dense, height, width)  # (G, ..., H, W)
@@ -431,12 +431,38 @@ def _run_predictor(predictor, views, seed: int,
     return outs
 
 
+def predict_mesh_mode(cfg: Dict) -> str:
+    """`predict_mesh` as the JAX runner reads it: "auto" (also true, 1, yes,
+    on; the default) or "false" (also 0, no, off); anything else raises
+    ValueError."""
+    raw = cfg.get("predict_mesh", "auto")
+    sel = str(raw).strip().lower()
+    if sel in ("true", "1", "yes", "on"):
+        return "auto"
+    if sel in ("false", "0", "no", "off"):
+        return "false"
+    if sel != "auto":
+        raise ValueError(f"predict_mesh={raw!r} not understood — use 'auto', true, or false")
+    return sel
+
+
 def check_predict_options(cfg: Dict):
     """Raise on the options of the JAX predict path that the port does not
-    have yet, instead of predicting without them."""
+    have yet, instead of predicting without them, and on a `predict_mesh`
+    value the JAX runner refuses."""
+    predict_mesh_mode(cfg)
     if int(cfg.get("predict_sample_parallel", 1) or 1) > 1:
         raise NotImplementedError("multi-device predict is not ported yet "
                                   "(ROADMAP.md Queue 1, item 11)")
+
+
+def _note_single_device(cfg: Dict, device: torch.device):
+    """Where the JAX runner would shard the views over every visible device
+    (`predict_mesh` auto, several devices), say that the port serves on one."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if predict_mesh_mode(cfg) == "auto" and n > 1:
+        print(f"[predict] predict_mesh=auto sees {n} GPUs; serving on one device ({device}): "
+              "multi-GPU serving is not ported yet (ROADMAP.md Queue 1, item 11)")
 
 
 def run_predict_segmentation(task, model, data, cfg, split: str = "test",
@@ -479,6 +505,7 @@ def run_predict(task, model, data, cfg, split: str = "test",
     device = resolve_device(device)
     task_cfg = cfg.get("task", {})
     check_predict_options(cfg)
+    _note_single_device(cfg, device)
     if isinstance(task, SegmentationUncertaintyTask):
         results = run_predict_segmentation(task, model, data, cfg, split, device)
         _maybe_run_processors(results, cfg, metrics_out, device)

@@ -15,12 +15,15 @@ is given. A processor that fails is recorded in `result["processor_errors"]`;
 an eval-only run (`train=false`) with a failed processor or test pass exits
 non-zero from `main`.
 
-`data=lung-cont` and `data=lung` read JSRT films from `data.dataset_path`
-(pass a `task.psm_path` of their own). `task.sequence_sampler`,
+`data=camus-cont` and `data=camus` read a CAMUS-layout HDF5 file from
+`data.dataset_path`; `data=lung-cont` and `data=lung` read JSRT films from
+it (pass a `task.psm_path` of their own). `task.sequence_sampler`,
 `task.seq_psm_path`, `task.soft_mask` and `predict_batch_views` reach
-`run_predict`. Not ported (ROADMAP.md Queue 1):
-`train_ensemble` and ensemble directories, several devices
-(`predict_mesh`, `predict_sample_parallel`).
+`run_predict`. `predict_mesh` is read as the JAX runner reads it (a value
+it refuses raises ValueError before training); with several visible GPUs
+the port still serves on one and says so. Not ported (ROADMAP.md Queue 1):
+`train_ensemble` and ensemble directories, serving on several devices
+(`predict_sample_parallel`, the view mesh of `predict_mesh`).
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from contouring_uncertainty_torch.train.checkpoint import resolve_checkpoint, re
 
 
 def _check_ported(cfg: Dict):
+    """Raise, before anything is built, on run options the port does not
+    have yet, and on a `predict_mesh` value the JAX runner refuses."""
     if int(cfg.get("task", {}).get("train_ensemble", 0) or 0) > 1:
         raise NotImplementedError("deep ensembles are not ported yet "
                                   "(ROADMAP.md Queue 1, item 5)")

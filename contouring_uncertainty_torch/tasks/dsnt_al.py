@@ -1,6 +1,8 @@
 """DSNT-AL task: U-Net heatmaps -> DSNT -> per-point bivariate Gaussians.
 
-Counterpart of contouring_uncertainty_tpu/tasks/dsnt_al.py: `build_model`,
+Counterpart of contouring_uncertainty_tpu/tasks/dsnt_al.py: `build_model`
+(every backbone; the Resnet regressor's coordinates go through
+`regression_gaussians` instead of DSNT),
 `forward_gaussians`, `predict` and `mc_dropout_apply` (serving), `loss` and
 `val_metrics` (training: the per-point Gaussian NLL, and the validation Dice
 of the linear contour reconstruction, rasterized through the crossing
@@ -27,25 +29,41 @@ from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.utils.metrics import dice_binary
 
 
+def regression_gaussians(mu: torch.Tensor, sigma_params: torch.Tensor,
+                         use_covar: bool = True):
+    """Per-point bivariate Gaussians from a coordinate-regression head (the
+    Resnet backbone's (N, K, 2) coordinates and (N, K, sigma_out) sigma
+    parameters): (log sigma_x, log sigma_y[, atanh-rho logit]) -> (mu, 2x2
+    cov), log sigmas clipped to [-6, 8] and rho to 0.99 tanh."""
+    log_s = torch.clamp(sigma_params[..., :2], -6.0, 8.0)
+    sx, sy = torch.exp(log_s[..., 0]), torch.exp(log_s[..., 1])
+    if use_covar and sigma_params.shape[-1] >= 3:
+        rho = 0.99 * torch.tanh(sigma_params[..., 2])
+    else:
+        rho = torch.zeros_like(sx)
+    off = rho * sx * sy
+    cov = torch.stack([torch.stack([sx * sx, off], dim=-1),
+                       torch.stack([off, sy * sy], dim=-1)], dim=-2)
+    return mu, cov
+
+
 def mc_dropout_apply(model: torch.nn.Module, img: torch.Tensor, t_e: int,
                      generator: Optional[torch.Generator]) -> Dict:
     """One batched MC-dropout forward at batch T_e*N -> raw output dict,
     T_e-major ordering (sample e of frame i at batch index e*N + i).
 
-    `model` is a UNet or a model that wraps one as `model.unet` (SkewUNet,
-    whose modes pass through to it); anything else raises. With
-    `drop_block`, the deterministic encoder prefix (stem + every stage
-    before the first dropout stage, the FLOP-heavy high-resolution part) runs
-    ONCE at batch N and is tiled T_e times; only the stochastic tail runs at
-    batch T_e*N. Exact against tiling the input: the prefix has no dropout,
-    instance norm is per sample, and the tail draws the same masks from the
-    generator in the same order. Without `drop_block` the input is tiled."""
+    For a UNet (or a model that wraps one as `model.unet`, SkewUNet, whose
+    modes pass through to it) with `drop_block`, the deterministic encoder
+    prefix (stem + every stage before the first dropout stage, the
+    FLOP-heavy high-resolution part) runs ONCE at batch N and is tiled T_e
+    times; only the stochastic tail runs at batch T_e*N. Exact against
+    tiling the input: the prefix has no dropout, instance norm is per
+    sample, and the tail draws the same masks from the generator in the
+    same order. Any other model, or a UNet without `drop_block`, runs the
+    tiled input."""
     inner = getattr(model, "unet", model)
-    if not isinstance(inner, UNet):
-        raise TypeError(f"mc_dropout_apply needs a UNet or a model wrapping one as "
-                        f"`.unet`, got {type(model).__name__}")
     tile = lambda a: a.repeat((t_e,) + (1,) * (a.ndim - 1))
-    if inner.drop_block:
+    if isinstance(inner, UNet) and inner.drop_block:
         prefix = model(img, mode="encode_prefix")
         tiled = {"skips": [tile(s) for s in prefix["skips"]]}
         return model(None, deterministic=False, generator=generator,
@@ -94,20 +112,32 @@ class DSNTAleatoric:
     task_name: str = "dsnt-al"
 
     def build_model(self, device: DeviceLike = None,
-                    generator: Optional[torch.Generator] = None) -> UNet:
+                    generator: Optional[torch.Generator] = None) -> torch.nn.Module:
         """The backbone on `device` (default cuda), initialised from
-        `generator` (a CPU generator gives the same weights on any device)."""
+        `generator` (a CPU generator gives the same weights on any device).
+        `resnet` regresses (K, 2) coordinates with a sigma branch of 3
+        parameters per point (2 without `covar`) unless the config sets
+        `sigma_out`."""
         from contouring_uncertainty_torch.models import build_backbone
 
         device = resolve_device(device)
         c, h, w = self.data_params.in_shape
         k = self.data_params.out_shape[0]
-        model = build_backbone(self.model_name, (c, h, w), (k, h, w), **self.model_kwargs)
+        if self.model_name == "resnet":
+            kwargs = {"sigma_out": 3 if self.covar else 2, **self.model_kwargs}
+            model = build_backbone("resnet", (c, h, w), (k, 2), **kwargs)
+        else:
+            model = build_backbone(self.model_name, (c, h, w), (k, h, w), **self.model_kwargs)
         model.reset_parameters(generator)
         return model.to(device).eval()
 
     def _gaussians_from_out(self, out):
-        return dsnt_ops.logits_to_pixel_gaussians(out["out"], use_covar=self.covar)
+        """Model output dict -> (mu, cov): DSNT on heatmaps, or
+        `regression_gaussians` on a regressor's (N, K, 2) coordinates."""
+        o = out["out"]
+        if o.dim() == 3:
+            return regression_gaussians(o, out["sigma"], use_covar=self.covar)
+        return dsnt_ops.logits_to_pixel_gaussians(o, use_covar=self.covar)
 
     def forward_gaussians(self, model, img, generator=None, mc_dropout=False):
         """img (N, C, H, W) -> (mu (N,K,2), sigma (N,K,2,2)) in pixel space."""

@@ -1,9 +1,10 @@
 """DSNT-skew task: heatmaps and a bottleneck ConfidenceNet -> per-point
 bivariate skew-normal (MICCAI 2023 asymmetric contour uncertainty).
 
-Counterpart of contouring_uncertainty_tpu/tasks/dsnt_skew.py: the UNet runs
-with `bottleneck_out`, a ConfidenceNet head regresses 2 |skew_indices|
-alpha values, scattered into the (N, K, 2) alpha tensor (zeros elsewhere);
+Counterpart of contouring_uncertainty_tpu/tasks/dsnt_skew.py: the backbone
+(UNet, DeepLabV3 or Enet) runs with `bottleneck_out`, a ConfidenceNet head
+regresses 2 |skew_indices| alpha values, scattered into the (N, K, 2)
+alpha tensor (zeros elsewhere);
 the loss is the skew-normal NLL 0.5 log|S| + 0.5 maha - log Phi, and at
 predict time alpha's y component is flipped (the image's y axis points
 down; the skew PSM sampler flips it once more, as in the JAX package).
@@ -25,7 +26,7 @@ from torch import nn
 from contouring_uncertainty_torch.data.config import Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions import bsn
-from contouring_uncertainty_torch.models.unet import ConfidenceNet, UNet
+from contouring_uncertainty_torch.models.unet import ConfidenceNet
 from contouring_uncertainty_torch.ops import dsnt as dsnt_ops
 from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.tasks.dsnt_al import (
@@ -40,10 +41,11 @@ class SkewUNet(nn.Module):
     the bottleneck features; the two names are the flax tree's, so
     convert.py maps it one to one."""
 
-    def __init__(self, unet: UNet, n_skew: int):
+    def __init__(self, unet: nn.Module, n_skew: int):
         super().__init__()
-        if not unet.bottleneck_out:
-            raise ValueError("SkewUNet needs a UNet built with bottleneck_out=True")
+        if not getattr(unet, "bottleneck_out", False):
+            raise ValueError(f"SkewUNet needs a backbone built with bottleneck_out=True "
+                             f"(a UNet, DeepLabV3 or Enet), got {type(unet).__name__}")
         self.unet = unet
         self.n_skew = n_skew
         self.confidence_net = ConfidenceNet(unet.bottleneck_shape, 2 * n_skew)

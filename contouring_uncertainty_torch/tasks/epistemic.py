@@ -27,14 +27,16 @@ class EpistemicUncertainty(DSNTAleatoric):
     def build_model(self, device: DeviceLike = None,
                     generator: Optional[torch.Generator] = None):
         """The backbone with MC dropout forced on when T_e > 1 (without it
-        the T_e forwards would be identical)."""
+        the T_e forwards would be identical): the UNet's `drop_block`, or
+        `dropout=0.1` on the other backbones where their config has none."""
         if self.t_e > 1:
             if self.model_name in ("unet2", "unet"):
                 self.model_kwargs["drop_block"] = True
-            else:
-                raise NotImplementedError(
-                    f"forcing dropout on model '{self.model_name}' is not ported yet "
-                    "(ROADMAP.md Queue 1, item 9)")
+            elif self.model_name in ("enet", "deeplabv3", "resnet"):
+                if not self.model_kwargs.get("dropout"):
+                    print("[epistemic] forcing model dropout=0.1 (t_e > 1 "
+                          "requires stochastic forwards)")
+                    self.model_kwargs["dropout"] = 0.1
         return super().build_model(device, generator)
 
     def predict(self, model, img, generator: Generators = None):

@@ -47,5 +47,5 @@ def resolve_checkpoint(checkpoint: str | Path) -> Path:
     if not (path / "state.pt").exists():
         raise FileNotFoundError(
             f"checkpoint '{checkpoint}' is not a local checkpoint directory (no state.pt); "
-            "Comet model-registry queries are not ported yet (ROADMAP.md Queue 1)")
+            "Comet model-registry queries are not ported yet (ROADMAP.md Queue 1, item 5)")
     return path

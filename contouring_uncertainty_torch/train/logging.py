@@ -2,8 +2,8 @@
 
 Counterpart of contouring_uncertainty_tpu/train/logging.py, JSONL part. The
 Comet and TensorBoard back ends and figure logging are not ported
-(ROADMAP.md Queue 1): asking for them raises rather than dropping the
-request. The metrics CSV is written by the trainer itself.
+(ROADMAP.md Queue 1, items 5 and 13): asking for a back end raises rather
+than dropping the request. The metrics CSV is written by the trainer itself.
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ class ExperimentLogger:
                  use_comet: bool = False, use_tensorboard: bool = False):
         if use_comet or use_tensorboard:
             raise NotImplementedError(
-                "Comet and TensorBoard logging are not ported yet (ROADMAP.md Queue 1); "
-                "metrics go to the CSV and JSONL files")
+                "Comet and TensorBoard logging are not ported yet (ROADMAP.md Queue 1, "
+                "item 5); metrics go to the CSV and JSONL files")
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.run_dir / f"{name}_metrics.jsonl", "a")

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from contouring_uncertainty_torch.data import augment as aug
+from contouring_uncertainty_torch.data.camus import iterate_batches
 from contouring_uncertainty_torch.data.config import Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.train.checkpoint import (
@@ -288,14 +289,14 @@ class Trainer:
             start_epoch = int(load_meta(resume_from).get("epoch", -1)) + 1
 
         run_dir = Path(cfg.save_path) / str(cfg.seed)
-        run_dir.mkdir(parents=True, exist_ok=True)
+        # First, so that an unported logger is refused before anything is written.
+        exp_logger = ExperimentLogger(run_dir, cfg.name, use_comet=cfg.use_comet,
+                                      use_tensorboard=cfg.use_tensorboard)
         self._metrics_file = run_dir / f"{cfg.name}_metrics.csv"
         if not cfg.fast_dev_run:
             (run_dir / "summary.txt").write_text(
                 model_summary(self.model, self.task.data_params.in_shape))
         timer = PhaseTimer(sync=self.device.type == "cuda")
-        exp_logger = ExperimentLogger(run_dir, cfg.name, use_comet=cfg.use_comet,
-                                      use_tensorboard=cfg.use_tensorboard)
 
         best_val = np.inf
         best_params = _copy_state(self.model)
@@ -464,15 +465,10 @@ def _device_prefetch(batch_iter: Iterator, device: torch.device,
 
 
 def _iterate(arrays, batch_size, rng, shuffle=True, drop_last=True):
-    """numpy batches in the JAX trainer's order: one `rng.permutation` per
-    shuffled epoch, string and object arrays left out."""
-    n = len(arrays[Tags.img])
-    order = rng.permutation(n) if shuffle else np.arange(n)
-    end = n - (n % batch_size) if drop_last and n >= batch_size else n
-    for start in range(0, end, batch_size):
-        idx = order[start:start + batch_size]
-        yield {
-            k: v[idx]
-            for k, v in arrays.items()
-            if isinstance(v, np.ndarray) and v.dtype != object and v.dtype.kind != "U"
-        }
+    """numpy batches in the JAX trainer's order (`data/camus.py
+    iterate_batches`: one `rng.permutation` per shuffled epoch), string and
+    object arrays left out; a split smaller than one batch is one batch."""
+    arrays = {k: v for k, v in arrays.items()
+              if isinstance(v, np.ndarray) and v.dtype != object and v.dtype.kind != "U"}
+    return iterate_batches(arrays, batch_size, rng, shuffle,
+                           drop_last and len(arrays[Tags.img]) >= batch_size)

@@ -27,7 +27,7 @@ from contouring_uncertainty_tpu.predict import run_predict as j_run_predict
 from contouring_uncertainty_tpu.tasks import DSNTAleatoric as JTask
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.convert import flax_to_torch_state
-from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.tasks import DSNTAleatoric, DSNTSkew
 from contouring_uncertainty_torch.utils.umap import skew_umap_groups
 from test_torch_port_skew_predict import _ViewBias
@@ -43,7 +43,7 @@ SMALL = dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3, drop_bloc
 def setup():
     """The views, the biased JAX task and weights, and the port's task and
     biased model with the same weights."""
-    data = SyntheticContourData(n_patients=7, size=SIZE, seed=2)
+    data = synthetic_camus_data(n_patients=7, size=SIZE, seed=2)
     views = list(data.predict_views("test"))
     assert len(views) == 4
     bias = _ViewBias(views)
@@ -169,7 +169,7 @@ def test_batched_views_match_one_view_per_dispatch(path, monkeypatch):
     served), which keeps its plain crossing selection on the CPU small."""
     monkeypatch.setattr(tpred, "skew_umap_groups", functools.partial(skew_umap_groups, levels=10))
     cls, task_cfg = PATHS[path]
-    data = SyntheticContourData(n_patients=7, size=SIZE, seed=2)
+    data = synthetic_camus_data(n_patients=7, size=SIZE, seed=2)
     task = cls(data_params=data.data_params, t_e=2, t_a=8, model_kwargs=SMALL)
     model = task.build_model(device="cpu", generator=torch.Generator().manual_seed(4))
     cfg = {"seed": 5, "task": task_cfg}

@@ -4,6 +4,7 @@
   package applies it (data/transforms.py, factory.build_data);
 - options of the predict path that are not ported yet (several devices)
   raise instead of being ignored, from the runner and from run_predict,
+  and `predict_mesh` is read as the JAX runner reads it (fault F6),
   and a multi-structure data source, which raised before JSRT was ported,
   now serves through both, the lowest label winning overlaps;
 - every "not ported yet" message names the ROADMAP.md item that holds it.
@@ -25,6 +26,7 @@ from contouring_uncertainty_torch import factory, runner
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.config import compose
 from contouring_uncertainty_torch.results import FIGURES_NOT_PORTED, NOT_PORTED
+from contouring_uncertainty_torch.train.logging import ExperimentLogger
 
 torch.set_num_threads(1)
 
@@ -173,6 +175,34 @@ def test_unported_predict_options_raise(key, entry, tmp_path, monkeypatch):
     assert len(tpred.run_predict(task, model, data, cfg, device="cpu")) == 2
 
 
+@pytest.mark.parametrize("entry", ["runner", "run_predict"])
+def test_predict_mesh_is_read_as_the_jax_runner_reads_it(entry, tmp_path, monkeypatch, capsys):
+    """`predict_mesh` (fault F6, read by nothing before): a value the JAX
+    runner refuses raises its ValueError, from runner.run before anything is
+    trained and from run_predict; the true/false spellings are read as
+    "auto" and "false"; with "auto" and several visible GPUs the port
+    serves on one device and says so."""
+    match = "predict_mesh='bogus' not understood"
+    if entry == "runner":
+        with pytest.raises(ValueError, match=match):
+            runner.run(SMALL_RUN + [f"save_path={tmp_path}", "predict_mesh=bogus"], device="cpu")
+        assert not any(tmp_path.iterdir())  # nothing trained
+    else:
+        with pytest.raises(ValueError, match=match):
+            tpred.run_predict(None, None, None, {"predict_mesh": "bogus"}, device="cpu")
+    spellings = {"auto": "auto", "True": "auto", "1": "auto", "yes": "auto", "on": "auto",
+                 "false": "false", "0": "false", "No": "false", "off": "false"}
+    for raw, want in spellings.items():
+        assert tpred.predict_mesh_mode({"predict_mesh": raw}) == want
+    assert tpred.predict_mesh_mode({}) == "auto"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    tpred._note_single_device({"predict_mesh": True}, torch.device("cuda"))
+    assert "serving on one device" in capsys.readouterr().out
+    tpred._note_single_device({"predict_mesh": "off"}, torch.device("cuda"))
+    tpred._note_single_device({}, torch.device("cpu"))
+    assert capsys.readouterr().out == ""
+
+
 def _roadmap_items():
     """ROADMAP.md Queue 1: item number -> heading."""
     text = (REPO / "ROADMAP.md").read_text()
@@ -187,20 +217,20 @@ def _message(fn):
 
 
 CASES = {
-    "data camus-cont": ("CAMUS", lambda: factory.build_data(
-        compose(["data=camus-cont"]))),
-    # "data lung" and "contour_groups" raised for JSRT (item 10) before it
-    # was ported; they hold two backbone options that stay unported.
-    "data lung": ("Other backbones", lambda: factory.build_task(
-        compose(["task.model.name=resnet"]), None)),
-    "model enet": ("Other backbones", lambda: factory.build_task(
-        compose(["task.model.name=enet"]), None)),
-    "model deeplabv3": ("Other backbones", lambda: factory.build_task(
-        compose(["task.model.name=deeplabv3"]), None)),
-    "UNet residual": ("Other backbones", lambda: factory.build_task(
-        compose(["task=mcdropout", "task.model.residual=true"]), None)),
-    "contour_groups": ("Other backbones", lambda: factory.build_task(
-        compose(["task.model.attention=true"]), None)),
+    # The first six cases held the CAMUS source (item 2) and the other
+    # backbones and UNet flags (item 9) before they were ported; they hold
+    # options that stay unported.
+    "tensorboard, logger": ("Training", lambda: ExperimentLogger(
+        "unused", "x", use_tensorboard=True)),
+    "comet, logger": ("Training", lambda: ExperimentLogger("unused", "x", use_comet=True)),
+    "tensorboard, runner.run": ("Training", lambda: runner.run(
+        SMALL_RUN + ["tensorboard=true"], device="cpu")),
+    "comet, runner.run": ("Training", lambda: runner.run(SMALL_RUN + ["comet=true"],
+                                                         device="cpu")),
+    "train_ensemble, runner.run": ("Training", lambda: runner.run(
+        SMALL_RUN + ["task.train_ensemble=2"], device="cpu")),
+    "predict_sample_parallel, run_predict entry": ("Multi-GPU", lambda: tpred.run_predict(
+        None, None, None, {"predict_sample_parallel": 2}, device="cpu")),
     "train_ensemble": ("Training", lambda: runner._check_ported(
         compose(["task.train_ensemble=3"]))),
     "predict_sample_parallel": ("Multi-GPU", lambda: runner._check_ported(
@@ -211,12 +241,15 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_not_ported_messages_name_their_roadmap_item(case):
+def test_not_ported_messages_name_their_roadmap_item(case, tmp_path, monkeypatch):
     """Each "not ported yet" error names the ROADMAP.md Queue 1 item whose
-    heading holds that feature."""
+    heading holds that feature; a run refused writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("SAVE_PATH", raising=False)
     keyword, fn = CASES[case]
     item = int(re.search(r"ROADMAP\.md Queue 1, item (\d+)", _message(fn)).group(1))
     assert keyword.lower() in _roadmap_items()[item].lower(), (case, item)
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("name", [*NOT_PORTED, *FIGURES_NOT_PORTED])

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports no JAX, nothing of the JAX
-package and none of h5py (but inside the JSRT reader's load and writer
-functions), matplotlib, pandas, PyYAML and orbax; its entry points
+package and none of h5py (but inside the JSRT and CAMUS readers' load
+functions and the writers), matplotlib, pandas, PyYAML and orbax; its entry points
 default to the GPU and raise without one instead of carrying on on the CPU;
 and chip_smoke.py refuses to run without a card or outside a checkout.
 """
@@ -19,7 +19,7 @@ import contouring_uncertainty_torch as port
 from contouring_uncertainty_torch import factory, runner
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.config import compose
-from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.device import resolve_device
 from contouring_uncertainty_torch.results import run_processors
 from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
@@ -37,10 +37,12 @@ def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-# The one exception: the JSRT reader's load and writer functions import
-# h5py inside themselves, as the JAX package's do (the machine with the
-# card has no h5py and feeds the reader from arrays).
-H5PY_FUNCTIONS = {PACKAGE / "data" / "lung.py": {"_load", "write_jsrt_hdf5"}}
+# The one exception: the JSRT and CAMUS readers' load functions and the
+# writers import h5py inside themselves, as the JAX package's do (the
+# machine with the card has no h5py and feeds the readers from arrays).
+H5PY_FUNCTIONS = {PACKAGE / "data" / "lung.py": {"_load", "write_jsrt_hdf5"},
+                  PACKAGE / "data" / "camus.py": {"_split_patients", "load_split"},
+                  PACKAGE / "data" / "synthetic.py": {"write_camus_hdf5"}}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -93,7 +95,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     and runner.run of the training path, and the results processors'
     run_processors); `device="cpu"` is the only way onto the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    data = SyntheticContourData(n_patients=5, size=64, seed=0)
+    data = synthetic_camus_data(n_patients=5, size=64, seed=0)
     task = DSNTAleatoric(data_params=data.data_params, t_e=1, t_a=2, model_kwargs=SMALL)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         task.build_model()

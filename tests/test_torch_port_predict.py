@@ -28,7 +28,7 @@ from contouring_uncertainty_tpu.utils import umap as jumap
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.convert import flax_to_torch_state
 from contouring_uncertainty_torch.data.config import DataParams
-from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 from contouring_uncertainty_torch.utils import projection as tproj
@@ -215,7 +215,7 @@ def test_run_predict_on_synthetic_views(tmp_path):
     """run_predict end to end on the CPU: one BatchResult per test view with
     the JAX package's shapes, T_e-major MC dropout live (T_e = 2), the prior
     fitted once and cached at task.psm_path, then loaded back unchanged."""
-    data = SyntheticContourData(n_patients=5, size=SIZE, seed=1)
+    data = synthetic_camus_data(n_patients=5, size=SIZE, seed=1)
     task = DSNTAleatoric(data_params=data.data_params, t_e=2, t_a=4, model_kwargs=SMALL)
     model = task.build_model(device="cpu", generator=torch.Generator().manual_seed(0))
     cfg = {"seed": 3, "task": {"psm_path": str(tmp_path / "prior.npz")}}
@@ -253,9 +253,9 @@ def test_cached_prior_is_keyed_by_the_training_contours(tmp_path, capsys):
     from contouring_uncertainty_tpu.sampler.prior import save_prior as j_save
 
     path = str(tmp_path / "prior.npz")
-    small = SyntheticContourData(n_patients=5, size=SIZE, seed=1)
-    other = SyntheticContourData(n_patients=5, size=SIZE, seed=2)
-    larger = SyntheticContourData(n_patients=5, size=4 * SIZE, seed=1)
+    small = synthetic_camus_data(n_patients=5, size=SIZE, seed=1)
+    other = synthetic_camus_data(n_patients=5, size=SIZE, seed=2)
+    larger = synthetic_camus_data(n_patients=5, size=4 * SIZE, seed=1)
     tpred.get_or_fit_prior(small, path)
     capsys.readouterr()
     for data in (other, larger, small):

@@ -33,7 +33,7 @@ from contouring_uncertainty_tpu.data import config as jc
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch import runner
 from contouring_uncertainty_torch.data.config import BatchResult, Label
-from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.results import NOT_PORTED, run_processors
 from contouring_uncertainty_torch.results.utils import Table
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
@@ -84,7 +84,7 @@ def run_jax_processors(results, out_dir, cfg):
 
 @pytest.fixture(scope="module")
 def views(tmp_path_factory):
-    data = SyntheticContourData(n_patients=10, size=64, seed=1)
+    data = synthetic_camus_data(n_patients=10, size=64, seed=1)
     task = DSNTAleatoric(data_params=data.data_params, t_e=2, t_a=4, model_kwargs=SMALL)
     model = task.build_model(device="cpu", generator=torch.Generator().manual_seed(0))
     cfg = {"seed": 3, "task": {"psm_path": str(tmp_path_factory.mktemp("prior") / "p.npz")}}

@@ -41,7 +41,7 @@ from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch import runner
 from contouring_uncertainty_torch.data import augment as taug
 from contouring_uncertainty_torch.data.config import BatchResult, DataParams
-from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.models import unet as tunet
 from contouring_uncertainty_torch.results import run_processors
 from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
@@ -211,7 +211,7 @@ def test_seg_predictor_matches_jax(name, channels, imgs, monkeypatch):
 
 
 def _synthetic(size=64, n_patients=5):
-    return SyntheticContourData(n_patients=n_patients, size=size, seed=1)
+    return synthetic_camus_data(n_patients=n_patients, size=size, seed=1)
 
 
 @pytest.mark.parametrize("name", list(TASKS))
@@ -246,7 +246,7 @@ def test_run_predict_serves_the_baselines(name, tmp_path):
 def jax_seg_results():
     """BatchResults made by the JAX package's SegPredictor (SSN, binary) on
     the test views of a synthetic source with both views of 2 patients."""
-    data = SyntheticContourData(n_patients=10, size=64, seed=1)
+    data = synthetic_camus_data(n_patients=10, size=64, seed=1)
     jtask, jmodel, variables, task, _ = make_pair(
         jseg.StochasticSegmentationNetwork, tseg.StochasticSegmentationNetwork, 1, SMALL,
         t_a=4, rank=2)
@@ -389,7 +389,7 @@ def test_epistemic_task_matches_jax(epistemic_pair, imgs, monkeypatch):
     np.testing.assert_allclose(pcov.numpy(), np.asarray(pcov_j), rtol=0,
                                atol=1e-3 * float(np.abs(np.asarray(pcov_j)).max()))
 
-    prior = fit_shape_prior(SyntheticContourData(n_patients=5, size=64, seed=1)
+    prior = fit_shape_prior(synthetic_camus_data(n_patients=5, size=64, seed=1)
                             .train_arrays("train")["contour"])
     predictor = tpred.AleatoricPredictor(task, model, PosteriorShapeModelSampler(prior,
                                                                                  device="cpu"),

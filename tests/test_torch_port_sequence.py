@@ -21,7 +21,7 @@ from contouring_uncertainty_tpu.sampler.sequence import SequencePSMSampler as JS
 from contouring_uncertainty_tpu.sampler.sequence import SequenceSkewPSMSampler as JSeqSkew
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.data.config import Tags
-from contouring_uncertainty_torch.data.synthetic import SyntheticContourData, lv_contour_points
+from contouring_uncertainty_torch.data.synthetic import lv_contour_points, synthetic_camus_data
 from contouring_uncertainty_torch.rng import draw_normal, draw_uniform
 from contouring_uncertainty_torch.sampler import fit_shape_prior
 from contouring_uncertainty_torch.sampler.sequence import (
@@ -164,7 +164,7 @@ def test_sequence_prior_matches_jax_and_is_cached_by_its_pairs(tmp_path, capsys)
     prior is cached at the path with its pairs' digest, loaded back
     unchanged, and refit when the data change. Fit on 6 pairs, fewer than
     its 84 dimensions, it warns that its covariance is singular."""
-    data = SyntheticContourData(n_patients=5, size=SIZE, seed=1)
+    data = synthetic_camus_data(n_patients=5, size=SIZE, seed=1)
     path = tmp_path / "seq.npz"
     got = tpred.get_or_fit_sequence_prior(data, str(path))
     assert "fit on 6 (ED, ES) pairs, no more than its 84 dimensions" in capsys.readouterr().out
@@ -183,7 +183,7 @@ def test_sequence_prior_matches_jax_and_is_cached_by_its_pairs(tmp_path, capsys)
     assert "refitting" not in capsys.readouterr().out
     for a, b in zip(again, got):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    other = SyntheticContourData(n_patients=5, size=SIZE, seed=2)
+    other = synthetic_camus_data(n_patients=5, size=SIZE, seed=2)
     tpred.get_or_fit_sequence_prior(other, str(path))
     assert "refitting" in capsys.readouterr().out
 
@@ -212,7 +212,7 @@ def test_sequence_errors_match_jax():
     from contouring_uncertainty_tpu.tasks import DSNTAleatoric as JTask
     from contouring_uncertainty_torch.tasks import DSNTAleatoric
 
-    one = _OneFrameViews(SyntheticContourData(n_patients=5, size=SIZE, seed=1))
+    one = _OneFrameViews(synthetic_camus_data(n_patients=5, size=SIZE, seed=1))
     match = "requires views with distinct ED and ES instants"
     with pytest.raises(ValueError, match=match):
         tpred.get_or_fit_sequence_prior(one, None)
@@ -226,7 +226,7 @@ def test_sequence_errors_match_jax():
             else:
                 yield from super().predict_views(split)
 
-    data = OneFrameTest(SyntheticContourData(n_patients=5, size=SIZE, seed=1))
+    data = OneFrameTest(synthetic_camus_data(n_patients=5, size=SIZE, seed=1))
     cfg = {"seed": 0, "task": {"sequence_sampler": True}}
     small = dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3)
     task = DSNTAleatoric(data_params=data.data_params, model_kwargs=small)

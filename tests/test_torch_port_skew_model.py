@@ -261,7 +261,8 @@ def test_skew_unet_mc_dropout_takes_the_shared_prefix(pair, monkeypatch):
     prefix (encode_prefix once at batch N, decode_from_prefix at T_e*N) and
     matches the full forward of the tiled input with the same generator
     seed, logits and alpha_raw within 1e-5; a model that neither is nor
-    wraps a UNet raises instead of taking another route."""
+    wraps a UNet (the other backbones) runs that tiled forward itself, as
+    the JAX task's route for them."""
     *_, task, model, batch = pair
     modes = []
     forward = tunet.UNet.forward
@@ -285,8 +286,12 @@ def test_skew_unet_mc_dropout_takes_the_shared_prefix(pair, monkeypatch):
         def forward(self, x, **kwargs):
             return model(x, **kwargs)
 
-    with pytest.raises(TypeError, match="UNet"):
-        mc_dropout_apply(NotAUNet(), x, 3, None)
+    modes.clear()
+    with torch.no_grad():
+        other = mc_dropout_apply(NotAUNet(), x, 3, torch.Generator().manual_seed(5))
+    assert modes == ["full"]
+    for key in ("out", "alpha_raw"):
+        torch.testing.assert_close(other[key], tiled[key], rtol=0, atol=0)
     with pytest.raises(ValueError, match="bottleneck_out"):
         SkewUNet(model.unet.__class__((1, 64, 64), (21, 64, 64), **SMALL), 5)
 

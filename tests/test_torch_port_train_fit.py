@@ -21,7 +21,7 @@ from contouring_uncertainty_tpu.tasks import DSNTAleatoric as JTask
 from contouring_uncertainty_tpu.train import Trainer as JTrainer
 from contouring_uncertainty_tpu.train import TrainerConfig as JTrainerConfig
 from contouring_uncertainty_torch.convert import flax_to_torch_state
-from contouring_uncertainty_torch.data.synthetic import SyntheticContourData
+from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 from contouring_uncertainty_torch.train import trainer as trainer_mod
@@ -34,7 +34,7 @@ SMALL = dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3)
 
 @pytest.fixture(scope="module")
 def data():
-    return SyntheticContourData(n_patients=5, size=64, seed=1)
+    return synthetic_camus_data(n_patients=5, size=64, seed=1)
 
 
 def _csv(path):

@@ -77,14 +77,7 @@ def _jax_trainer_config(cfg):
     return captured["config"]
 
 
-# The cases with the ids "data.name=lung-item 10" and "data.name=lung-cont-item 10"
-# held JSRT (item 10) before it was ported; they hold two backbone options
-# that stay unported.
 @pytest.mark.parametrize("override,item", [
-    ("data.name=camus-cont", "item 2"),
-    pytest.param("task.model.name=deeplabv3", "item 9", id="data.name=lung-item 10"),
-    ("task.model.name=enet", "item 9"), ("task.model.residual=true", "item 9"),
-    pytest.param("task.model.attention=true", "item 9", id="data.name=lung-cont-item 10"),
     ("comet=true", "Queue 1"),
     ("predict_sample_parallel=2", "item 11"), ("task.train_ensemble=3", "item 5"),
 ])
@@ -97,9 +90,53 @@ def test_unported_configurations_raise_naming_the_roadmap(override, item, tmp_pa
                  "task.model.strides=[[1,1],[2,2],[2,2]]", f"save_path={tmp_path}", override]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1.*{item}|{item}"):
         runner.run(overrides, device="cpu")
+    assert not any(tmp_path.iterdir())  # nothing trained
     assert compose(["data=lung"])["data"]["labels"] == ["BG", "LUNG", "HEART"]
-    with pytest.raises(ValueError, match="Unknown option 'camus' for config group 'data'"):
-        compose(["data=camus"])
+    with pytest.raises(ValueError, match="Unknown option 'echonet' for config group 'data'"):
+        compose(["data=echonet"])
+
+
+# These five cases raised while the CAMUS source (ROADMAP.md item 2) and the
+# other backbones and UNet flags (item 9) were not ported; each now checks
+# that the option builds.
+PORTED_OPTIONS = {
+    "data.name=camus-cont reads a CAMUS file": ["data=camus-cont"],
+    "task.model.name=deeplabv3 builds": ["task/model=deeplabv3"],
+    "task.model.name=enet builds": ["task/model=enet"],
+    "task.model.residual=true builds": ["task.model.residual=true"],
+    "task.model.attention=true builds": ["task.model.attention=true"],
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED_OPTIONS))
+def test_formerly_unported_configurations_build(name, tmp_path):
+    """Each option composes as in the JAX package; the port's factory builds
+    its data source (the CAMUS reader on a file of the port's
+    write_camus_hdf5: JAX's data_params and landmarks) or its backbone,
+    whose forward gives (N, 21, H, W) heatmaps."""
+    from contouring_uncertainty_tpu.data.camus import CamusContourData as JCamus
+    from contouring_uncertainty_torch.data.synthetic import write_camus_hdf5
+
+    path = write_camus_hdf5(tmp_path / "camus.h5", n_patients=5, size=64, seed=1)
+    overrides = [*PORTED_OPTIONS[name], f"data.dataset_path={path}"]
+    cfg = compose(overrides)
+    assert cfg == jcompose(overrides)
+    data = factory.build_data(cfg)
+    (tmp_path / "jax").mkdir()
+    ref = JCamus(path, cache_dir=tmp_path / "jax")
+    assert data.data_params == DataParams(**vars(ref.data_params))
+    np.testing.assert_array_equal(data.train_arrays("train")["contour"],
+                                  ref.train_arrays("train")["contour"])
+    if name.startswith("data"):
+        return
+    for key in ("kernels", "strides"):  # a 4-stage UNet at 64^2
+        if key in cfg["task"]["model"]:
+            cfg["task"]["model"][key] = cfg["task"]["model"][key][:4]
+    task = factory.build_task(cfg, data.data_params)
+    model = task.build_model(device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = model(torch.as_tensor(data.train_arrays("train")["img"][:2]))["out"]
+    assert out.shape == (2, 21, 64, 64) and torch.isfinite(out).all()
 
 
 def test_runner_trains_tests_and_predicts_on_the_cpu(tmp_path, capsys):

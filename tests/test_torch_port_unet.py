@@ -90,8 +90,8 @@ def test_prefix_sharing_matches_tiled_forward(flax_small):
 def test_task_forward_matches_jax_and_backbone_flags(flax_small):
     """DSNTAleatoric.predict at T_e=1 (deterministic) against the JAX task
     on the same weights: mu within 1e-3 px and Sigma within 1e-3 of its
-    scale (logit differences of ~1e-5 through the softmax moments). Unported
-    UNet flags raise instead of being dropped."""
+    scale (logit differences of ~1e-5 through the softmax moments). The
+    other backbones and the UNet's residual flag build."""
     _, variables, params, img = flax_small
     dp = dict(in_shape=(1, 64, 64), out_shape=(21, 2))
     jtask = JTask(data_params=JDataParams(**dp), t_e=1,
@@ -109,9 +109,11 @@ def test_task_forward_matches_jax_and_backbone_flags(flax_small):
     cov_j = np.asarray(cov_j)
     assert np.abs(cov_t.numpy() - cov_j).max() / np.abs(cov_j).max() < 1e-3
 
-    with pytest.raises(NotImplementedError, match="residual"):
-        build_backbone("unet2", (1, 64, 64), (21, 64, 64), residual=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_backbone("enet", (1, 64, 64), (21, 64, 64))
+    # The two flags and the backbone that raised before item 9 was ported
+    # build; a key a backbone does not take is dropped, as in JAX.
+    assert build_backbone("unet2", (1, 64, 64), (21, 64, 64), **SMALL,
+                          residual=True).block_name == "ResidBlock"
+    enet = build_backbone("enet", (1, 64, 64), (21, 64, 64), residual=True, head_dtype="bfloat16")
+    assert type(enet).__name__ == "Enet"
     with pytest.raises(ValueError, match="Unknown"):
         build_backbone("vnet", (1, 64, 64), (21, 64, 64))
