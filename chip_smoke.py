@@ -13,8 +13,10 @@ result line):
 1. card check: CUDA present; the card's name and power limit; TF32 off for
    matmuls and cuDNN convolutions;
 2. build: nvcc for the two CUDA sources (csrc/min_k_crossings.cu,
-   csrc/dsnt_moments.cu, in parallel) from the sources in this checkout
-   into contouring_uncertainty_torch/_build/, with ptxas's register report;
+   csrc/dsnt_moments.cu) and g++ for the C++ batch prefetcher
+   (csrc/prefetch_loader.cpp), all in parallel, from the sources in this
+   checkout into contouring_uncertainty_torch/_build/, with ptxas's
+   register report; a prefetcher that does not build fails the run;
 3. DSNT moment kernels against their plain version in f64: the row kernel
    (K2; 420 and 336 heatmaps, and 42 and 21 split into bands, one cluster
    each) and the column kernel (K1; 420 columns, 21 columns, and 420
@@ -183,7 +185,35 @@ result line):
    BACKBONE_BAR; mcdropout served on ENet (no K2 or K3); then K2 on one
    LV+MYO view's (840, 65536) bf16 logits and on one DeepLabV3 view's
    (420, 65536) f32 logits against f64, and K3 on one LV+MYO view's 1,000
-   structure polygons, bitwise, each timed beside its bound.
+   structure polygons, bitwise, each timed beside its bound;
+16. deep ensembles, bf16 training and the C++ prefetcher, before the
+   kernels line: ten members of [5]'s model (each re-initialised from its
+   own seed) saved as member_0.ckpt ... member_9.ckpt and served by
+   runner.run's eval-only path over [5]'s 6 views with the five
+   processors (its test pass on member 0; K2 1 and K3 1 per view and per
+   test batch: the DSNT head runs once on all ten members' 420 heatmaps;
+   `contour_samples` with T_e=10); the members loaded as the runner loads
+   them, with [5]'s bf16 head, served and timed beside [5] (views/s, idle
+   share), at V=4 (K2 1, K3 1 per dispatch), each member's logits in the
+   ensemble bitwise its own forward's and its mu and cov, in the ensemble
+   and in its own forward, within DSNT_BARS of the f64 moments of those
+   logits, K2 on one view's
+   (420, 65536) bf16 ensemble logits against f64 and K3 on its 500
+   contours bitwise, the skew task's ensemble on one view (K3 3);
+   `task.train_ensemble=2` through runner.run at [9]'s configuration (one
+   epoch per member; the JAX runner's member_0.ckpt and member_1.ckpt;
+   every loss finite; the test views predicted at T_e=2 with the five
+   processors and no error); `task.model.dtype=bfloat16` through
+   runner.run at [9]'s configuration (3 epochs, every loss finite, the
+   loss trajectory beside [9]'s, ms/step, images/s, peak memory; K2 1 per
+   step on the head's f32 logits, K3 0); K2 on the bf16-trained head's
+   (672, 65536) logits cast to bf16 against f64 and the RowMoments bf16
+   gradient against f64 autograd within BF16_GRAD_BAR, each timed beside
+   its byte bound; one bf16 step on the card and on the CPU at 64²
+   against f64 within BF16_STEP_BARS; every training batch of [9] and
+   [16] from the g++-built prefetch library of this checkout (a fall-back
+   fails), the first epoch in the order the library gives on the host,
+   and the trainer's data-wait phase beside [9]'s.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -350,10 +380,17 @@ def moment_errors(raw, ref, height: int, width: int) -> dict:
     from contouring_uncertainty_torch.ops.dsnt import raw6_to_pixel_gaussians
 
     mu_r, sig_r = raw6_to_pixel_gaussians(ref[:, :6], height, width)
-    scale = (sig_r[:, 0, 0] + sig_r[:, 1, 1])[:, None, None] / 2.0
     mu_k, sig_k = raw6_to_pixel_gaussians(raw[:, :6].double(), height, width)
-    return {"mu_px": (mu_k - mu_r).abs().max().item(),
-            "sigma_rel": ((sig_k - sig_r).abs() / scale).max().item()}
+    return gaussian_errors(mu_k, sig_k, mu_r, sig_r)
+
+
+def gaussian_errors(mu, sigma, mu_ref, sigma_ref) -> dict:
+    """Pixel Gaussians (R, 2), (R, 2, 2) against the f64 reference's: the
+    largest mu error (px) and the largest sigma error relative to the
+    reference's mean variance of the same row."""
+    scale = (sigma_ref[:, 0, 0] + sigma_ref[:, 1, 1])[:, None, None] / 2.0
+    return {"mu_px": (mu.double() - mu_ref).abs().max().item(),
+            "sigma_rel": ((sigma.double() - sigma_ref).abs() / scale).max().item()}
 
 
 def within_dsnt_bars(err: dict) -> bool:
@@ -550,11 +587,11 @@ def main_path(profile_dir=None) -> dict:
             "results": results, "task": task, "model": model, "data": data}
 
 
-def check_gaussian_results(results) -> None:
-    """The JAX package's shapes at MAIN_CFG, finite values, a painted
-    sample mask and uncertainty map."""
+def check_gaussian_results(results, t_e: int = MAIN_CFG["t_e"]) -> None:
+    """The JAX package's shapes at MAIN_CFG (T_e samples per frame),
+    finite values, a painted sample mask and uncertainty map."""
     c = MAIN_CFG
-    n, t_e, t_a, k, s = 2, c["t_e"], c["t_a"], c["k"], c["size"]
+    n, t_a, k, s = 2, c["t_a"], c["k"], c["size"]
     shapes = {"mu": (n, k, 2), "cov": (n, k, 2, 2), "post_mu": (n, k, 2),
               "post_cov": (n, k, 2, 2), "contour_samples": (n, t_e, t_a, k, 2),
               "pred_samples": (n, t_e, t_a, s, s), "pred": (n, s, s),
@@ -948,6 +985,7 @@ def training_run() -> dict:
     import torch
 
     from contouring_uncertainty_torch import runner
+    from contouring_uncertainty_torch.data import native_loader
     from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -955,11 +993,13 @@ def training_run() -> dict:
     torch.cuda.reset_peak_memory_stats()
     dsnt_kernel.row_launches = dsnt_kernel.col_launches = 0
     select_kernel.launches = 0
+    native_loader.batches_served = 0
     t0 = time.perf_counter()
     with launch_ledger() as ledger:
         result = runner.run(TRAIN_OVERRIDES)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    feed = native_feed(len(ledger["train step"]))
     totals = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
               "K3": select_kernel.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1024,7 +1064,36 @@ def training_run() -> dict:
             "per_call": expected, "totals": totals, "peak_gib": peak_gib,
             "step_ms": median_ms, "step_ms_range": (later[0], later[-1]),
             "first_step_ms": steps[0], "images_per_s": TRAIN_CFG["batch"] / median_ms * 1e3,
-            "eval_ms": phases.get("eval_step", {}).get("median_ms")}
+            "eval_ms": phases.get("eval_step", {}).get("median_ms"), "feed": feed,
+            "data_wait": data_wait(phases),
+            "losses": [row["train/loss"] for row in history]}
+
+
+def native_feed(steps: int) -> dict:
+    """Every one of a run's `steps` training batches came from the g++-built
+    prefetch library of this checkout's source in _build/ (the counter of
+    data/native_loader.py, reset before the run); a run fed by the numpy
+    fall-back fails."""
+    from contouring_uncertainty_torch import build
+    from contouring_uncertainty_torch.data import native_loader
+
+    lib = native_loader.library_file
+    want = build.host_library_path("prefetch_loader")
+    if lib is None or lib != want or not lib.exists():
+        raise AssertionError(f"the prefetch library is {lib}, not {want}: the fall-back fed "
+                             "the training run")
+    if native_loader.batches_served != steps:
+        raise AssertionError(f"{native_loader.batches_served} batches from the prefetch "
+                             f"library for {steps} train steps")
+    return {"library": str(lib.relative_to(build.PACKAGE_DIR.parent)), "batches": steps}
+
+
+def data_wait(phases: dict) -> dict:
+    """The trainer's `data` phase (the wait for each next batch) from its
+    phases JSON: median and total ms."""
+    d = phases["data"]
+    return {"median_ms": d["median_ms"], "total_ms": round(1e3 * d["total_s"], 1),
+            "count": d["count"]}
 
 
 def train_profile_and_overfit(profile_dir=None) -> dict:
@@ -3023,6 +3092,433 @@ def camus_kernel_checks(camus: dict, bb: dict) -> dict:
     return out
 
 
+# Deep ensembles, bf16 training and the C++ prefetcher ([16]). Serving: ten
+# members of [5]'s model (8-stage UNet, bf16 trunk and head, 256^2, K=21),
+# each initialised from its own seed, saved as member_i.ckpt and loaded by
+# runner.run's eval-only path; [5]'s 6 views at T_a=25 (T_e = 10 members).
+# Training: [9]'s configuration with task.train_ensemble=2 (one epoch per
+# member) and with task.model.dtype=bfloat16 (3 epochs, no predict).
+ENSEMBLE_MEMBERS = 10
+ENSEMBLE_PASSES = 2  # timed passes over the test views after the first
+ENSEMBLE_PROFILE_VIEWS = 2  # views of the profiled pass (the idle share's)
+ENSEMBLE_DIR = Path("outputs") / "chip_smoke_ensemble"  # git-ignored, removed at the end
+ENSEMBLE_SERVE_OVERRIDES = [
+    "data=synthetic", f"data.n_patients={MAIN_CFG['n_patients']}",
+    f"data.image_size={MAIN_CFG['size']}", "task=dsnt-al", "task/model=unet2",
+    "task.model.drop_block=true", "task.model.dtype=bfloat16", f"task.t_a={MAIN_CFG['t_a']}",
+    f"seed={MAIN_CFG['seed']}", "train=false", f"weights={ENSEMBLE_DIR / 'members'}",
+    f"save_path={ENSEMBLE_DIR / 'serve'}", f"task.psm_path={ENSEMBLE_DIR / 'psm.npz'}",
+    f"data.results_processors=[{', '.join(PROCESSOR_NAMES)}]",
+]
+_OWN = ("trainer.max_epochs=", "trainer.save_every=", "save_path=", "task.psm_path=")
+ENSEMBLE_TRAIN_OVERRIDES = [o for o in TRAIN_OVERRIDES if not o.startswith(_OWN)] + [
+    "task.train_ensemble=2", "trainer.max_epochs=1", "trainer.save_every=1",
+    f"save_path={ENSEMBLE_DIR / 'train'}", f"task.psm_path={ENSEMBLE_DIR / 'train_psm.npz'}"]
+BF16_TRAIN_OVERRIDES = [o for o in TRAIN_OVERRIDES if not o.startswith(_OWN)] + [
+    "task.model.dtype=bfloat16", f"trainer.max_epochs={TRAIN_CFG['epochs']}",
+    f"trainer.save_every={TRAIN_CFG['epochs']}", "predict=false",
+    f"save_path={ENSEMBLE_DIR / 'bf16'}", f"task.psm_path={ENSEMBLE_DIR / 'bf16_psm.npz'}"]
+# The RowMoments gradient of bf16 logits against autograd of the plain
+# version in f64, relative to the largest: the adjoint computes in f32 and
+# rounds its result to bf16 once (up to 2^-9 of an element), the f32
+# softmax and the cancellation in (B g - sum p B g) add the rest (2.7e-3 on
+# the CPU at 84 heatmaps of 64^2).
+BF16_GRAD_BAR = 2.0 ** -8
+# One bf16 train step (64^2, 4 stages, SGD) on the card and on the CPU, each
+# against the model computing in f64: the relative L2 error of all
+# gradients, plain and pinned to the step's own LeakyReLU sides. The bars
+# are those of tests/test_torch_port_train_extras.py (CPU, five seeds:
+# 0.14-0.23 plain, 0.024-0.05 pinned, from ~26,000 kink flips of 3.8M).
+BF16_STEP_BARS = {"grad_l2": 0.35, "grad_l2_pinned": 0.1}
+
+
+@contextmanager
+def recording(cls, name: str, record):
+    """While the block runs, `cls.name` calls record(args) before itself."""
+    original = getattr(cls, name)
+
+    def wrapper(*args, **kwargs):
+        record(args)
+        return original(*args, **kwargs)
+
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, original)
+
+
+def ensemble_members(task, n: int):
+    """n members of the task's model on the card: one CPU-seeded
+    initialisation, copied, each copy re-initialised from its own seed on
+    the card."""
+    import copy
+
+    import torch
+
+    base = task.build_model(device="cuda", generator=torch.Generator().manual_seed(0))
+    members = []
+    for i in range(n):
+        member = copy.deepcopy(base)
+        member.reset_parameters(torch.Generator(device="cuda").manual_seed(1000 + i))
+        members.append(member.eval())
+    return members
+
+
+def ensemble_serving(main_res: dict, profile_dir=None) -> dict:
+    """[5]'s model as an ensemble of ENSEMBLE_MEMBERS: saved with
+    save_checkpoint as member_0.ckpt ... in one directory and served by
+    runner.run's eval-only path (the test pass on member 0, [5]'s 6 views,
+    the five processors; launches per call counted: K2 1 and K3 1 per view
+    and per test batch); then the members loaded as runner.load_weights
+    loads them, with [5]'s bf16 head, served over the same views (timed,
+    profiled) at V=1 and V=4; each member's logits in the ensemble
+    bitwise its own T_e=1 forward's, and its mu and cov in the ensemble
+    and in its own forward both against the f64 moments of those logits
+    within DSNT_BARS (the two heads sum in another order: the ensemble's
+    420 heatmaps take one K2 block each, a member's 42 are split into
+    bands); the skew task's ensemble on one view (K3 3)."""
+    import copy
+
+    import torch
+
+    from contouring_uncertainty_torch import runner
+    from contouring_uncertainty_torch.ops import dsnt_kernel
+    from contouring_uncertainty_torch.ops.dsnt import raw6_to_pixel_gaussians
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric, DSNTSkew
+    from contouring_uncertainty_torch.tasks.dsnt_al import forward_views
+    from contouring_uncertainty_torch.train.checkpoint import save_checkpoint
+
+    c = MAIN_CFG
+    data = main_res["data"]
+    shutil.rmtree(ENSEMBLE_DIR, ignore_errors=True)
+    bf16 = dict(drop_block=True, dtype="bfloat16", head_dtype="bfloat16")
+    task = DSNTAleatoric(data_params=data.data_params, t_a=c["t_a"], model_kwargs=bf16)
+    t0 = time.perf_counter()
+    members = ensemble_members(task, ENSEMBLE_MEMBERS)
+    for i, member in enumerate(members):
+        save_checkpoint(ENSEMBLE_DIR / "members" / f"member_{i}.ckpt",
+                        {"params": member.state_dict()}, meta={"task_name": task.task_name})
+    setup_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with launch_ledger() as ledger:
+        result = runner.run(ENSEMBLE_SERVE_OVERRIDES)
+    torch.cuda.synchronize()
+    runner_s = time.perf_counter() - t0
+    for key in ("processor_errors", "test_error"):
+        if key in result:
+            raise AssertionError(f"the ensemble's eval-only run: {key} {result[key]}")
+    check_gaussian_results(result["predict"], t_e=ENSEMBLE_MEMBERS)
+    for label, calls in (("predict view", ledger["predict view"]),
+                         ("val/test batch", ledger["val/test batch"])):
+        if not calls or any(call != (1, 0, 1) for call in calls):
+            raise AssertionError(f"ensemble {label}: launches (K2, K1, K3) {calls}")
+
+    t0 = time.perf_counter()
+    loaded = runner.load_weights(task, ENSEMBLE_DIR / "members", torch.device("cuda"))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = {"seed": c["seed"]}
+    run = serve(task, loaded, data, cfg, ENSEMBLE_PASSES,
+                profile_dir / "ensemble" if profile_dir is not None else None,
+                profile_views=ENSEMBLE_PROFILE_VIEWS)
+    check_gaussian_results(run["results"], t_e=ENSEMBLE_MEMBERS)
+    if run["launches"] != {"K2": run["views"], "K1": 0, "K3": run["views"]}:
+        raise AssertionError(f"ensemble serving launches {run['launches']}")
+    batched = serve(task, loaded, data, {**cfg, "predict_batch_views": BATCH_VIEWS}, 1,
+                    profile_views=BATCH_VIEWS)
+    if any(d != (1, 0, 1) for d in batched["per_dispatch"]):
+        raise AssertionError(f"ensemble at V={BATCH_VIEWS}: launches {batched['per_dispatch']}")
+
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img = torch.as_tensor(run["results"][0].img, device="cuda")
+    n, size = img.shape[0], c["size"]
+    worst = {head: {"mu_px": 0.0, "sigma_rel": 0.0} for head in ("ensemble", "own")}
+    worst["ensemble_vs_own"] = {"mu_px": 0.0, "cov_px2": 0.0}
+    with torch.inference_mode():
+        mu, cov = task.predict(loaded, img)
+        ens_logits = forward_views(loaded, img, ENSEMBLE_MEMBERS, None)["out"]
+        for e, member in enumerate(loaded):
+            own_logits = member(img)["out"]
+            if not torch.equal(ens_logits[e * n:(e + 1) * n], own_logits):
+                raise AssertionError(f"member {e}'s logits in the ensemble are not its own")
+            mu_e, cov_e = task.predict(member, img)
+            raw = dsnt_kernel.raw_moments_plain(own_logits.reshape(-1, size * size).double(),
+                                                size, size)
+            mu_r, sig_r = raw6_to_pixel_gaussians(raw[:, :6], size, size)
+            for head, (m, v) in {"ensemble": (mu[:, e], cov[:, e]),
+                                 "own": (mu_e[:, 0], cov_e[:, 0])}.items():
+                err = gaussian_errors(m.reshape(-1, 2), v.reshape(-1, 2, 2), mu_r, sig_r)
+                worst[head] = {k: max(worst[head][k], err[k]) for k in err}
+            diff = {"mu_px": (mu[:, e] - mu_e[:, 0]).abs().max().item(),
+                    "cov_px2": (cov[:, e] - cov_e[:, 0]).abs().max().item()}
+            worst["ensemble_vs_own"] = {k: max(worst["ensemble_vs_own"][k], diff[k])
+                                        for k in diff}
+    if not (within_dsnt_bars(worst["ensemble"]) and within_dsnt_bars(worst["own"])):
+        raise AssertionError(f"ensemble members' moments outside {DSNT_BARS} of f64: {worst}")
+    with torch.inference_mode():
+        logits = served_logits({"results": run["results"], "model": loaded}, ENSEMBLE_MEMBERS)
+    k2 = k2_reading(logits.reshape(-1, c["size"] ** 2), c["size"])
+    samples = torch.as_tensor(run["results"][0].contour_samples, device="cuda")
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+
+    dense = contour_spline(samples.reshape(-1, c["k"], 2), n=1024).contiguous()
+    k3 = k3_reading(dense, c["size"], f"one ensemble view's sampled contours ({dense.shape[0]})")
+
+    checks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    skew_task = DSNTSkew(data_params=data.data_params, t_a=c["t_a"], model_kwargs=bf16)
+    skew_base = skew_task.build_model(device="cuda", generator=torch.Generator().manual_seed(0))
+    skew_members = []
+    for member in loaded:
+        skew_member = copy.deepcopy(skew_base)
+        skew_member.unet.load_state_dict(member.state_dict())
+        skew_members.append(skew_member.eval())
+    skew = serve(skew_task, skew_members, FirstViews(data, 1),
+                 {"seed": c["seed"], "task": {"skew_method": "esn", "grid_window": 64}}, 0)
+    if skew["launches"] != {"K2": 1, "K1": 0, "K3": 3}:
+        raise AssertionError(f"skew ensemble on one view: launches {skew['launches']}")
+    if not all(np.isfinite(getattr(skew["results"][0], k)).all() for k in ("mu", "cov", "alpha")):
+        raise AssertionError("skew ensemble: non-finite mu, cov or alpha")
+    return {"setup_s": setup_s, "runner_s": runner_s, "load_s": load_s, "serve_s": serve_s,
+            "first_s": run["first_s"], "profile_s": run["profile_s"],
+            "batched_s": batched["first_s"] + sum(batched["pass_s"]), "checks_s": checks_s,
+            "skew_s": time.perf_counter() - t0, "run": run, **rate(run, run["pass_s"]),
+            "runner_calls": {k: len(v) for k, v in ledger.items()},
+            "batched": {"per_dispatch": batched["per_dispatch"],
+                        **rate(batched, batched["pass_s"] or [batched["first_s"]])},
+            "member_worst": worst, "k2": k2, "k3": k3, "skew_launches": skew["launches"],
+            "test": result.get("test_metrics", {})}
+
+
+def ensemble_training() -> dict:
+    """runner.run with task.train_ensemble=2 at [9]'s configuration, one
+    epoch per member: JAX's layout (member_0.ckpt, member_1.ckpt under
+    <save_path>/<seed>/<name>_ensemble), every loss finite, launches per
+    call as [9]'s, every batch from the prefetch library, and the test
+    views predicted at T_e=2 with the five processors and no error."""
+    import torch
+
+    from contouring_uncertainty_torch import runner
+    from contouring_uncertainty_torch.data import native_loader
+
+    native_loader.batches_served = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with launch_ledger() as ledger:
+        result = runner.run(ENSEMBLE_TRAIN_OVERRIDES)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ens = Path(result["ckpt_path"])
+    if sorted(p.name for p in ens.iterdir()) != ["member_0.ckpt", "member_1.ckpt"] or not all(
+            (ens / f"member_{i}.ckpt" / "state.pt").exists() for i in range(2)):
+        raise AssertionError(f"ensemble directory {ens}: {sorted(ens.iterdir())}")
+    if ens.name != "synthetic_dsnt-al-unet2-True_0_ensemble" or ens.parent.name != "0":
+        raise AssertionError(f"ensemble directory {ens} is not the JAX runner's")
+    if "processor_errors" in result or "test_error" in result:
+        raise AssertionError(f"ensemble training run: {result.get('processor_errors')} "
+                             f"{result.get('test_error')}")
+    for row in result["history"]:
+        if not all(np.isfinite(v) for v in row.values()):
+            raise AssertionError(f"non-finite ensemble training log: {row}")
+    for res in result["predict"]:
+        if res.contour_samples.shape[1] != 2 or not np.isfinite(res.mu).all():
+            raise AssertionError(f"ensemble predict: {res.contour_samples.shape}")
+    expected = {"train step": (1, 0, 0), "val/test batch": (1, 0, 1), "predict view": (1, 0, 1)}
+    for label, calls in ledger.items():
+        if not calls or any(call != expected[label] for call in calls):
+            raise AssertionError(f"ensemble training {label}: launches {calls}")
+    feed = native_feed(len(ledger["train step"]))
+    # Each member's steps as its PhaseTimer took them, its first left out.
+    steps = []
+    for i in range(2):
+        cfg_i = f"{ens.name[:-len('_0_ensemble')]}_{i}"
+        phases = json.loads((ens.parent.parent / str(i) / f"{cfg_i}_phases.json").read_text())
+        steps += phases["train_step"]["samples_ms"][1:]
+    steps.sort()
+    return {"wall_s": wall_s, "history": result["history"], "views": len(result["predict"]),
+            "step_ms": steps[len(steps) // 2], "step_ms_range": (steps[0], steps[-1]),
+            "calls": {k: len(v) for k, v in ledger.items()}, "per_call": expected,
+            "feed": feed, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def bf16_training() -> dict:
+    """runner.run at [9]'s configuration with task.model.dtype=bfloat16, 3
+    epochs: every loss finite (whether it falls is a reading), ms/step and
+    images/s, peak memory, launches per call (K2 1 per train step on the
+    head's f32 logits), every batch from the prefetch library and the first
+    epoch's batches in the order the same library gives on the host."""
+    import torch
+
+    from contouring_uncertainty_torch import runner
+    from contouring_uncertainty_torch.data import native_loader
+    from contouring_uncertainty_torch.data.config import Tags
+    from contouring_uncertainty_torch.data.native_loader import NativePrefetcher
+    from contouring_uncertainty_torch.train import Trainer
+
+    shutil.rmtree(ENSEMBLE_DIR / "bf16", ignore_errors=True)
+    native_loader.batches_served = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fed, fits = [], []
+    t0 = time.perf_counter()
+    with launch_ledger() as ledger, \
+            recording(Trainer, "fit", fits.append), \
+            recording(Trainer, "train_step",
+                      lambda args: fed.append(args[1][Tags.contour].cpu().numpy())):
+        result = runner.run(BF16_TRAIN_OVERRIDES)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    history = result["history"]
+    if len(history) != TRAIN_CFG["epochs"] or not all(
+            np.isfinite(v) for row in history for v in row.values()):
+        raise AssertionError(f"bf16 training log: {history}")
+    expected = {"train step": (1, 0, 0), "val/test batch": (1, 0, 1)}
+    for label, want in expected.items():
+        if not ledger[label] or any(call != want for call in ledger[label]):
+            raise AssertionError(f"bf16 training {label}: launches {ledger[label]}")
+    feed = native_feed(len(ledger["train step"]))
+    # The library's first epoch on the host, over sample indices.
+    trainer, train, val = fits[0][:3]
+    n = len(train[Tags.img])
+    index = {Tags.img: np.arange(n, dtype=np.float32).reshape(n, 1, 1, 1)}
+    prefetcher = NativePrefetcher(index, TRAIN_CFG["batch"], seed=TRAIN_CFG["seed"])
+    order = [b[Tags.img].ravel().astype(int) for b in prefetcher.epoch()]
+    prefetcher.close()
+    if len(order) != len(fed) // TRAIN_CFG["epochs"] or not all(
+            np.array_equal(train[Tags.contour][idx], got) for idx, got in zip(order, fed)):
+        raise AssertionError("the card's first epoch is not the library's order on the host")
+    name = Path(result["ckpt_path"]).name[:-len(".ckpt")]
+    phases = json.loads((Path(result["ckpt_path"]).parent / f"{name}_phases.json").read_text())
+    steps = phases["train_step"]["samples_ms"]
+    later = sorted(steps[len(steps) // TRAIN_CFG["epochs"]:])
+    median_ms = later[len(later) // 2]
+    return {"history": history, "losses": [row["train/loss"] for row in history],
+            "test": result.get("test_metrics", {}), "wall_s": wall_s, "peak_gib": peak_gib,
+            "step_ms": median_ms, "step_ms_range": (later[0], later[-1]),
+            "images_per_s": TRAIN_CFG["batch"] / median_ms * 1e3, "feed": feed,
+            "first_epoch_batches": len(order), "data_wait": data_wait(phases),
+            "calls": {k: len(v) for k, v in ledger.items()}, "per_call": expected,
+            "trainer": trainer, "val": val}
+
+
+def bf16_kernel_checks(trainer, val) -> dict:
+    """On one validation batch's head logits of the bf16-trained model (its
+    last weights; 672 heatmaps of 256^2, cast to bf16): K2 against f64 at the bars of
+    [3], and the RowMoments gradient of the bf16 logits (the adjoint in
+    f32, rounded to bf16 once) against autograd of the plain version in
+    f64 within BF16_GRAD_BAR; the forward and the backward timed beside
+    their byte bounds."""
+    import torch
+
+    from contouring_uncertainty_torch.data.config import Tags
+    from contouring_uncertainty_torch.ops import dsnt_kernel
+
+    size = MAIN_CFG["size"]
+    img = torch.as_tensor(val[Tags.img][:TRAIN_CFG["batch"]], device="cuda")
+    trainer.model.eval()
+    with torch.no_grad():
+        logits = trainer.model(img)["out"]
+    if logits.dtype != torch.float32:
+        raise AssertionError(f"the bf16 model's head gives {logits.dtype} logits, not f32")
+    rows = logits.reshape(-1, size * size).to(torch.bfloat16)
+    k2 = k2_reading(rows, size)
+    g = torch.as_tensor(np.random.default_rng(4).normal(size=(rows.shape[0], 8))
+                        .astype(np.float32), device="cuda")
+    leaf = rows.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(dsnt_kernel.dsnt_raw_moments(leaf, size, size), leaf, g)
+    xd = rows.double().requires_grad_()
+    dsnt_kernel.raw_moments_plain(xd, size, size).backward(g.double())
+    grad_err = ((grad.double() - xd.grad).abs().max() / xd.grad.abs().max()).item()
+    del xd
+    if grad.dtype != torch.bfloat16 or grad_err > BF16_GRAD_BAR:
+        raise AssertionError(f"RowMoments bf16 gradient {grad.dtype}, off by {grad_err} "
+                             f"(bar {BF16_GRAD_BAR})")
+    bwd_ms = cuda_ms(lambda: dsnt_kernel.moments_adjoint(rows, g, size, size), iters=5)
+    r, hw = rows.shape
+    bwd_bound = {"bytes": (2 * r * hw * 2 + r * 8 * 4) / HBM_BYTES_PER_S * 1e3,
+                 "operations": r * hw * 24 / F32_OPS_PER_S * 1e3}
+    torch.cuda.empty_cache()
+    return {"k2": k2, "grad_rel_err": grad_err, "grad_dtype": str(grad.dtype),
+            "bwd_ms": bwd_ms, "bwd_bound_ms": max(bwd_bound.values()),
+            "bwd_bound_by": max(bwd_bound, key=bwd_bound.get)}
+
+
+def bf16_step_check() -> dict:
+    """One bf16 SGD step (64^2, 4 stages, drop_block and augmentation off,
+    the same seeded weights and batch) on the card and on the CPU, each
+    against the model computing in f64 (`set_compute_dtype`), plainly and
+    pinned to the step's own LeakyReLU sides (`leaky_relu_sides`): the
+    relative L2 error of all gradients (conv biases ahead of a norm left
+    out) within BF16_STEP_BARS; every trunk convolution emits bf16 and the
+    head f32 (`conv_output_dtypes`); kink flips counted; card against CPU
+    a reading."""
+    import torch
+
+    from contouring_uncertainty_torch.data.config import DataParams, Tags
+    from contouring_uncertainty_torch.data.synthetic import make_arrays
+    from contouring_uncertainty_torch.models.unet import (conv_output_dtypes, leaky_relu_sides,
+                                                         set_compute_dtype)
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+    from contouring_uncertainty_torch.train import Trainer, TrainerConfig
+
+    imgs, gts, contours = make_arrays(8, size=64, seed=2)
+    task = DSNTAleatoric(
+        data_params=DataParams(in_shape=(1, 64, 64), out_shape=(21, 2)),
+        model_kwargs=dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3,
+                          drop_block=False, dtype="bfloat16"))
+    cfg = TrainerConfig(optimizer="sgd", augment=False, seed=5)
+
+    def batch_on(device, dtype=torch.float32):
+        return {Tags.img: torch.as_tensor(imgs, device=device, dtype=dtype),
+                Tags.gt: torch.as_tensor(gts, device=device),
+                Tags.contour: torch.as_tensor(contours, device=device, dtype=dtype)}
+
+    def one_step(device):
+        trainer = Trainer(task, cfg, device=device)
+        trainer.init_state()
+        with leaky_relu_sides(trainer.model) as sides, \
+                conv_output_dtypes(trainer.model) as conv_dtypes:
+            loss = float(trainer.train_step(batch_on(device), 0)["loss"])
+        if not conv_dtypes or any(
+                dt != (torch.float32 if n.startswith("OutputBlock") else torch.bfloat16)
+                for n, dt in conv_dtypes.items()):
+            raise AssertionError(f"bf16 step on {device}: convolutions emit {conv_dtypes}")
+        return loss, {n: p.grad.detach().cpu().double() for n, p in
+                      trainer.model.named_parameters()}, {n: s.cpu() for n, s in sides.items()}
+
+    def f64_step(pin=None):
+        model64 = set_compute_dtype(task.build_model(
+            device="cpu", generator=torch.Generator().manual_seed(cfg.seed)).double(),
+            torch.float64)
+        with leaky_relu_sides(model64, pin) as sides:
+            loss = task.loss(model64, batch_on("cpu", torch.float64), train=True)[0]
+            loss.backward()
+        return float(loss.detach()), {n: p.grad for n, p in model64.named_parameters()}, sides
+
+    steps = {"cpu": one_step("cpu"), "card": one_step("cuda")}
+    loss64, ref, sides64 = f64_step()
+    leaves = [n for n in ref if not n.endswith("Conv_0.bias")]
+
+    def l2(a, b):
+        num = sum(float(((a[n] - b[n]) ** 2).sum()) for n in leaves)
+        return (num / sum(float((b[n] ** 2).sum()) for n in leaves)) ** 0.5
+
+    out = {"loss_f64": loss64}
+    for name, (loss, grads, sides) in steps.items():
+        out[name] = {"loss": loss, "grad_l2": l2(grads, ref),
+                     "grad_l2_pinned": l2(grads, f64_step(sides)[1]),
+                     "kink_flips": sum(int((sides[n] != sides64[n]).sum()) for n in sides64)}
+        if any(out[name][k] > bar for k, bar in BF16_STEP_BARS.items()):
+            raise AssertionError(f"bf16 step on the {name}: {out[name]} (bars {BF16_STEP_BARS})")
+    out["card_vs_cpu_l2"] = l2(steps["card"][1], steps["cpu"][1])
+    out["activations"] = sum(s.numel() for s in sides64.values())
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -3051,7 +3547,10 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    print(f"[2] build: nvcc {time.perf_counter() - t0:.1f} s "
+    if None in libs:
+        raise AssertionError(f"g++ could not build the prefetch library: "
+                             f"{build.BUILD_LOGS.get('prefetch_loader')}")
+    print(f"[2] build: nvcc and g++ in parallel {time.perf_counter() - t0:.1f} s "
           f"({', '.join(p.name for p in libs)})")
     for name, log in build.BUILD_LOGS.items():
         print("    " + "\n    ".join(line for line in log.splitlines() if "ptxas info" in line
@@ -3420,6 +3919,91 @@ def main(argv) -> int:
               f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms")
     shutil.rmtree(CAMUS_DIR, ignore_errors=True)
 
+    phase_start[16] = time.perf_counter()
+    print(f"[16] deep ensembles ({ENSEMBLE_MEMBERS} members of [5]'s model, served through "
+          "runner.run's eval-only path; task.train_ensemble=2 at [9]'s configuration), bf16 "
+          "training at [9]'s configuration, and the C++ prefetcher")
+    parts_s = {}  # [16]'s seconds by part
+    t_part = time.perf_counter()
+    ens = ensemble_serving(main_res, profile_dir)
+    parts_s["ensemble serving"] = time.perf_counter() - t_part
+    parts_s.update({f"  of which {k[:-2]}": ens[k] for k in
+                    ("setup_s", "runner_s", "load_s", "serve_s", "checks_s", "skew_s")})
+    parts_s.update({f"    of serve, {k[:-2]}": ens[k] for k in
+                    ("first_s", "profile_s", "batched_s")})
+    lo, hi = ens["ms_range"]
+    print(f"    {ENSEMBLE_MEMBERS} members initialised and saved in {ens['setup_s']:.1f} s; "
+          f"runner.run eval-only {ens['runner_s']:.1f} s (calls {ens['runner_calls']}, "
+          f"(K2, K1, K3) (1, 0, 1) each; test on member 0: "
+          f"{ {k: round(v, 4) for k, v in ens['test'].items()} }; five processors, no error)")
+    print(f"    ensemble served ({ens['run']['views']} views, T_e={ENSEMBLE_MEMBERS}, T_a="
+          f"{MAIN_CFG['t_a']}, bf16 head): launches {ens['run']['launches']}; steady state "
+          f"{ens['views_per_s']:.2f} views/s, median {ens['ms_per_view']:.1f} ms/view over "
+          f"{ENSEMBLE_PASSES} passes (range {lo:.1f}-{hi:.1f}); kernels "
+          f"{ens['run']['kernel_ms_per_view']:.2f} + copies {ens['run']['copy_ms_per_view']:.2f} "
+          f"ms/view, idle share {ens['idle_share']:.1%}; [5]'s MC dropout "
+          f"{main_res['views_per_s']:.2f} views/s ({ens['views_per_s'] / main_res['views_per_s']:.2f}x), "
+          f"on {card}")
+    print(ens["run"]["profile"])
+    print(f"    predict_batch_views={BATCH_VIEWS}: launches per dispatch "
+          f"{ens['batched']['per_dispatch']}, {ens['batched']['views_per_s']:.2f} views/s (one "
+          f"pass); each member's logits in the ensemble bitwise its own; its moments against "
+          f"f64 (bars {DSNT_BARS}) and the ensemble's against its own forward's: "
+          f"{ens['member_worst']}; skew ensemble on one view: launches {ens['skew_launches']}")
+    for key in ("k2", "k3"):
+        r = ens[key]
+        err = (f"mu err {r['err']['mu_px']:.3e} px, sigma rel err {r['err']['sigma_rel']:.3e}"
+               if key == "k2" else f"bitwise, torch.topk {r['library_ms']:.4f} ms")
+        print(f"    {key.upper()} at {r['shape']}{' ' + r['dtype'] if key == 'k2' else ''}: "
+              f"{err}; {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
+              f"plain {r['plain_ms']:.4f} ms")
+    t_part = time.perf_counter()
+    ens_train = ensemble_training()
+    parts_s["ensemble training"] = time.perf_counter() - t_part
+    for row in ens_train["history"]:
+        print("    ensemble member 1 epoch {epoch}: train/loss {train/loss:.4f}, val/loss "
+              "{val/loss:.4f}".format(**row))
+    print(f"    task.train_ensemble=2: member_0.ckpt, member_1.ckpt; {ens_train['views']} views "
+          f"predicted at T_e=2 with the five processors, no error; calls {ens_train['calls']} "
+          f"((K2, K1, K3) {ens_train['per_call']}); fed by {ens_train['feed']}; members' train "
+          f"step median {ens_train['step_ms']:.1f} ms (range {ens_train['step_ms_range'][0]:.1f}-"
+          f"{ens_train['step_ms_range'][1]:.1f}; [9]'s {train['step_ms']:.1f}); peak "
+          f"{ens_train['peak_gib']:.2f} GiB; {ens_train['wall_s']:.1f} s")
+    t_part = time.perf_counter()
+    bf16 = bf16_training()
+    parts_s["bf16 training"] = time.perf_counter() - t_part
+    lo, hi = bf16["step_ms_range"]
+    print(f"    bf16 training, train/loss by epoch {[round(v, 4) for v in bf16['losses']]} "
+          f"against [9]'s f32 {[round(v, 4) for v in train['losses']]}; test "
+          f"{ {k: round(v, 4) for k, v in bf16['test'].items()} }")
+    print(f"    bf16 train step: median {bf16['step_ms']:.1f} ms (range {lo:.1f}-{hi:.1f}), "
+          f"{bf16['images_per_s']:.1f} images/s against [9]'s f32 {train['step_ms']:.1f} ms, "
+          f"{train['images_per_s']:.1f} images/s ({train['step_ms'] / bf16['step_ms']:.2f}x); "
+          f"peak {bf16['peak_gib']:.2f} GiB against {train['peak_gib']:.2f}; calls "
+          f"{bf16['calls']} ((K2, K1, K3) {bf16['per_call']}); {bf16['wall_s']:.1f} s, on {card}")
+    print(f"    prefetcher: [9] fed by {train['feed']}, bf16 run by {bf16['feed']}; the card's "
+          f"first epoch ({bf16['first_epoch_batches']} batches) in the library's host order; "
+          f"data wait (PhaseTimer 'data') bf16 {bf16['data_wait']}, [9] {train['data_wait']}")
+    t_part = time.perf_counter()
+    bk16 = bf16_kernel_checks(bf16.pop("trainer"), bf16.pop("val"))
+    parts_s["bf16 kernel checks"] = time.perf_counter() - t_part
+    r = bk16["k2"]
+    print(f"    K2 at {r['shape']} {r['dtype']} (the bf16-trained head's logits, cast): mu err "
+          f"{r['err']['mu_px']:.3e} px, sigma rel err {r['err']['sigma_rel']:.3e}; "
+          f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms; RowMoments gradient {bk16['grad_dtype']}, "
+          f"{bk16['grad_rel_err']:.2e} of the largest from f64 (bar {BF16_GRAD_BAR:.2e}), "
+          f"backward {bk16['bwd_ms']:.4f} ms (bound {bk16['bwd_bound_ms']:.4f} ms by "
+          f"{bk16['bwd_bound_by']})")
+    t_part = time.perf_counter()
+    bstep = bf16_step_check()
+    parts_s["bf16 step check"] = time.perf_counter() - t_part
+    print(f"    one bf16 SGD step (64^2, 4 stages) against f64 (relative L2 of all gradients; "
+          f"bars {BF16_STEP_BARS}): card {bstep['card']}, CPU {bstep['cpu']}; card vs CPU "
+          f"{bstep['card_vs_cpu_l2']:.3e}; of {bstep['activations']} activations")
+    print(f"    [16] seconds by part: { {k: round(v, 1) for k, v in parts_s.items()} }")
+    shutil.rmtree(ENSEMBLE_DIR, ignore_errors=True)
+
     for kern in kernels:
         short = kern["name"].split(" ")[0]
         kern["jsrt"] = {name: {"launches": row["launches"][short],
@@ -3485,6 +4069,19 @@ def main(argv) -> int:
             kern["camus"]["kernel"] = {"lv_myo": ck["k2_lv_myo"], "deeplabv3": ck["k2_deeplabv3"]}
         if short == "K3":
             kern["camus"]["kernel"] = ck["k3_lv_myo"]
+        kern["ensemble"] = {
+            "members": ENSEMBLE_MEMBERS, "launches": ens["run"]["launches"][short],
+            "launches_per_view": ens["run"]["launches"][short] / ens["run"]["views"],
+            "batched_launches_per_dispatch": [d[index] for d in ens["batched"]["per_dispatch"]],
+            "skew_launches_per_view": ens["skew_launches"][short],
+            "training_launches_per_call": {label: calls[index] for label, calls
+                                           in ens_train["per_call"].items()}}
+        kern["bf16_training"] = {"launches_per_call": {label: calls[index] for label, calls
+                                                       in bf16["per_call"].items()}}
+        if short in ("K2", "K3"):
+            kern["ensemble"]["kernel"] = ens[short.lower()]
+        if short == "K2":
+            kern["bf16_training"]["kernel"] = bk16
     t_end = time.perf_counter()
     starts = sorted(phase_start.items())
     spans = {f"[{n}]": round(b - a, 1) for (n, a), (_, b) in zip(starts, starts[1:] + [(0, t_end)])}

@@ -1,13 +1,19 @@
-"""Builds the port's hand-written kernels from the sources in the checkout.
+"""Builds the port's native libraries from the sources in the checkout.
 
 Everything is built at first use into `contouring_uncertainty_torch/_build/`
 (git-ignored), never at import:
 
-CUDA C++ sources under `csrc/` are compiled by `nvcc` for `sm_90a` into a
-shared library with a plain C interface, loaded with ctypes. Each source has
-its own flags beside the common ones (`CUDA_SOURCES`). The library's file
-name carries a hash of its source and flags, so an edited source or flag is
-rebuilt and a stale library is never loaded.
+- CUDA C++ sources under `csrc/` (the hand-written kernels) are compiled by
+  `nvcc` for `sm_90a` into a shared library with a plain C interface,
+  loaded with ctypes. Each source has its own flags beside the common ones
+  (`CUDA_SOURCES`).
+- The host C++ batch prefetcher (`csrc/prefetch_loader.cpp`,
+  `HOST_SOURCES`) is compiled by `g++ -O3 -shared -fPIC -std=c++17
+  -pthread`, as the JAX package builds its copy. A failed build prints the
+  JAX package's message and gives None: the trainer then batches with numpy.
+
+A library's file name carries a hash of its source and flags, so an edited
+source or flag is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -40,6 +46,12 @@ CUDA_SOURCES = {
     "dsnt_moments": ("dsnt_moments.cu", ["--fmad=true"]),
 }
 
+# name -> (source file under csrc/, g++ flags): host libraries.
+HOST_SOURCES = {
+    "prefetch_loader": ("prefetch_loader.cpp",
+                        ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]),
+}
+
 # Compiler output (ptxas register/shared-memory report) of the last build.
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -59,10 +71,17 @@ def nvcc_flags(name: str) -> List[str]:
     return [*NVCC_FLAGS, *CUDA_SOURCES[name][1]]
 
 
-def library_path(name: str) -> Path:
-    src = CSRC_DIR / CUDA_SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
+def _hashed_path(name: str, source: str, flags: List[str]) -> Path:
+    digest = hashlib.sha256((CSRC_DIR / source).read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def library_path(name: str) -> Path:
+    return _hashed_path(name, CUDA_SOURCES[name][0], nvcc_flags(name))
+
+
+def host_library_path(name: str) -> Path:
+    return _hashed_path(name, *HOST_SOURCES[name])
 
 
 def build_cuda_library(name: str) -> Path:
@@ -82,8 +101,34 @@ def build_cuda_library(name: str) -> Path:
     return out
 
 
-def build_all() -> List[Path]:
-    """Build every CUDA library, one nvcc per source, all started together."""
-    with ThreadPoolExecutor(max_workers=len(CUDA_SOURCES)) as pool:
-        futures = [pool.submit(build_cuda_library, n) for n in CUDA_SOURCES]
+def build_host_library(name: str) -> Optional[Path]:
+    """Compile csrc/<source> with g++ into a shared library unless it is
+    built. On a failed build (or no g++) print the JAX package's message and
+    return None."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    source, flags = HOST_SOURCES[name]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", *flags, "-o", str(tmp), str(CSRC_DIR / source)]
+    try:
+        proc = subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except (subprocess.CalledProcessError, FileNotFoundError) as exc:
+        BUILD_LOGS[name] = getattr(exc, "stderr", None) or str(exc)
+        print(f"[native] build of {name} failed ({exc}); using Python fallback")
+        return None
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> List[Optional[Path]]:
+    """Build every library, one compiler per source, all started together:
+    the CUDA libraries (a failure raises), then the host libraries (None for
+    one whose build failed)."""
+    jobs = [(build_cuda_library, n) for n in CUDA_SOURCES]
+    jobs += [(build_host_library, n) for n in HOST_SOURCES]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = [pool.submit(fn, n) for fn, n in jobs]
         return [f.result() for f in futures]

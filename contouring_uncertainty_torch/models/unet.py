@@ -550,3 +550,23 @@ def leaky_relu_sides(model: nn.Module, pin: Optional[Dict[str, torch.Tensor]] = 
     finally:
         for h in handles:
             h.remove()
+
+
+@contextlib.contextmanager
+def conv_output_dtypes(model: nn.Module):
+    """Within the block, record the dtype each Conv and ConvTranspose of
+    `model` emitted in its last forward (module name -> dtype): a bf16
+    model's trunk convolutions give bf16 and its head's f32. Yields the
+    record."""
+    seen: Dict[str, torch.dtype] = {}
+
+    def record(name):
+        return lambda mod, inputs, out: seen.__setitem__(name, out.dtype)
+
+    handles = [mod.register_forward_hook(record(name)) for name, mod in model.named_modules()
+               if isinstance(mod, (Conv, ConvTranspose))]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()

@@ -18,6 +18,13 @@ map, and the prediction is the mode's label map.
 dispatch (a shorter last group at its own size): one sampler call, one
 rasterization and one umap for all V views.
 
+A deep ensemble (a list of member models, as `runner` loads a directory
+of `*.ckpt` members) is served by the same predictor: T_e is the member
+count, each member's forward deterministic, and the DSNT head runs once
+per dispatch on all members' heatmaps. A segmentation baseline takes one
+model only (the JAX package fails on a member list there): `SegPredictor`
+raises ValueError.
+
 The segmentation baselines (tasks/segmentation.py) take `SegPredictor`:
 the task's (T_e, T_a) probability population per view -> hole filling and
 largest-blob post-processing of every sample (ops/morphology.py) ->
@@ -55,6 +62,7 @@ from contouring_uncertainty_torch.sampler import (
     fit_shape_prior,
 )
 from contouring_uncertainty_torch.sampler.prior import ShapePrior, load_prior, save_prior
+from contouring_uncertainty_torch.tasks.dsnt_al import is_ensemble
 from contouring_uncertainty_torch.utils.projection import projected_uncertainty_value
 from contouring_uncertainty_torch.utils.umap import skew_umap_groups, uncertainty_map
 
@@ -99,11 +107,18 @@ def get_or_fit_sequence_prior(data, path: Optional[str]) -> ShapePrior:
     return _load_or_fit(pairs, path, data.data_params.in_shape[-2:], "sequence prior")
 
 
+def contour_digest(contours: np.ndarray) -> str:
+    """The sha256 a cached prior is keyed by: of the contours' shape, dtype
+    and bytes."""
+    contours = np.ascontiguousarray(contours)
+    return hashlib.sha256(f"{contours.shape} {contours.dtype}".encode()
+                          + contours.tobytes()).hexdigest()
+
+
 def _load_or_fit(contours: np.ndarray, path: Optional[str], image_hw, label: str) -> ShapePrior:
     """The prior of `contours` (N, 2K or 4K, 2), cached at `path` with their digest."""
     contours = np.ascontiguousarray(contours)
-    digest = hashlib.sha256(f"{contours.shape} {contours.dtype}".encode()
-                            + contours.tobytes()).hexdigest()
+    digest = contour_digest(contours)
     p = Path(path) if path else None
     if p is not None and p.exists():
         with np.load(p) as stored:
@@ -267,7 +282,9 @@ class AleatoricPredictor:
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.task = task
-        self.model = model.to(self.device).eval()
+        # One model, or a deep ensemble's members as a list.
+        self.model = ([m.to(self.device).eval() for m in model] if is_ensemble(model)
+                      else model.to(self.device).eval())
         self.sampler = sampler
         self.t_a = t_a or task.t_a
         self.soft_mask = soft_mask
@@ -350,6 +367,9 @@ class SegPredictor:
     BORDER_PAD = 10
 
     def __init__(self, task, model, device: DeviceLike = None):
+        if is_ensemble(model):
+            raise ValueError(f"the segmentation task {task.task_name!r} takes one model, not a "
+                             f"deep ensemble of {len(model)} members")
         self.device = resolve_device(device)
         self.task = task
         self.model = model.to(self.device).eval()
@@ -493,7 +513,8 @@ def run_predict(task, model, data, cfg, split: str = "test",
     """Predict every view of the split and assemble BatchResults, then run
     the results processors when `cfg` has `results_dir` or `save_path`.
 
-    `model` is the task's backbone with its weights (task.build_model());
+    `model` is the task's backbone with its weights (task.build_model()),
+    or a deep ensemble: a list of such models, T_e = its length;
     `cfg` is a dict with optional "seed", "predict_batch_views", "task":
     {"psm_path", "sequence_sampler", "seq_psm_path", "soft_mask", and for a
     skew task "grid_window" and "skew_method"} and the processors' "data":

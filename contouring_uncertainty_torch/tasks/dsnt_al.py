@@ -3,10 +3,12 @@
 Counterpart of contouring_uncertainty_tpu/tasks/dsnt_al.py: `build_model`
 (every backbone; the Resnet regressor's coordinates go through
 `regression_gaussians` instead of DSNT),
-`forward_gaussians`, `predict` and `mc_dropout_apply` (serving), `loss` and
+`forward_gaussians`, `predict` and `mc_dropout_apply` (serving; `predict`
+takes one model or a deep ensemble, a list of models), `loss` and
 `val_metrics` (training: the per-point Gaussian NLL, and the validation Dice
 of the linear contour reconstruction, rasterized through the crossing
-selection). `val_figure` (matplotlib) is not ported.
+selection). `val_figure` (matplotlib) is not ported (ROADMAP.md Queue 1,
+item 13): it raises.
 
 Where the JAX task takes `variables` and an rng key, the port takes the
 model (its parameters are the module's) and a `torch.Generator` for the
@@ -71,21 +73,35 @@ def mc_dropout_apply(model: torch.nn.Module, img: torch.Tensor, t_e: int,
     return model(tile(img), deterministic=False, generator=generator)
 
 
-def forward_views(model: torch.nn.Module, img: torch.Tensor, t_e: int,
-                  generator: Generators) -> Dict:
+def is_ensemble(model) -> bool:
+    """True for a deep ensemble: a list or tuple of member models."""
+    return isinstance(model, (list, tuple))
+
+
+def epistemic_samples(model, t_e: int) -> int:
+    """T_e of a forward: the ensemble's member count, else the task's t_e."""
+    return len(model) if is_ensemble(model) else t_e
+
+
+def forward_views(model, img: torch.Tensor, t_e: int, generator: Generators) -> Dict:
     """The raw output dict of one view (N, C, H, W) or of V views
     (V, N, C, H, W) with one generator per view: per view the MC-dropout
     forward (`mc_dropout_apply`) at T_e > 1, the deterministic forward at
-    T_e == 1; V views one forward each, concatenated view-major (sample e of
-    frame i of view v at (v*T_e + e)*N + i). A view's logits are then
-    bitwise the ones it gets alone: a convolution's algorithm and a
-    reduction's summation order may change with the batch size, and on a
-    flat (untrained) heatmap bf16 rounding of that size moves mu by tenths
-    of a pixel."""
+    T_e == 1, or, for a deep ensemble (a list of models; T_e its length),
+    each member's deterministic forward in the list's order (dropout off,
+    no generator drawn from); V views one forward each (per member),
+    concatenated view-major (sample e of frame i of view v at
+    (v*T_e + e)*N + i). A view's logits are then bitwise the ones it gets
+    alone: a convolution's algorithm and a reduction's summation order may
+    change with the batch size, and on a flat (untrained) heatmap bf16
+    rounding of that size moves mu by tenths of a pixel."""
     if img.dim() == 4:
         img, generator = img[None], [generator]
-    outs = [mc_dropout_apply(model, v, t_e, g) if t_e > 1 else model(v)
-            for v, g in zip(img, generator)]
+    if is_ensemble(model):
+        outs = [member(v) for v in img for member in model]
+    else:
+        outs = [mc_dropout_apply(model, v, t_e, g) if t_e > 1 else model(v)
+                for v, g in zip(img, generator)]
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
@@ -186,7 +202,14 @@ class DSNTAleatoric:
         (N, T_e, K, 2), cov (N, T_e, K, 2, 2), or of V views (V, N, C, H, W),
         with one generator per view, -> (V, N, T_e, ...). T_e > 1 uses one
         MC-dropout forward per view at batch T_e*N with the encoder prefix
-        shared; T_e == 1 is deterministic. The DSNT head runs once on all
-        views' heatmaps."""
-        out = self._gaussians_from_out(forward_views(model, img, self.t_e, generator))
-        return tuple(per_frame_samples(a, img.shape[:-3], self.t_e) for a in out)
+        shared; T_e == 1 is deterministic; a deep ensemble (a list of
+        models) gives T_e = its length, sample e from member e. The DSNT
+        head runs once on all views' (and members') heatmaps: the moments
+        are per heatmap, so this equals one head per member."""
+        t_e = epistemic_samples(model, self.t_e)
+        out = self._gaussians_from_out(forward_views(model, img, t_e, generator))
+        return tuple(per_frame_samples(a, img.shape[:-3], t_e) for a in out)
+
+    def val_figure(self, model, batch, max_items: int = 4):
+        raise NotImplementedError("validation figures are not ported yet (ROADMAP.md "
+                                  "Queue 1, item 13)")

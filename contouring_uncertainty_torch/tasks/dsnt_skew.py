@@ -31,6 +31,7 @@ from contouring_uncertainty_torch.ops import dsnt as dsnt_ops
 from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.tasks.dsnt_al import (
     DSNTAleatoric,
+    epistemic_samples,
     forward_views,
     per_frame_samples,
 )
@@ -149,6 +150,9 @@ class DSNTSkew(DSNTAleatoric):
         for one view (N, C, H, W); (V, N, T_e, ...) for V views (V, N, C, H,
         W), with one generator per view. T_e > 1 uses one MC-dropout forward
         per view at batch T_e*N with the encoder prefix shared; T_e == 1 is
-        deterministic. The DSNT head runs once on all views' heatmaps."""
-        outs = self._outputs_to_skew(forward_views(model, img, self.t_e, generator))
-        return tuple(per_frame_samples(a, img.shape[:-3], self.t_e) for a in outs)
+        deterministic; a deep ensemble (a list of models) gives T_e = its
+        length, each member's forward deterministic. The DSNT head runs once
+        on all views' heatmaps."""
+        t_e = epistemic_samples(model, self.t_e)
+        outs = self._outputs_to_skew(forward_views(model, img, t_e, generator))
+        return tuple(per_frame_samples(a, img.shape[:-3], t_e) for a in outs)

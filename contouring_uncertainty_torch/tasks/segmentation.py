@@ -27,7 +27,7 @@ random number comes from the caller's generators through rng.py (dropout
 masks, aleatoric and SSN normals, augmentation parameters): a view served
 with others draws what it draws alone. Without a generator, the losses'
 normals come from a generator seeded 0 (the JAX tasks' `key(0)`).
-`val_figure` (matplotlib) is not ported (ROADMAP.md Queue 1, item 13).
+`val_figure` (matplotlib) is not ported (ROADMAP.md Queue 1, item 13): it raises.
 """
 
 from __future__ import annotations
@@ -163,6 +163,10 @@ class SegmentationUncertaintyTask:
 
     def val_metrics(self, model, batch) -> Dict[str, torch.Tensor]:
         return self.loss(model, batch, None, train=False)[1]
+
+    def val_figure(self, model, batch, max_items: int = 4):
+        raise NotImplementedError("validation figures are not ported yet (ROADMAP.md "
+                                  "Queue 1, item 13)")
 
     # ----------------------------------------------------------------- predict
 

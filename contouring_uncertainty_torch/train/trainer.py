@@ -13,27 +13,40 @@ Counterpart of contouring_uncertainty_tpu/train/trainer.py on one device:
   increment; the parameters a task labels "freeze" (`optimizer_labels`,
   dsnt-skew's `freeze_seg`) are left out of the optimizer and take no
   gradient, so they stay as they are, as under optax's set_to_zero;
-- `fit`: epochs over `_iterate` batches (the JAX trainer's order with
-  `native_loader=False`: the same `np.random.default_rng(seed)` draws) fed
-  to the device by a background thread through pinned host memory
-  (`_device_prefetch`), divergence abort, best-weights copy, early stopping
-  on val/loss, one CSV row per epoch with the JAX column names, a periodic
+- `fit`: epochs of batches drawn as the JAX trainer draws them: by the C++
+  prefetcher outside `fast_dev_run` (`data/native_loader.py`,
+  `std::mt19937_64(seed + epoch)` and `std::shuffle` over the indices,
+  drop_last; fewer training frames than `batch_size` is a ValueError), or,
+  under `fast_dev_run` or where the library cannot be built, by `_iterate`
+  (one `np.random.default_rng(seed)` permutation per epoch); fed to the device
+  by a background thread through pinned host memory (`_device_prefetch`),
+  the wait for each batch timed as the `data` phase; divergence abort,
+  best-weights copy, early stopping on val/loss, one CSV row per epoch
+  with the JAX column names, the JSONL log and its Comet and TensorBoard
+  back ends (`use_comet`, `use_tensorboard`: train/logging.py), a periodic
   resumable `{name}_last.ckpt`, the best `{name}.ckpt`, `train_complete`
   and `{name}_phases.json`.
+
+A model in bf16 (`task.model.dtype=bfloat16`) trains as the JAX package's
+does: f32 parameters and AdamW state, convolutions in bf16 (weights cast
+per call), instance-norm statistics in f32; the UNet's head computes in f32
+(the wider of the trunk's and the head's dtypes), so the moments and the
+loss see f32 logits.
 
 On the card the augmentation and dropout draws come from one generator on
 the card (seeded with the run's seed), so no mask is drawn on the host.
 They are not JAX's draws (`fold_in(rng, 2*step)` and `2*step + 1`): runs
 agree with the JAX trainer in distribution, not value by value.
 
-Not ported (ROADMAP.md Queue 1): the C++ `NativePrefetcher`
-(`native_loader`), validation figures (`log_figures`), Comet and
-TensorBoard, meshes of several devices, bf16 training.
+Not ported (ROADMAP.md Queue 1): the per-epoch validation figures of the
+JAX trainer's `log_figures` (the tasks' `val_figure`, item 13), meshes of
+several devices (item 11).
 """
 
 from __future__ import annotations
 
 import csv
+import itertools
 import math
 import queue
 import threading
@@ -289,7 +302,6 @@ class Trainer:
             start_epoch = int(load_meta(resume_from).get("epoch", -1)) + 1
 
         run_dir = Path(cfg.save_path) / str(cfg.seed)
-        # First, so that an unported logger is refused before anything is written.
         exp_logger = ExperimentLogger(run_dir, cfg.name, use_comet=cfg.use_comet,
                                       use_tensorboard=cfg.use_tensorboard)
         self._metrics_file = run_dir / f"{cfg.name}_metrics.csv"
@@ -307,20 +319,32 @@ class Trainer:
         # except in a fast_dev_run, which stops after a few batches.
         overlap = not cfg.fast_dev_run
         last_ckpt = run_dir / f"{cfg.name}_last.ckpt"
+        prefetcher = None
+        if not cfg.fast_dev_run:
+            from contouring_uncertainty_torch.data.native_loader import NativePrefetcher
+
+            try:
+                prefetcher = NativePrefetcher(train_arrays, cfg.batch_size, seed=cfg.seed)
+            except RuntimeError:  # no library: numpy batches, as the JAX trainer falls back
+                prefetcher = None
         try:
             for epoch in range(start_epoch, max_epochs):
                 t0 = time.time()
                 train_logs = []
-                batches = _iterate(train_arrays, cfg.batch_size, np_rng)
+                batches = (prefetcher.epoch() if prefetcher is not None
+                           else _iterate(train_arrays, cfg.batch_size, np_rng))
                 if overlap:
                     batches = _device_prefetch(batches, self.device)
                 with closing(batches):
-                    for bi, batch in enumerate(batches):
+                    for bi in itertools.count():
                         if cfg.fast_dev_run and bi >= cfg.fast_dev_run:
                             break
-                        with timer.phase("data"):
-                            if not overlap:
+                        with timer.phase("data"):  # the wait for the next batch
+                            batch = next(batches, None)
+                            if batch is not None and not overlap:
                                 batch = _to_device(batch, self.device)
+                        if batch is None:
+                            break
                         with timer.phase("train_step"):
                             train_logs.append(self.train_step(batch, step))
                         step += 1
@@ -369,6 +393,8 @@ class Trainer:
                 if epochs_since_best > cfg.patience and epoch + 1 >= cfg.min_epochs:
                     break
         finally:
+            if prefetcher is not None:
+                prefetcher.close()
             exp_logger.close()
         timer.dump(run_dir / f"{cfg.name}_phases.json")
         ckpt_path = run_dir / f"{cfg.name}.ckpt"

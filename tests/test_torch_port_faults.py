@@ -7,13 +7,16 @@
   and `predict_mesh` is read as the JAX runner reads it (fault F6),
   and a multi-structure data source, which raised before JSRT was ported,
   now serves through both, the lowest label winning overlaps;
-- every "not ported yet" message names the ROADMAP.md item that holds it.
+- every "not ported yet" message names the ROADMAP.md item that holds it
+  (figures: the loggers' `log_figure`, the tasks' `val_figure`; several
+  devices: `predict_sample_parallel`).
 
 (The NaN rule of the crossing selection is gated in
 tests/test_torch_port_raster.py.)
 """
 
 import re
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +28,9 @@ from contouring_uncertainty_tpu.config import compose as jcompose
 from contouring_uncertainty_torch import factory, runner
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.config import compose
+from contouring_uncertainty_torch.data.config import DataParams
 from contouring_uncertainty_torch.results import FIGURES_NOT_PORTED, NOT_PORTED
+from contouring_uncertainty_torch.tasks import DSNTAleatoric, McDropoutUncertainty
 from contouring_uncertainty_torch.train.logging import ExperimentLogger
 
 torch.set_num_threads(1)
@@ -216,23 +221,33 @@ def _message(fn):
     return str(info.value)
 
 
+def _log_figure(**backends):
+    """ExperimentLogger.log_figure, the logger in a directory of its own
+    (removed after) with these back ends asked for."""
+    with tempfile.TemporaryDirectory() as d:
+        logger = ExperimentLogger(d, "x", **backends)
+        try:
+            logger.log_figure("val_contours", None, step=0)
+        finally:
+            logger.close()
+
+
 CASES = {
-    # The first six cases held the CAMUS source (item 2) and the other
-    # backbones and UNet flags (item 9) before they were ported; they hold
+    # Six of these cases held the CAMUS source (item 2) and the other
+    # backbones and UNet flags (item 9), then the TensorBoard and Comet
+    # loggers and deep ensembles (item 5), until each was ported; they hold
     # options that stay unported.
-    "tensorboard, logger": ("Training", lambda: ExperimentLogger(
-        "unused", "x", use_tensorboard=True)),
-    "comet, logger": ("Training", lambda: ExperimentLogger("unused", "x", use_comet=True)),
-    "tensorboard, runner.run": ("Training", lambda: runner.run(
-        SMALL_RUN + ["tensorboard=true"], device="cpu")),
-    "comet, runner.run": ("Training", lambda: runner.run(SMALL_RUN + ["comet=true"],
-                                                         device="cpu")),
-    "train_ensemble, runner.run": ("Training", lambda: runner.run(
-        SMALL_RUN + ["task.train_ensemble=2"], device="cpu")),
+    "log_figure, logger": ("Figures", lambda: _log_figure()),
+    "log_figure, tensorboard logger": ("Figures", lambda: _log_figure(use_tensorboard=True)),
+    "log_figure, comet logger": ("Figures", lambda: _log_figure(use_comet=True)),
+    "val_figure, contour task": ("Figures", lambda: DSNTAleatoric(
+        data_params=DataParams(in_shape=(1, 32, 32), out_shape=(21, 2))).val_figure(None, {})),
+    "val_figure, segmentation task": ("Figures", lambda: McDropoutUncertainty(
+        data_params=DataParams(in_shape=(1, 32, 32), out_shape=(2, 32, 32))).val_figure(None, {})),
     "predict_sample_parallel, run_predict entry": ("Multi-GPU", lambda: tpred.run_predict(
         None, None, None, {"predict_sample_parallel": 2}, device="cpu")),
-    "train_ensemble": ("Training", lambda: runner._check_ported(
-        compose(["task.train_ensemble=3"]))),
+    "predict_sample_parallel, runner.run": ("Multi-GPU", lambda: runner.run(
+        SMALL_RUN + ["predict_sample_parallel=2"], device="cpu")),
     "predict_sample_parallel": ("Multi-GPU", lambda: runner._check_ported(
         compose(["predict_sample_parallel=2"]))),
     "predict_sample_parallel, run_predict": ("Multi-GPU", lambda: tpred.check_predict_options(

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports no JAX, nothing of the JAX
 package and none of h5py (but inside the JSRT and CAMUS readers' load
-functions and the writers), matplotlib, pandas, PyYAML and orbax; its entry points
+functions, the writers and the raw-data generators), PIL (but inside the
+generators' resize), matplotlib, pandas, PyYAML and orbax; its entry points
 default to the GPU and raise without one instead of carrying on on the CPU;
 and chip_smoke.py refuses to run without a card or outside a checkout.
 """
@@ -29,7 +30,7 @@ from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = Path(port.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "contouring_uncertainty_tpu", "h5py",
-             "matplotlib", "yaml", "pandas")
+             "matplotlib", "yaml", "pandas", "PIL")
 SMALL = dict(kernels=((3, 3),) * 4, strides=((1, 1),) + ((2, 2),) * 3, drop_block=True)
 
 
@@ -37,24 +38,30 @@ def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-# The one exception: the JSRT and CAMUS readers' load functions and the
-# writers import h5py inside themselves, as the JAX package's do (the
-# machine with the card has no h5py and feeds the readers from arrays).
+# The one exception: the JSRT and CAMUS readers' load functions, the
+# writers and the raw-data generators import h5py inside themselves, as the
+# JAX package's do (the machine with the card has no h5py and feeds the
+# readers from arrays).
 H5PY_FUNCTIONS = {PACKAGE / "data" / "lung.py": {"_load", "write_jsrt_hdf5"},
                   PACKAGE / "data" / "camus.py": {"_split_patients", "load_split"},
-                  PACKAGE / "data" / "synthetic.py": {"write_camus_hdf5"}}
+                  PACKAGE / "data" / "synthetic.py": {"write_camus_hdf5"},
+                  PACKAGE / "data" / "generators.py": {"generate_camus", "generate_jsrt"}}
+# Package -> the functions that may import it inside themselves, by module.
+LOCAL_IMPORTS = {"h5py": H5PY_FUNCTIONS,
+                 "PIL": {PACKAGE / "data" / "generators.py": {"_resize"}}}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
 def test_no_forbidden_import_statement(path):
     """AST scan of every module of the package and of chip_smoke.py, at any
     depth (function-local imports included): no forbidden import, but for
-    h5py inside the functions of H5PY_FUNCTIONS."""
+    h5py and PIL inside the functions of LOCAL_IMPORTS."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    allowed = set()
-    for fn in ast.walk(tree):
-        if isinstance(fn, ast.FunctionDef) and fn.name in H5PY_FUNCTIONS.get(path, ()):
-            allowed |= {id(node) for node in ast.walk(fn)}
+    allowed = {name: set() for name in LOCAL_IMPORTS}
+    for name, functions in LOCAL_IMPORTS.items():
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef) and fn.name in functions.get(path, ()):
+                allowed[name] |= {id(node) for node in ast.walk(fn)}
     found = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -64,10 +71,11 @@ def test_no_forbidden_import_statement(path):
         else:
             continue
         found += [n for n in names if n.split(".")[0] in FORBIDDEN
-                  and not (n == "h5py" and id(node) in allowed)]
+                  and id(node) not in allowed.get(n.split(".")[0], ())]
     assert not found, f"{path.relative_to(REPO)} imports {found}"
-    if path in H5PY_FUNCTIONS:
-        assert len(allowed) > 0
+    for name, functions in LOCAL_IMPORTS.items():
+        if path in functions:
+            assert len(allowed[name]) > 0
 
 
 def test_importing_the_port_loads_no_jax():
