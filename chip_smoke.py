@@ -215,12 +215,33 @@ result line):
    fails), the first epoch in the order the library gives on the host,
    and the trainer's data-wait phase beside [9]'s.
 
+17. several ranks through torch.distributed, before the kernels line:
+   two ranks spawned on the card by parallel/distributed.py `spawn` over
+   gloo (NCCL refuses two ranks on one GPU), each running (a) three
+   data-parallel SGD steps of [9]'s model (8 stages, drop_block,
+   augmentation on) on a global batch of 32 256^2 frames, each rank its 16
+   rows, against one process on the card (each leaf's update within
+   STEP_BARS' grad_leaf of the leaf plus zero_grad of the largest, the
+   step losses within 1e-4, both ranks' weights equal); (b) view-parallel
+   run_predict of 8 views at [5]'s configuration against one process,
+   every output bitwise (rank 0 returns them, rank 1 none); (c) one view
+   in the latency mode on a 1 x 2 mesh (predict_sample_parallel=2) against
+   one process at the JAX package's latency budgets (LATENCY_BARS). Each
+   rank's K2 and K3 launches are counted per part (at least 1 where the
+   part runs them); K3 is checked and timed at one rank's share of a
+   view in the latency mode (260 contours, T_a 13 of 25; the forwards and
+   so K2 run whole on every rank). With two cards or more, the same
+   over NCCL with one rank per card and views/s on one card against two;
+   with one, NCCL initialised at world size 1 and a line saying the
+   multi-card run was skipped.
+
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -3519,6 +3540,295 @@ def bf16_step_check() -> dict:
     return out
 
 
+# Several ranks ([17]): two ranks spawned on the one card through
+# parallel/distributed.py `spawn` over gloo (NCCL refuses two ranks on one
+# GPU), each driving (a) three data-parallel SGD steps of [9]'s model and
+# global batch, (b) view-parallel run_predict of 8 views at [5]'s
+# configuration (13 synthetic patients), (c) one view in the latency mode on
+# a 1 x 2 mesh (predict_sample_parallel=2), against one process on the card.
+# SGD, not [9]'s AdamW, for the reason gpu_vs_cpu_step gives. Bars: (a) each
+# leaf's update within STEP_BARS["grad_leaf"] of the leaf's largest plus
+# STEP_BARS["zero_grad"] of the largest of all (the conv biases ahead of an
+# instance norm: rounding noise), the step losses within 1e-4 relative;
+# (b) every output bitwise; (c) the JAX package's latency-mode budgets
+# (tests/test_parallel.py).
+MULTI_CFG = dict(steps=3, lr=1e-2, views_patients=13, views=8, seed=0)
+LATENCY_BARS = {"mu": 1e-4, "cov": 1e-4, "samples_q80": 2.5e-2, "samples_max": 3.5,
+                "pred_share": 1e-2, "entropy_mean": 0.03}
+
+
+def digest(a) -> str:
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.shape} {a.dtype}".encode() + a.tobytes()).hexdigest()
+
+
+def ddp_steps() -> dict:
+    """MULTI_CFG["steps"] SGD steps of [9]'s model (8 stages, drop_block, f32)
+    on a global batch of 32 256^2 frames (each step its own augmentation
+    and dropout draws), through `Trainer.train_step` on every rank of the
+    process group (one process without one) -> each leaf's update, the step
+    losses (this rank's rows) and the final weights' digest."""
+    import torch
+
+    from contouring_uncertainty_torch.data.config import DataParams
+    from contouring_uncertainty_torch.data.synthetic import make_arrays
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+    from contouring_uncertainty_torch.train import Trainer, TrainerConfig
+    from contouring_uncertainty_torch.train.trainer import _to_device
+
+    c = MULTI_CFG
+    b = TRAIN_CFG["batch"]
+    imgs, gts, contours = make_arrays(b, size=256, seed=c["seed"])
+    task = DSNTAleatoric(data_params=DataParams(in_shape=(1, 256, 256), out_shape=(21, 2)),
+                         model_kwargs=dict(drop_block=True))
+    trainer = Trainer(task, TrainerConfig(batch_size=b, lr=c["lr"], optimizer="sgd",
+                                          seed=c["seed"], augment=True), device="cuda")
+    trainer.init_state()
+    p0 = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    batch = _to_device({"img": imgs, "gt": gts, "contour": contours}, torch.device("cuda"))
+    losses = [float(trainer.train_step(batch, step)["loss"]) for step in range(c["steps"])]
+    state = trainer.model.state_dict()
+    return {"updates": {k: (state[k] - p0[k]).cpu().numpy() for k in state},
+            "losses": losses, "mesh": trainer.mesh.shape,
+            "digest": digest(np.concatenate([v.cpu().numpy().ravel() for v in state.values()]))}
+
+
+def multi_serving_setup():
+    """[5]'s task and model (its seed) and the 8 test views of 13 patients."""
+    import torch
+
+    from contouring_uncertainty_torch.tasks import DSNTAleatoric
+
+    c = MAIN_CFG
+    data = camus_data(MULTI_CFG["views_patients"], c["size"], c["seed"])
+    task = DSNTAleatoric(
+        data_params=data.data_params, t_e=c["t_e"], t_a=c["t_a"], covar=True,
+        model_kwargs=dict(drop_block=True, dtype="bfloat16", head_dtype="bfloat16"))
+    model = task.build_model(device="cuda", generator=torch.Generator().manual_seed(c["seed"]))
+    return task, model, data
+
+
+def served_digests(setup, mesh, timed: bool = False) -> dict:
+    """run_predict of the 8 views of `setup` (multi_serving_setup) on
+    `mesh` (None: this process alone) -> each view's outputs as digests
+    (rank 0; None on other ranks), the first pass's seconds and, `timed`, a
+    second pass's views/s."""
+    import torch
+
+    from contouring_uncertainty_torch.predict import run_predict
+
+    task, model, data = setup
+    t0 = time.perf_counter()
+    results = run_predict(task, model, data, {"seed": MAIN_CFG["seed"]}, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"first_s": time.perf_counter() - t0, "views": None}
+    if results:
+        if len(results) != MULTI_CFG["views"]:
+            raise AssertionError(f"{len(results)} views served, expected {MULTI_CFG['views']}")
+        check_gaussian_results(results)
+        keys = ("mu", "cov", "post_mu", "post_cov", "contour_samples", "pred_samples", "pred",
+                "uncertainty_map", "entropy_map")
+        out["views"] = {r.id: {k: digest(getattr(r, k)) for k in keys} for r in results}
+    if timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_predict(task, model, data, {"seed": MAIN_CFG["seed"]}, mesh=mesh)
+        torch.cuda.synchronize()
+        out["views_per_s"] = MULTI_CFG["views"] / (time.perf_counter() - t0)
+    return out
+
+
+def latency_view(setup, mesh) -> dict:
+    """The first test view of `setup` through AleatoricPredictor on `mesh`
+    (None: this process alone), its draws from view_generator(seed, 0) ->
+    numpy outputs (the sample masks as a digest)."""
+    import torch
+
+    from contouring_uncertainty_torch.predict import (
+        AleatoricPredictor,
+        _to_numpy,
+        get_or_fit_prior,
+        view_generator,
+    )
+    from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler
+
+    task, model, data = setup
+    sampler = PosteriorShapeModelSampler(get_or_fit_prior(data, None), device="cuda")
+    view = next(iter(data.predict_views("test")))
+    out = _to_numpy(AleatoricPredictor(task, model, sampler, device="cuda", mesh=mesh)(
+        view["img"], view_generator(MAIN_CFG["seed"], 0)))
+    torch.cuda.synchronize()
+    keep = ("mu", "cov", "contour_samples", "pred", "entropy_map")
+    return {**{k: out[k] for k in keep}, "pred_samples": digest(out["pred_samples"])}
+
+
+def rank_worker(device, timed: bool) -> dict:
+    """One rank of [17]: (a) ddp_steps, (b) served_digests on make_mesh(),
+    (c) latency_view on make_mesh(model_parallel=2), each with the kernels'
+    launch counts set to 0 just before it and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.parallel import distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": distributed.rank(), "world": distributed.world_size(),
+           "device": str(device), "backend": dist.get_backend(),
+           "card": torch.cuda.get_device_name(device)}
+    setup = multi_serving_setup()
+    for label, fn in (("train", ddp_steps),
+                      ("serve", lambda: served_digests(setup, make_mesh(), timed)),
+                      ("latency", lambda: latency_view(setup, make_mesh(model_parallel=2)))):
+        torch.cuda.synchronize()
+        dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+        t0 = time.perf_counter()
+        out[label] = fn()
+        torch.cuda.synchronize()
+        out[label]["s"] = time.perf_counter() - t0
+        out[label]["launches"] = {"K2": dsnt_kernel.row_launches,
+                                  "K1": dsnt_kernel.col_launches, "K3": select_kernel.launches}
+    if out["rank"] != 0:
+        out["train"].pop("updates")
+    return out
+
+
+def check_ranks(ranks: list, one: dict) -> dict:
+    """The ranks of one spawn against one process: (a) (b) (c) at their
+    bars, K2 and K3 launched in every rank on every path that runs them."""
+    ref = one["train"]["updates"]
+    floor = STEP_BARS["zero_grad"] * max(np.abs(u).max() for u in ref.values())
+    worst = 0.0  # the largest share of its bar a leaf's error takes
+    got = ranks[0]["train"]["updates"]
+    for name, want in ref.items():
+        err = float(np.abs(got[name] - want).max())
+        bar = STEP_BARS["grad_leaf"] * float(np.abs(want).max()) + floor
+        worst = max(worst, err / bar)
+        if err > bar:
+            raise AssertionError(f"[17] DDP update of {name} {err:.3e} from one process's "
+                                 f"(leaf max {np.abs(want).max():.3e}, floor {floor:.3e})")
+    if len({r["train"]["digest"] for r in ranks}) != 1:
+        raise AssertionError("[17] the ranks ended the DDP steps with different weights")
+    losses = np.mean([r["train"]["losses"] for r in ranks], axis=0)
+    np.testing.assert_allclose(losses, one["train"]["losses"], rtol=1e-4,
+                               err_msg="[17] DDP step losses")
+    if ranks[0]["serve"]["views"] != one["serve"]["views"]:
+        bad = [v for v, d in one["serve"]["views"].items()
+               if ranks[0]["serve"]["views"].get(v) != d]
+        raise AssertionError(f"[17] view-parallel outputs differ from one process's: {bad}")
+    if any(r["serve"]["views"] is not None for r in ranks[1:]):
+        raise AssertionError("[17] a rank other than 0 returned predictions")
+    lat_err = {}
+    for r in ranks:
+        a, b = r["latency"], one["latency"]
+        d = np.abs(a["contour_samples"] - b["contour_samples"])
+        err = {"mu": float(np.abs(a["mu"] - b["mu"]).max()),
+               "cov": float(np.abs(a["cov"] - b["cov"]).max()),
+               "samples_q80": float(np.quantile(d, 0.8)), "samples_max": float(d.max()),
+               "pred_share": float((a["pred"] != b["pred"]).mean()),
+               "entropy_mean": float(np.abs(a["entropy_map"] - b["entropy_map"]).mean())}
+        bad = {k: v for k, v in err.items() if not v < LATENCY_BARS[k]}
+        if bad:
+            raise AssertionError(f"[17] latency mode on rank {r['rank']} outside "
+                                 f"{LATENCY_BARS}: {bad}")
+        lat_err = {k: max(v, lat_err.get(k, 0.0)) for k, v in err.items()}
+    for r in ranks:
+        for label, kernels in (("train", ("K2",)), ("serve", ("K2", "K3")),
+                               ("latency", ("K2", "K3"))):
+            for k in kernels:
+                if r[label]["launches"][k] < 1:
+                    raise AssertionError(f"[17] rank {r['rank']} launched {k} "
+                                         f"{r[label]['launches'][k]} times in {label}")
+    return {"ddp_worst_share": worst, "latency_err": lat_err,
+            "latency_samples_bitwise": lat_err["samples_max"] == 0.0}
+
+
+def nccl_world_of_one() -> float:
+    """NCCL initialised at world size 1 in this process (a file://
+    rendezvous), one all-reduce on the card, then destroyed -> its value."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from contouring_uncertainty_torch.parallel import distributed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/rendezvous", 1, 0, backend="nccl",
+                               device="cuda:0", timeout_s=120)
+        try:
+            x = torch.ones(4, device="cuda")
+            dist.all_reduce(x)
+            return float(x.sum().item())
+        finally:
+            dist.destroy_process_group()
+
+
+def multi_rank_phase() -> dict:
+    """[17]: one process's (a) (b) (c) on the card, two gloo ranks on it,
+    with two or more cards the NCCL ranks one per card and views/s on one
+    card against two, NCCL at world size 1; K3 at one rank's share of a
+    view in the latency mode."""
+    import torch
+
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+    from contouring_uncertainty_torch.parallel import distributed
+    from contouring_uncertainty_torch.parallel.serving import SampleShard
+
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    setup = multi_serving_setup()
+    one = {"train": ddp_steps(), "serve": served_digests(setup, None, timed=n_cards >= 2),
+           "latency": latency_view(setup, None)}
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = distributed.spawn(rank_worker, 2, backend="gloo", devices=["cuda:0", "cuda:0"],
+                             args=(False,), deadline_s=600)
+    gloo_s = time.perf_counter() - t0
+    out = {"one_s": one_s, "gloo_s": gloo_s, "gloo": gloo, "one": one,
+           "gloo_check": check_ranks(gloo, one)}
+    if n_cards >= 2:
+        t0 = time.perf_counter()
+        nccl = distributed.spawn(rank_worker, 2, backend="nccl",
+                                 devices=["cuda:0", "cuda:1"], args=(True,), deadline_s=600)
+        out.update(nccl=nccl, nccl_s=time.perf_counter() - t0,
+                   nccl_check=check_ranks(nccl, one))
+    else:
+        out["nccl_world_1"] = nccl_world_of_one()
+        if out["nccl_world_1"] != 4.0:
+            raise AssertionError(f"NCCL all-reduce at world size 1 gave {out['nccl_world_1']}")
+
+    # K3 at rank 0's share of a view in the latency mode: tensor_split(T_a,
+    # 2)[0] of each forward's samples.
+    c = MAIN_CFG
+    samples = torch.as_tensor(one["latency"]["contour_samples"], device="cuda")
+    part = SampleShard(None, 0, 2).take(samples, -3).reshape(-1, c["k"], 2)
+    out["k3"] = k3_reading(contour_spline(part, n=1024).contiguous(), c["size"],
+                           "one rank's share of a view")
+    return out
+
+
+def live_children() -> list:
+    """This process's child processes that have not been reaped (from
+    /proc): every process the run started (the ranks of [17], nvcc,
+    nvidia-smi) must have exited by its end."""
+    me = str(os.getpid())
+    left = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:  # exited while listed
+            continue
+        name, rest = text.split("(", 1)[1].rsplit(")", 1)
+        state, ppid = rest.split()[:2]
+        if ppid == me:
+            left.append(f"pid {stat.parent.name} {name} (state {state})")
+    return left
+
+
 def main(argv) -> int:
     import torch
 
@@ -4004,6 +4314,49 @@ def main(argv) -> int:
     print(f"    [16] seconds by part: { {k: round(v, 1) for k, v in parts_s.items()} }")
     shutil.rmtree(ENSEMBLE_DIR, ignore_errors=True)
 
+    phase_start[17] = time.perf_counter()
+    print("[17] several ranks through torch.distributed: two ranks spawned on this card over "
+          "gloo, (a) data-parallel SGD steps of [9]'s model and global batch, (b) "
+          f"view-parallel run_predict of {MULTI_CFG['views']} views at [5]'s configuration, "
+          "(c) one view in the latency mode (predict_sample_parallel=2), each against one "
+          "process on the card")
+    multi = multi_rank_phase()
+    chk = multi["gloo_check"]
+    print(f"    one process {multi['one_s']:.1f} s; two gloo ranks on {multi['gloo'][0]['card']} "
+          f"(devices {[r['device'] for r in multi['gloo']]}, backend "
+          f"{multi['gloo'][0]['backend']}) {multi['gloo_s']:.1f} s including their start-up")
+    for r in multi["gloo"]:
+        print(f"    rank {r['rank']}: launches (K2, K1, K3) train {r['train']['launches']}, "
+              f"serve {r['serve']['launches']}, latency {r['latency']['launches']}; seconds "
+              f"train {r['train']['s']:.1f}, serve {r['serve']['s']:.1f}, latency "
+              f"{r['latency']['s']:.1f}")
+    print(f"    (a) {MULTI_CFG['steps']} SGD steps, global batch {TRAIN_CFG['batch']} on mesh "
+          f"{multi['gloo'][0]['train']['mesh']}: each leaf's update against one process's "
+          f"within {chk['ddp_worst_share']:.3f} of its bar at worst ({STEP_BARS['grad_leaf']} "
+          f"of the leaf + {STEP_BARS['zero_grad']} of the largest); losses (ranks' mean) "
+          f"{[round(v, 5) for v in np.mean([r['train']['losses'] for r in multi['gloo']], 0)]} "
+          f"against {[round(v, 5) for v in multi['one']['train']['losses']]}; both ranks' "
+          "weights equal")
+    print(f"    (b) {MULTI_CFG['views']} views, every output bitwise one process's; rank 1 "
+          "returned none")
+    print(f"    (c) latency mode against one process: "
+          f"{ {k: float(f'{v:.3e}') for k, v in chk['latency_err'].items()} } (bars "
+          f"{LATENCY_BARS}); samples bitwise: {chk['latency_samples_bitwise']}")
+    if "nccl" in multi:
+        one_rate = multi["one"]["serve"]["views_per_s"]
+        two_rate = multi["nccl"][0]["serve"]["views_per_s"]
+        print(f"    NCCL, one rank per card: checks as above {multi['nccl_check']}; views/s "
+              f"one card {one_rate:.2f}, two cards {two_rate:.2f} ({two_rate / one_rate:.2f}x), "
+              f"on {card}")
+    else:
+        print(f"    NCCL at world size 1: all-reduce of ones(4) = {multi['nccl_world_1']}; the "
+              "multi-card run (NCCL, one rank per card, views/s on one card against two) was "
+              f"skipped: {torch.cuda.device_count()} card visible, it needs a second")
+    r = multi["k3"]
+    print(f"    K3 at one rank's share of a view {r['shape']}: bitwise, {r['ms']:.4f} ms (bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+          f"torch.topk {r['library_ms']:.4f} ms, on {card}")
+
     for kern in kernels:
         short = kern["name"].split(" ")[0]
         kern["jsrt"] = {name: {"launches": row["launches"][short],
@@ -4082,11 +4435,21 @@ def main(argv) -> int:
             kern["ensemble"]["kernel"] = ens[short.lower()]
         if short == "K2":
             kern["bf16_training"]["kernel"] = bk16
+        kern["multi_rank"] = {
+            f"rank {r['rank']}": {label: r[label]["launches"][short]
+                                  for label in ("train", "serve", "latency")}
+            for r in multi["gloo"]}
+        if short == "K3":
+            kern["multi_rank"]["kernel_per_rank_share"] = multi["k3"]
     t_end = time.perf_counter()
     starts = sorted(phase_start.items())
     spans = {f"[{n}]": round(b - a, 1) for (n, a), (_, b) in zip(starts, starts[1:] + [(0, t_end)])}
     print(f"    seconds per phase ([1] includes [2]'s build): {spans}")
     print(f"    total {t_end - t_start:.1f} s")
+    left = live_children()
+    if left:
+        raise AssertionError(f"processes this run started are still running: {left}")
+    print("    processes this run started still running: none")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from contouring_uncertainty_torch.rng import draw_uniform
+
 _DEG2RAD = float(np.float32(np.pi / 180.0))  # jnp.deg2rad's f32 constant
 
 
@@ -51,11 +53,11 @@ class AugmentConfig(NamedTuple):
 def sample_params(generator: Optional[torch.Generator], n: int,
                   cfg: AugmentConfig = AugmentConfig()) -> AugmentParams:
     """Per-item parameters, uniform in the configured ranges, drawn from
-    `generator` on its device (the CPU without one)."""
-    device = generator.device if generator is not None else torch.device("cpu")
+    `generator` on its device (the CPU without one); a `rng.RowBlock` of n
+    rows draws the whole batch's and keeps its rows."""
 
     def uniform(lo, hi, shape=(n,)):
-        return lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
+        return lo + (hi - lo) * draw_uniform(generator, shape)
 
     angle = uniform(-cfg.degrees, cfg.degrees)
     shift = torch.stack([uniform(-cfg.translate[0], cfg.translate[0]),

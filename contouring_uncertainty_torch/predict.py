@@ -34,6 +34,26 @@ Everything after the image upload runs on the predictor's device; random
 draws come from a CPU `torch.Generator` per view (rng.py), so a view's
 draws are the same on every device and whether or not it is batched with
 others.
+
+Several ranks (a `mesh`, parallel/mesh.py; one process per GPU) serve as
+the JAX package's mesh does:
+
+- view-parallel: `run_predict` deals each dispatch of `predict_batch_views`
+  x data-size views out over the data axis, view j to data rank
+  j // predict_batch_views; each view runs as it runs alone, and rank 0
+  gathers every view's outputs and alone runs the results processors;
+- latency mode (`__call__` with a mesh of several ranks): one view's
+  Monte-Carlo chain split over every rank (parallel/serving.py): the
+  forwards, the DSNT head and the sampler run whole on every rank (the
+  view's draws), each rank rasterizes its share of the T_a samples per
+  forward (spline and crossing selection), and the sample masks are
+  gathered, so the outputs are one process's whatever the rank count. The
+  JAX package also splits the MC-dropout forward's rows; here that moved
+  an untrained bf16 head's mu by 0.29 px on an H100 (cuDNN rounds the tail
+  convolutions otherwise at half the batch), so the port does not;
+- composed (`predict_sample_parallel` = s > 1): views over the data axis,
+  each view's chain over the s ranks of the model axis, as the latency
+  mode splits it.
 """
 
 from __future__ import annotations
@@ -53,6 +73,13 @@ from contouring_uncertainty_torch.distributions.linalg import det2x2, eigh2x2
 from contouring_uncertainty_torch.ops.morphology import postprocess_batch
 from contouring_uncertainty_torch.ops.rasterize import polygon_fill
 from contouring_uncertainty_torch.ops.spline import contour_spline
+from contouring_uncertainty_torch.parallel.distributed import (
+    gather_to_rank0,
+    rank0_first,
+    world_size,
+)
+from contouring_uncertainty_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, make_mesh
+from contouring_uncertainty_torch.parallel.serving import SampleShard, sample_shard
 from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.sampler import (
     PosteriorShapeModelSampler,
@@ -275,12 +302,18 @@ class AleatoricPredictor:
     one structure, each structure's uncertainty map is divided by its own
     maximum and the clipped sum is the view's map, the Gaussian prediction
     is the label map of the fused mean instead of the samples' majority
-    vote, and `cov_projection` sums the structures' projections."""
+    vote, and `cov_projection` sums the structures' projections.
+
+    With a `mesh` of several ranks, `__call__` splits the view's chain over
+    every rank (the latency mode) and `batched` over the mesh's model axis
+    (the composed mode); every rank of the group returns the whole
+    outputs."""
 
     def __init__(self, task, model, sampler, t_a: Optional[int] = None,
                  soft_mask: bool = False, contour_groups=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.task = task
         # One model, or a deep ensemble's members as a list.
         self.model = ([m.to(self.device).eval() for m in model] if is_ensemble(model)
@@ -297,13 +330,18 @@ class AleatoricPredictor:
     @torch.inference_mode()
     def __call__(self, img, generator: Optional[torch.Generator] = None) -> Dict:
         """img (N, C, H, W) -> dict of device tensors for one view."""
-        return _tree_map(lambda a: a[0], self.batched(np.asarray(img)[None], [generator]))
+        return _tree_map(lambda a: a[0], self._serve(np.asarray(img)[None], [generator],
+                                                     sample_shard(self.mesh)))
 
     @torch.inference_mode()
     def batched(self, imgs, generators: Generators) -> Dict:
         """imgs (V, N, C, H, W) and V generators, one per view -> the dict of
         `__call__` with a leading view axis. Each view draws from its own
         generator exactly what it draws alone."""
+        return self._serve(imgs, generators, sample_shard(self.mesh, (MODEL_AXIS,)))
+
+    def _serve(self, imgs, generators: Generators, shard: SampleShard) -> Dict:
+        """`batched` with each view's chain split over `shard`."""
         imgs = torch.as_tensor(np.asarray(imgs, np.float32)).to(self.device)
         h, w = imgs.shape[-2:]
         mu_te, cov_te, *skew = self.task.predict(self.model, imgs, generator=generators)
@@ -313,10 +351,14 @@ class AleatoricPredictor:
         mu, cov = fuse_epistemic_aleatoric(mu_te, cov_te)  # (V, N, K, 2)
         post_mu, post_cov = population_posterior(samples)
 
-        labels = rasterize_labelmap(samples, self.groups, h, w)  # (V, N, T_e, T_a, H, W)
-        occupancy = (labels > 0).to(torch.float32)
+        # (V, N, T_e, T_a, H, W): this rank's T_a share, then all of them.
+        labels = rasterize_labelmap(shard.take(samples, -3), self.groups, h, w)
         if self.soft_mask:
-            occupancy = gaussian_blur(occupancy)
+            occupancy = shard.gather(gaussian_blur((labels > 0).to(torch.float32)), -3,
+                                     self.t_a)
+        else:
+            labels = shard.gather(labels.to(torch.uint8), -3, self.t_a)
+            occupancy = (labels > 0).to(torch.float32)
         frames = lambda a: a.flatten(0, 1)  # (V, N, ...) -> (V*N, ...)
         lead = mu.shape[:2]
         if alpha_te is None:
@@ -340,7 +382,7 @@ class AleatoricPredictor:
                                                        entropy, pred, self.groups)
         # Hard-mask populations hold small integer labels: ship them as
         # uint8. Soft masks stay f32 in [0, 1].
-        pred_samples = occupancy if self.soft_mask else labels.to(torch.uint8)
+        pred_samples = occupancy if self.soft_mask else labels
         return {
             "mu": mu, "cov": cov, "mode": mode, "alpha": alpha,
             "post_mu": post_mu, "post_cov": post_cov,
@@ -362,33 +404,50 @@ class SegPredictor:
     the mean probabilities, their entropy in base C, and the samples as
     label maps cleaned by the post-processing of their foreground union
     (the prediction too). Both zero a BORDER_PAD-px border of the entropy
-    and report its mean over the predicted area."""
+    and report its mean over the predicted area.
+
+    With a `mesh` of several ranks, `__call__` (every rank) and `batched`
+    (the model axis) split the post-processing of the (T_e, T_a) sample
+    masks over the ranks and gather them; the forwards run whole on every
+    rank."""
 
     BORDER_PAD = 10
 
-    def __init__(self, task, model, device: DeviceLike = None):
+    def __init__(self, task, model, device: DeviceLike = None, mesh: Optional[Mesh] = None):
         if is_ensemble(model):
             raise ValueError(f"the segmentation task {task.task_name!r} takes one model, not a "
                              f"deep ensemble of {len(model)} members")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.task = task
         self.model = model.to(self.device).eval()
 
     @torch.inference_mode()
     def __call__(self, img, generator: Optional[torch.Generator] = None) -> Dict:
         """img (N, C, H, W) -> dict of device tensors for one view."""
-        return _tree_map(lambda a: a[0], self.batched(np.asarray(img)[None], [generator]))
+        return _tree_map(lambda a: a[0], self._serve(np.asarray(img)[None], [generator],
+                                                     sample_shard(self.mesh)))
 
     @torch.inference_mode()
     def batched(self, imgs, generators: Generators) -> Dict:
         """imgs (V, N, C, H, W) and V generators -> the dict of `__call__`
         with a leading view axis."""
+        return self._serve(imgs, generators, sample_shard(self.mesh, (MODEL_AXIS,)))
+
+    def _serve(self, imgs, generators: Generators, shard: SampleShard) -> Dict:
         imgs = torch.as_tensor(np.asarray(imgs, np.float32)).to(self.device)
-        probs = self.task.predict_probs(self.model, imgs, generators)  # (V, N, T_e, T_a, C, H, W)
+        # (V, N, T_e, T_a, C, H, W)
+        probs = self.task.predict_probs(self.model, imgs, generators)
         c = probs.shape[-3]
+
+        def postprocess(masks):  # (V, N, T_e, T_a, H, W), this rank's share of the samples
+            flat = masks.flatten(2, 3)
+            kept = shard.gather(postprocess_batch(shard.take(flat, 2)), 2, flat.shape[2])
+            return kept.unflatten(2, masks.shape[2:4])
+
         if c == 1:
             samples = probs[..., 0, :, :]
-            samples = samples * postprocess_batch(torch.round(samples))
+            samples = samples * postprocess(torch.round(samples))
             pred = torch.round(samples.mean(dim=(-4, -3))).to(torch.int32)
             entropy = sample_entropy_map(samples)
         else:
@@ -396,7 +455,7 @@ class SegPredictor:
             pred = torch.argmax(mean_probs, dim=-3).to(torch.int32)
             entropy = -(mean_probs * torch.log(mean_probs + 1e-12)).sum(dim=-3) / math.log(c)
             samples = torch.argmax(probs, dim=-3).to(torch.float32)
-            samples = samples * postprocess_batch((samples > 0).to(torch.float32))
+            samples = samples * postprocess((samples > 0).to(torch.float32))
             pred = (pred * postprocess_batch((pred > 0).to(torch.float32))).to(torch.int32)
         pad = self.BORDER_PAD
         border = torch.zeros(entropy.shape[-2:], dtype=torch.bool, device=self.device)
@@ -430,25 +489,42 @@ def views_per_step(cfg: Dict) -> int:
 
 
 def _run_predictor(predictor, views, seed: int,
-                   per_step: int = 1) -> List[Dict]:
+                   per_step: int = 1) -> Optional[List[Dict]]:
     """Run a predictor over a view list, `per_step` views of one image shape
     per dispatch; a short last group is dispatched at its own size. Each
     view draws from `view_generator(seed, its index)` and runs its forward
     alone, so its outputs match one view per dispatch up to the
-    reassociation of the batched steps after the forward."""
+    reassociation of the batched steps after the forward.
+
+    With the predictor's mesh of d data ranks, each chunk of per_step * d
+    views is dealt out over the data axis (view j of a chunk to data rank
+    j // per_step; a rank past a ragged tail sits the chunk out), and the
+    outputs are gathered to rank 0, which returns them in view order; the
+    other ranks return None."""
+    mesh = predictor.mesh
+    d = mesh.shape[DATA_AXIS] if mesh is not None else 1
+    mine_at = mesh.index(DATA_AXIS) * per_step if mesh is not None else 0
     groups: Dict[tuple, List[int]] = {}
     for vi, v in enumerate(views):
         groups.setdefault(tuple(np.asarray(v[Tags.img]).shape), []).append(vi)
-    outs: List[Optional[Dict]] = [None] * len(views)
+    outs: Dict[int, Dict] = {}
     for idxs in groups.values():
-        for start in range(0, len(idxs), per_step):
-            chunk = idxs[start:start + per_step]
+        for start in range(0, len(idxs), per_step * d):
+            chunk = idxs[start:start + per_step * d][mine_at:mine_at + per_step]
+            if not chunk:
+                continue
             out = _to_numpy(predictor.batched(
                 np.stack([views[i][Tags.img] for i in chunk]),
                 [view_generator(seed, i) for i in chunk]))
             for j, i in enumerate(chunk):
                 outs[i] = _tree_map(lambda a, j=j: a[j], out)
-    return outs
+    if mesh is not None and mesh.size > 1:
+        # The ranks of a model group hold the same views: one of them sends.
+        parts = gather_to_rank0(outs if mesh.index(MODEL_AXIS) == 0 else {})
+        if parts is None:
+            return None
+        outs = {i: out for part in parts for i, out in part.items()}
+    return [outs[i] for i in range(len(views))]
 
 
 def predict_mesh_mode(cfg: Dict) -> str:
@@ -467,30 +543,43 @@ def predict_mesh_mode(cfg: Dict) -> str:
 
 
 def check_predict_options(cfg: Dict):
-    """Raise on the options of the JAX predict path that the port does not
-    have yet, instead of predicting without them, and on a `predict_mesh`
-    value the JAX runner refuses."""
-    predict_mesh_mode(cfg)
-    if int(cfg.get("predict_sample_parallel", 1) or 1) > 1:
-        raise NotImplementedError("multi-device predict is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 11)")
+    """Raise, as the JAX runner does, on a `predict_mesh` value it refuses
+    and, where predict would serve on a mesh of several ranks, on a
+    `predict_sample_parallel` that does not divide them (with one rank it
+    is ignored)."""
+    if predict_mesh_mode(cfg) == "auto" and world_size() > 1:
+        s = int(cfg.get("predict_sample_parallel", 1) or 1)
+        if world_size() % s:
+            raise ValueError(f"predict_sample_parallel={s} must divide the device count "
+                             f"({world_size()})")
 
 
-def _note_single_device(cfg: Dict, device: torch.device):
-    """Where the JAX runner would shard the views over every visible device
-    (`predict_mesh` auto, several devices), say that the port serves on one."""
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if predict_mesh_mode(cfg) == "auto" and n > 1:
-        print(f"[predict] predict_mesh=auto sees {n} GPUs; serving on one device ({device}): "
-              "multi-GPU serving is not ported yet (ROADMAP.md Queue 1, item 11)")
+def predict_mesh(cfg: Dict) -> Optional[Mesh]:
+    """The serving mesh of the JAX runner: with `predict_mesh` auto and
+    several ranks, every rank, `predict_sample_parallel` of them on the
+    model axis (views x samples); None otherwise (one rank serves alone).
+    Every rank must call it, with options `check_predict_options` passed."""
+    if predict_mesh_mode(cfg) == "auto" and world_size() > 1:
+        return make_mesh(model_parallel=int(cfg.get("predict_sample_parallel", 1) or 1))
+    return None
+
+
+def _rank0_first(fn, mesh: Optional[Mesh]):
+    """fn() on rank 0 first when a mesh of several ranks serves (it fills a
+    cache file the others then read), else fn()."""
+    return rank0_first(fn) if mesh is not None and mesh.size > 1 else fn()
 
 
 def run_predict_segmentation(task, model, data, cfg, split: str = "test",
-                             device: DeviceLike = None) -> List[BatchResult]:
-    """`SegPredictor` over every view of the split -> BatchResults."""
-    predictor = SegPredictor(task, model, device=device)
+                             device: DeviceLike = None,
+                             mesh: Optional[Mesh] = None) -> List[BatchResult]:
+    """`SegPredictor` over every view of the split -> BatchResults (on rank
+    0 of a mesh; [] on its other ranks)."""
+    predictor = SegPredictor(task, model, device=device, mesh=mesh)
     views = list(data.predict_views(split))
     outs = _run_predictor(predictor, views, cfg.get("seed", 10), views_per_step(cfg))
+    if outs is None:
+        return []
     return [BatchResult(
         id=view[Tags.id],
         labels=task.data_params.labels,
@@ -509,7 +598,8 @@ def run_predict_segmentation(task, model, data, cfg, split: str = "test",
 
 def run_predict(task, model, data, cfg, split: str = "test",
                 device: DeviceLike = None,
-                metrics_out: Optional[Dict] = None) -> List[BatchResult]:
+                metrics_out: Optional[Dict] = None,
+                mesh: Optional[Mesh] = None) -> List[BatchResult]:
     """Predict every view of the split and assemble BatchResults, then run
     the results processors when `cfg` has `results_dir` or `save_path`.
 
@@ -520,18 +610,24 @@ def run_predict(task, model, data, cfg, split: str = "test",
     skew task "grid_window" and "skew_method"} and the processors' "data":
     {"results_processors": [...]}. The processors' summary,
     `processor_errors` included, is merged into `metrics_out`. A
-    segmentation baseline is served by `SegPredictor` and fits no prior."""
+    segmentation baseline is served by `SegPredictor` and fits no prior.
+
+    `mesh` (every rank calls run_predict with it; `predict_mesh(cfg)`
+    builds the runner's) serves the views over its ranks: rank 0 returns
+    every view's BatchResult and runs the processors, the other ranks
+    return []. Rank 0 fits and caches the priors before the others load
+    them."""
     from contouring_uncertainty_torch.tasks.segmentation import SegmentationUncertaintyTask
 
     device = resolve_device(device)
     task_cfg = cfg.get("task", {})
-    check_predict_options(cfg)
-    _note_single_device(cfg, device)
+    predict_mesh_mode(cfg)
     if isinstance(task, SegmentationUncertaintyTask):
-        results = run_predict_segmentation(task, model, data, cfg, split, device)
-        _maybe_run_processors(results, cfg, metrics_out, device)
+        results = run_predict_segmentation(task, model, data, cfg, split, device, mesh)
+        if mesh is None or mesh.rank == 0:
+            _maybe_run_processors(results, cfg, metrics_out, device)
         return results
-    prior = get_or_fit_prior(data, task_cfg.get("psm_path"))
+    prior = _rank0_first(lambda: get_or_fit_prior(data, task_cfg.get("psm_path")), mesh)
     skew_task = hasattr(task, "forward_skew")
     # The lattice of the 'grid' method covers the image's extent.
     in_h, in_w = task.data_params.in_shape[1:]
@@ -541,7 +637,8 @@ def run_predict(task, model, data, cfg, split: str = "test",
                    method=task_cfg.get("skew_method", "esn"), device=device)
     sequence = bool(task_cfg.get("sequence_sampler", False))
     if sequence:
-        seq_prior = get_or_fit_sequence_prior(data, task_cfg.get("seq_psm_path"))
+        seq_prior = _rank0_first(
+            lambda: get_or_fit_sequence_prior(data, task_cfg.get("seq_psm_path")), mesh)
         sampler = (SequenceSkewPSMSampler(prior, seq_prior, **skew_kw) if skew_task
                    else SequencePSMSampler(prior, seq_prior, device=device))
     elif skew_task:
@@ -551,7 +648,7 @@ def run_predict(task, model, data, cfg, split: str = "test",
     predictor = AleatoricPredictor(task, model, sampler,
                                    soft_mask=bool(task_cfg.get("soft_mask", False)),
                                    contour_groups=getattr(data, "contour_groups", None),
-                                   device=device)
+                                   device=device, mesh=mesh)
     views = list(data.predict_views(split))
     if sequence:
         for view in views:
@@ -562,6 +659,8 @@ def run_predict(task, model, data, cfg, split: str = "test",
                     f"view '{view[Tags.id]}' has {frames} frames. Disable "
                     f"task.sequence_sampler or restrict views to ED/ES.")
     outs = _run_predictor(predictor, views, cfg.get("seed", 10), views_per_step(cfg))
+    if outs is None:
+        return []
     results = []
     for view, out in zip(views, outs):
         results.append(BatchResult(

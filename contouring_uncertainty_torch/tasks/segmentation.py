@@ -25,7 +25,9 @@ and one generator, or V views (V, N, C, H, W) and one generator per view,
 and returns probabilities (N, T_e, T_a, C, H, W), or (V, N, ...). Every
 random number comes from the caller's generators through rng.py (dropout
 masks, aleatoric and SSN normals, augmentation parameters): a view served
-with others draws what it draws alone. Without a generator, the losses'
+with others draws what it draws alone; a data-parallel training rank draws
+its rows of the batch's (`rng.RowBlock`; the losses' normals hold the
+batch on their second axis). Without a generator, the losses'
 normals come from a generator seeded 0 (the JAX tasks' `key(0)`).
 `val_figure` (matplotlib) is not ported (ROADMAP.md Queue 1, item 13): it raises.
 """
@@ -220,7 +222,7 @@ class AleatoricUncertainty(SegmentationUncertaintyTask):
         logits = out["out"]
         sigma = F.softplus(out["ssn"][0]) + 1e-8
         eps = draw_normal(_noise_generator(generator, img.device),
-                          (self.iterations, *logits.shape), device=logits.device)
+                          (self.iterations, *logits.shape), device=logits.device, batch_axis=1)
         x_hat = logits[None] + sigma[None] * eps
         if logits.shape[1] == 1:
             mc = torch.sigmoid(x_hat).mean(0)  # (N, 1, H, W)
@@ -306,8 +308,9 @@ class StochasticSegmentationNetwork(SegmentationUncertaintyTask):
         draws take half = ceil(num / 2) and append their negations."""
         *lead, n, d = mean.shape
         half = (num + 1) // 2 if antithetic else num
-        eps_f = draw_normal(generators, (*lead, half, n, self.rank), device=mean.device)
-        eps_d = draw_normal(generators, (*lead, half, n, d), device=mean.device)
+        eps_f = draw_normal(generators, (*lead, half, n, self.rank), device=mean.device,
+                            batch_axis=-2)
+        eps_d = draw_normal(generators, (*lead, half, n, d), device=mean.device, batch_axis=-2)
         scale = torch.sqrt(diag).unsqueeze(-3)
         if self.diagonal:
             dev = scale * eps_d

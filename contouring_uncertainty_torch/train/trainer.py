@@ -1,6 +1,6 @@
 """Trainer: train and eval steps, the epoch loop, early stopping, checkpoints.
 
-Counterpart of contouring_uncertainty_tpu/train/trainer.py on one device:
+Counterpart of contouring_uncertainty_tpu/train/trainer.py:
 
 - `train_step`: uint8 feed dequantised on the device, augmentation
   (data/augment.py), the task's loss with dropout on, backward, one
@@ -38,9 +38,22 @@ the card (seeded with the run's seed), so no mask is drawn on the host.
 They are not JAX's draws (`fold_in(rng, 2*step)` and `2*step + 1`): runs
 agree with the JAX trainer in distribution, not value by value.
 
-Not ported (ROADMAP.md Queue 1): the per-epoch validation figures of the
-JAX trainer's `log_figures` (the tasks' `val_figure`, item 13), meshes of
-several devices (item 11).
+Data parallel over every rank of the process group (`mesh`, by default
+`parallel.mesh.make_mesh()`, all of it on the data axis), one process per
+GPU, as the JAX trainer averages gradients over its mesh's data axis.
+`batch_size` is the global batch: every rank builds the same global
+batches (the same seeds) and keeps its `process_batch_slice` rows (a
+global batch that does not divide the ranks is a ValueError); it draws
+the augmentation parameters and dropout masks of the whole batch from the
+same generator and keeps its rows (`rng.RowBlock`), so the ranks together
+compute one process's step up to the order of the sums. The gradients are
+averaged over the data axis (one all-reduce per step), the logs averaged
+over it, so every rank takes the same early-stopping, best-weights and
+divergence decisions. Rank 0 alone writes the checkpoints, the metrics
+CSV and JSONL, the summary and the phases file.
+
+Not ported (ROADMAP.md Queue 1, item 13): the per-epoch validation figures
+of the JAX trainer's `log_figures` (the tasks' `val_figure`).
 """
 
 from __future__ import annotations
@@ -58,11 +71,22 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from contouring_uncertainty_torch.data import augment as aug
 from contouring_uncertainty_torch.data.camus import iterate_batches
 from contouring_uncertainty_torch.data.config import Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
+from contouring_uncertainty_torch.parallel.distributed import process_batch_slice
+from contouring_uncertainty_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    global_means,
+    make_mesh,
+    replicate,
+)
+from contouring_uncertainty_torch.rng import row_block
 from contouring_uncertainty_torch.train.checkpoint import (
     load_meta,
     restore_checkpoint,
@@ -180,10 +204,15 @@ class RMSprop(torch.optim.Optimizer):
 
 
 class Trainer:
-    def __init__(self, task, config: TrainerConfig, device: DeviceLike = None):
+    def __init__(self, task, config: TrainerConfig, device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.task = task
         self.config = config
+        self.mesh = mesh if mesh is not None else make_mesh()
+        if self.mesh.shape[MODEL_AXIS] != 1:
+            raise ValueError(f"the trainer is data parallel over every rank: its mesh "
+                             f"{self.mesh.shape} needs model_parallel=1")
         self.model: Optional[torch.nn.Module] = None  # built by init_state
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.generator: Optional[torch.Generator] = None
@@ -234,12 +263,15 @@ class Trainer:
 
     def init_state(self):
         """The task's model with weights from the run's seed (drawn on the
-        CPU: the same weights on every device), a fresh optimizer over the
-        parameters the task does not freeze, and the generator of the run's
+        CPU: the same weights on every device and rank; a rank whose weights
+        differ from rank 0's raises), a fresh optimizer over the parameters
+        the task does not freeze, and the generator of the run's
         augmentation and dropout draws on the trainer's device."""
         seed = self.config.seed
         self.model = self.task.build_model(device=self.device,
                                            generator=torch.Generator().manual_seed(seed))
+        if not replicate(self.model, self.mesh):
+            raise RuntimeError("the ranks built different initial weights from one seed")
         labels_fn = getattr(self.task, "optimizer_labels", None)
         labels = labels_fn(self.model) if labels_fn else None
         if labels is not None:
@@ -251,21 +283,46 @@ class Trainer:
 
     # ------------------------------------------------------------------- steps
 
+    def _local(self, batch: Dict[str, torch.Tensor], train: bool):
+        """(this rank's rows of a global batch, the generator of its draws:
+        the run's generator cut to those rows). A training batch is cut by
+        `process_batch_slice` (one that does not divide the ranks is JAX's
+        ValueError), a validation batch by the mesh (a ragged one whole)."""
+        n = len(batch[Tags.img])
+        rows = process_batch_slice(n) if train else self.mesh.rows(n)
+        return {k: v[rows] for k, v in batch.items()}, row_block(self.generator, rows, n)
+
     def train_step(self, batch: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
-        """One update on a batch already on the device; `step` is the update
-        count before this update (the schedule's argument). Returns the
-        loss logs, detached."""
+        """One update on a global batch already on the device (this rank
+        computes on its rows); `step` is the update count before this
+        update (the schedule's argument). Returns this rank's loss logs,
+        detached."""
+        batch, generator = self._local(batch, train=True)
         img = batch[Tags.img]
         if img.dtype == torch.uint8:
             batch = {**batch, Tags.img: img.to(torch.float32) / 255.0}
         if self.config.augment:
-            batch = aug.apply(batch, aug.sample_params(self.generator, img.shape[0]))
+            batch = aug.apply(batch, aug.sample_params(generator, img.shape[0]))
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, logs = self.task.loss(self.model, batch, generator=self.generator, train=True)
+        loss, logs = self.task.loss(self.model, batch, generator=generator, train=True)
         loss.backward()
+        self._average_gradients()
         self.apply_update(step)
         return {k: v.detach() for k, v in logs.items()}
+
+    def _average_gradients(self):
+        """Average the parameters' gradients over the mesh's data axis, in
+        one all-reduce (no-op on one rank). Frozen parameters have none."""
+        d = self.mesh.shape[DATA_AXIS]
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if d == 1 or not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.group(DATA_AXIS))
+        flat = flat / d
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def apply_update(self, step: int):
         """Apply the parameters' gradients with the learning rate of update
@@ -276,8 +333,10 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The task's validation metrics over this rank's rows of a global
+        batch (`parallel.mesh.global_means` averages them over the ranks)."""
         self.model.eval()
-        return self.task.val_metrics(self.model, batch)
+        return self.task.val_metrics(self.model, self._local(batch, train=False)[0])
 
     # --------------------------------------------------------------------- fit
 
@@ -302,10 +361,12 @@ class Trainer:
             start_epoch = int(load_meta(resume_from).get("epoch", -1)) + 1
 
         run_dir = Path(cfg.save_path) / str(cfg.seed)
-        exp_logger = ExperimentLogger(run_dir, cfg.name, use_comet=cfg.use_comet,
-                                      use_tensorboard=cfg.use_tensorboard)
+        writer = self.mesh.rank == 0  # the one rank that writes files
+        exp_logger = (ExperimentLogger(run_dir, cfg.name, use_comet=cfg.use_comet,
+                                       use_tensorboard=cfg.use_tensorboard)
+                      if writer else None)
         self._metrics_file = run_dir / f"{cfg.name}_metrics.csv"
-        if not cfg.fast_dev_run:
+        if writer and not cfg.fast_dev_run:
             (run_dir / "summary.txt").write_text(
                 model_summary(self.model, self.task.data_params.in_shape))
         timer = PhaseTimer(sync=self.device.type == "cuda")
@@ -357,9 +418,11 @@ class Trainer:
                     with timer.phase("eval_step"):
                         val_logs.append(self.eval_step(_to_device(batch, self.device)))
 
+                train_logs = global_means(train_logs, self.mesh)
+                val_logs = global_means(val_logs, self.mesh)
                 # A whole epoch of non-finite losses: the run diverged; stop
                 # and keep the best checkpoint.
-                epoch_losses = np.array([float(l["loss"]) for l in train_logs])
+                epoch_losses = np.array([l["loss"] for l in train_logs])
                 if len(epoch_losses) and not np.isfinite(epoch_losses).any():
                     print(f"[trainer] aborting: all train losses non-finite at epoch {epoch}")
                     self.history.append({"epoch": epoch, "diverged": 1.0})
@@ -367,13 +430,14 @@ class Trainer:
 
                 # Keys sorted, as the JAX trainer's jitted steps return them.
                 row = {"epoch": epoch, "time": time.time() - t0, "lr": float(self._schedule(step))}
-                row.update({f"train/{k}": float(np.mean([float(l[k]) for l in train_logs]))
+                row.update({f"train/{k}": float(np.mean([l[k] for l in train_logs]))
                             for k in sorted(train_logs[0])})
-                row.update({f"val/{k}": float(np.mean([float(l[k]) for l in val_logs]))
+                row.update({f"val/{k}": float(np.mean([l[k] for l in val_logs]))
                             for k in sorted(val_logs[0])})
                 self.history.append(row)
-                self._log_row(row)
-                exp_logger.log_metrics(row, step=epoch)
+                if writer:
+                    self._log_row(row)
+                    exp_logger.log_metrics(row, step=epoch)
 
                 val_loss = row["val/loss"]
                 if np.isfinite(val_loss) and val_loss < best_val:
@@ -383,7 +447,7 @@ class Trainer:
                     epochs_since_best = 0
                 else:
                     epochs_since_best += 1
-                if cfg.save_every and (epoch + 1) % cfg.save_every == 0:
+                if writer and cfg.save_every and (epoch + 1) % cfg.save_every == 0:
                     save_checkpoint(
                         last_ckpt,
                         {"params": self.model.state_dict(),
@@ -395,13 +459,15 @@ class Trainer:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
-            exp_logger.close()
-        timer.dump(run_dir / f"{cfg.name}_phases.json")
+            if exp_logger is not None:
+                exp_logger.close()
         ckpt_path = run_dir / f"{cfg.name}.ckpt"
-        save_checkpoint(ckpt_path, {"params": best_params},
-                        meta={"task_name": self.task.task_name, "best_epoch": best_epoch,
-                              "best_val_loss": float(best_val), "seed": cfg.seed})
-        (run_dir / "train_complete").write_text("1")
+        if writer:
+            timer.dump(run_dir / f"{cfg.name}_phases.json")
+            save_checkpoint(ckpt_path, {"params": best_params},
+                            meta={"task_name": self.task.task_name, "best_epoch": best_epoch,
+                                  "best_val_loss": float(best_val), "seed": cfg.seed})
+            (run_dir / "train_complete").write_text("1")
         return best_params, ckpt_path
 
     def _log_row(self, row: Dict[str, Any]):

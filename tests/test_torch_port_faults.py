@@ -2,14 +2,14 @@
 
 - the `data/transform` config group is composed and applied as the JAX
   package applies it (data/transforms.py, factory.build_data);
-- options of the predict path that are not ported yet (several devices)
-  raise instead of being ignored, from the runner and from run_predict,
-  and `predict_mesh` is read as the JAX runner reads it (fault F6),
-  and a multi-structure data source, which raised before JSRT was ported,
-  now serves through both, the lowest label winning overlaps;
+- `predict_mesh` is read as the JAX runner reads it (fault F6), and
+  `predict_sample_parallel` on one rank is ignored, as the JAX runner
+  ignores it on one device, from the runner and from run_predict (on
+  several ranks: tests/test_torch_port_parallel.py); a multi-structure
+  data source, which raised before JSRT was ported, now serves through
+  both, the lowest label winning overlaps;
 - every "not ported yet" message names the ROADMAP.md item that holds it
-  (figures: the loggers' `log_figure`, the tasks' `val_figure`; several
-  devices: `predict_sample_parallel`).
+  (figures: the loggers' `log_figure`, the tasks' `val_figure`).
 
 (The NaN rule of the crossing selection is gated in
 tests/test_torch_port_raster.py.)
@@ -108,9 +108,9 @@ class _MultiStructure:
 
 # Option -> (its override for the runner, its ROADMAP.md Queue 1 item);
 # `contour_groups` (a data source with two structures) is served since
-# item 10 landed.
-UNPORTED_PREDICT = {"predict_sample_parallel": ("predict_sample_parallel=2", 11),
-                    "contour_groups": (None, 10)}
+# item 10 landed, `predict_sample_parallel` since item 11
+# (test_predict_sample_parallel_is_ignored_on_one_rank).
+UNPORTED_PREDICT = {"contour_groups": (None, 10)}
 
 
 def _check_two_structures(results):
@@ -135,12 +135,8 @@ def _check_two_structures(results):
 @pytest.mark.parametrize("key", list(UNPORTED_PREDICT))
 @pytest.mark.parametrize("entry", ["runner", "run_predict"])
 def test_unported_predict_options_raise(key, entry, tmp_path, monkeypatch):
-    """Predict options the port does not have yet (several devices) raise
-    NotImplementedError naming their ROADMAP.md Queue 1 item, from
-    runner.run (before training) and from run_predict called directly;
-    without them, run_predict runs. A data source with two contour
-    structures serves through both entry points."""
-    override, item = UNPORTED_PREDICT[key]
+    """A data source with two contour structures, which raised before item
+    10 was ported, serves through runner.run and through run_predict."""
     if key == "contour_groups":
         if entry == "runner":
             monkeypatch.setattr(runner, "build_data",
@@ -161,32 +157,49 @@ def test_unported_predict_options_raise(key, entry, tmp_path, monkeypatch):
                                         _MultiStructure(data), cfg, device="cpu")
         assert len(results) == 2
         _check_two_structures(results)
-        return
-    overrides = SMALL_RUN + [f"save_path={tmp_path}", override]
-    match = rf"ROADMAP.md Queue 1, item {item}\)"
+
+
+@pytest.mark.parametrize("entry", ["runner", "run_predict"])
+def test_predict_sample_parallel_is_ignored_on_one_rank(entry, tmp_path):
+    """`predict_sample_parallel=2` in one process (one device): ignored, as
+    the JAX runner ignores it with one device (it builds no mesh), through
+    runner.run and through run_predict: the predictions equal those
+    without it, output by output."""
+    def _equal(a, b):
+        assert [r.id for r in a] == [r.id for r in b] and len(a) == 2
+        for x, y in zip(a, b):
+            for key in ("mu", "cov", "contour_samples", "pred_samples", "pred", "entropy_map"):
+                np.testing.assert_array_equal(getattr(x, key), getattr(y, key), err_msg=key)
+
     if entry == "runner":
-        with pytest.raises(NotImplementedError, match=match):
-            runner.run(overrides, device="cpu")
-        assert not any(tmp_path.iterdir())  # nothing trained
+        run = lambda *extra, where: runner.run(
+            SMALL_RUN + [f"save_path={tmp_path / where}", "trainer.max_epochs=1",
+                         "trainer.batch_size=4", "task.t_a=3", "task.t_e=2",
+                         "task.model.drop_block=true",
+                         f"task.psm_path={tmp_path / 'psm.npz'}",
+                         "data.results_processors=[instant_metrics]", *extra],
+            device="cpu")["predict"]
+        _equal(run("predict_sample_parallel=2", where="s2"), run(where="plain"))
         return
-    cfg = compose(SMALL_RUN + [f"save_path={tmp_path}"])
+    cfg = compose(SMALL_RUN + ["task.t_a=3", "task.t_e=2", "task.model.drop_block=true"])
     data = factory.build_data(cfg)
     task = factory.build_task(cfg, data.data_params)
     model = task.build_model(device="cpu")
     cfg["task"]["psm_path"] = str(tmp_path / "psm.npz")
-    cfg.pop("save_path")
-    with pytest.raises(NotImplementedError, match=match):
-        tpred.run_predict(task, model, data, {**cfg, "predict_sample_parallel": 2}, device="cpu")
-    assert len(tpred.run_predict(task, model, data, cfg, device="cpu")) == 2
+    assert tpred.predict_mesh({**cfg, "predict_sample_parallel": 2}) is None
+    _equal(tpred.run_predict(task, model, data, {**cfg, "predict_sample_parallel": 2},
+                             device="cpu"),
+           tpred.run_predict(task, model, data, cfg, device="cpu"))
 
 
 @pytest.mark.parametrize("entry", ["runner", "run_predict"])
-def test_predict_mesh_is_read_as_the_jax_runner_reads_it(entry, tmp_path, monkeypatch, capsys):
+def test_predict_mesh_is_read_as_the_jax_runner_reads_it(entry, tmp_path):
     """`predict_mesh` (fault F6, read by nothing before): a value the JAX
     runner refuses raises its ValueError, from runner.run before anything is
     trained and from run_predict; the true/false spellings are read as
-    "auto" and "false"; with "auto" and several visible GPUs the port
-    serves on one device and says so."""
+    "auto" and "false"; one process builds no serving mesh either way (with
+    several ranks auto serves on all of them and false on rank 0 alone:
+    tests/test_torch_port_parallel.py)."""
     match = "predict_mesh='bogus' not understood"
     if entry == "runner":
         with pytest.raises(ValueError, match=match):
@@ -200,12 +213,8 @@ def test_predict_mesh_is_read_as_the_jax_runner_reads_it(entry, tmp_path, monkey
     for raw, want in spellings.items():
         assert tpred.predict_mesh_mode({"predict_mesh": raw}) == want
     assert tpred.predict_mesh_mode({}) == "auto"
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    tpred._note_single_device({"predict_mesh": True}, torch.device("cuda"))
-    assert "serving on one device" in capsys.readouterr().out
-    tpred._note_single_device({"predict_mesh": "off"}, torch.device("cuda"))
-    tpred._note_single_device({}, torch.device("cpu"))
-    assert capsys.readouterr().out == ""
+    for raw in ("auto", True, "off"):
+        assert tpred.predict_mesh({"predict_mesh": raw}) is None
 
 
 def _roadmap_items():
@@ -235,8 +244,9 @@ def _log_figure(**backends):
 CASES = {
     # Six of these cases held the CAMUS source (item 2) and the other
     # backbones and UNet flags (item 9), then the TensorBoard and Comet
-    # loggers and deep ensembles (item 5), until each was ported; they hold
-    # options that stay unported.
+    # loggers and deep ensembles (item 5), and four `predict_sample_parallel`
+    # (item 11), until each was ported; they hold options that stay
+    # unported.
     "log_figure, logger": ("Figures", lambda: _log_figure()),
     "log_figure, tensorboard logger": ("Figures", lambda: _log_figure(use_tensorboard=True)),
     "log_figure, comet logger": ("Figures", lambda: _log_figure(use_comet=True)),
@@ -244,14 +254,6 @@ CASES = {
         data_params=DataParams(in_shape=(1, 32, 32), out_shape=(21, 2))).val_figure(None, {})),
     "val_figure, segmentation task": ("Figures", lambda: McDropoutUncertainty(
         data_params=DataParams(in_shape=(1, 32, 32), out_shape=(2, 32, 32))).val_figure(None, {})),
-    "predict_sample_parallel, run_predict entry": ("Multi-GPU", lambda: tpred.run_predict(
-        None, None, None, {"predict_sample_parallel": 2}, device="cpu")),
-    "predict_sample_parallel, runner.run": ("Multi-GPU", lambda: runner.run(
-        SMALL_RUN + ["predict_sample_parallel=2"], device="cpu")),
-    "predict_sample_parallel": ("Multi-GPU", lambda: runner._check_ported(
-        compose(["predict_sample_parallel=2"]))),
-    "predict_sample_parallel, run_predict": ("Multi-GPU", lambda: tpred.check_predict_options(
-        {"predict_sample_parallel": 4})),
 }
 
 

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it imports no JAX, nothing of the JAX
-package and none of h5py (but inside the JSRT and CAMUS readers' load
+"""The PyTorch port stands alone: it imports no JAX (its multi-GPU modules
+under parallel/ included), nothing of the JAX package and none of h5py (but inside the JSRT and CAMUS readers' load
 functions, the writers and the raw-data generators), PIL (but inside the
 generators' resize), matplotlib, pandas, PyYAML and orbax; its entry points
 default to the GPU and raise without one instead of carrying on on the CPU;
@@ -95,6 +95,29 @@ def test_importing_the_port_loads_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+PARALLEL = ("distributed", "mesh", "serving")
+
+
+def test_parallel_package_imports_no_jax():
+    """The multi-GPU modules (parallel/distributed.py, mesh.py, serving.py)
+    are among the scanned sources, and importing them in a fresh
+    interpreter loads no forbidden module and opens no process group: the
+    ranks that `distributed.spawn` starts import them without JAX."""
+    files = {PACKAGE / "parallel" / f"{name}.py" for name in PARALLEL}
+    assert files <= set(_port_sources())
+    code = (
+        "import json, sys\n"
+        + "".join(f"import contouring_uncertainty_torch.parallel.{n}\n" for n in PARALLEL)
+        + "import torch.distributed as dist\n"
+        f"print(json.dumps([dist.is_initialized()] + sorted(m for m in sys.modules "
+        f"if m.split('.')[0] in {FORBIDDEN!r})))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [False]
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):

@@ -100,7 +100,7 @@ class Draws:
     def __init__(self, *arrays):
         self.arrays = [np.asarray(a, np.float32) for a in arrays]
 
-    def __call__(self, generators, shape, dtype=torch.float32, device=None):
+    def __call__(self, generators, shape, dtype=torch.float32, device=None, batch_axis=0):
         a = self.arrays.pop(0)
         assert a.size == int(np.prod(shape)), (a.shape, shape)
         return torch.as_tensor(a.reshape(shape), device=device)

@@ -78,15 +78,23 @@ def _jax_trainer_config(cfg):
     return captured["config"]
 
 
-@pytest.mark.parametrize("override,item", [("predict_sample_parallel=2", "item 11")])
-def test_unported_configurations_raise_naming_the_roadmap(override, item, tmp_path):
-    """Data sources, tasks, loggers and run modes the port does not have yet
-    raise NotImplementedError naming their ROADMAP.md item, before any
-    training."""
+@pytest.mark.parametrize("override,ranks", [("predict_sample_parallel=3", 2)])
+def test_sample_parallel_that_does_not_divide_the_ranks_raises(override, ranks, tmp_path,
+                                                               monkeypatch):
+    """`predict_sample_parallel` that does not divide the process group's
+    ranks (here the count the runner reads, set to 2) raises the JAX
+    runner's ValueError from runner.run before any training, where the JAX
+    runner raises it after (it checks when it builds its serving mesh);
+    unknown config options raise. The same on two real ranks:
+    tests/test_torch_port_parallel.py."""
+    from contouring_uncertainty_torch import predict as tpred
+
+    monkeypatch.setattr(tpred, "world_size", lambda: ranks)
     overrides = ["data=synthetic", "data.image_size=32", "data.n_patients=5",
                  "task.model.kernels=[[3,3],[3,3],[3,3]]",
                  "task.model.strides=[[1,1],[2,2],[2,2]]", f"save_path={tmp_path}", override]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1.*{item}|{item}"):
+    with pytest.raises(ValueError, match=r"predict_sample_parallel=3 must divide the device "
+                                         r"count \(2\)"):
         runner.run(overrides, device="cpu")
     assert not any(tmp_path.iterdir())  # nothing trained
     assert compose(["data=lung"])["data"]["labels"] == ["BG", "LUNG", "HEART"]
@@ -109,7 +117,7 @@ def test_formerly_unported_run_options_are_taken(override, capsys):
     overrides = ["data=synthetic", "data.image_size=32", "data.n_patients=5", override]
     cfg = compose(overrides)
     assert cfg == jcompose(overrides)
-    runner._check_ported(cfg)
+    runner.check_predict_options(cfg)
     if override.startswith("comet"):
         config = factory.build_trainer(cfg, None, device="cpu").config
         assert config.use_comet is _jax_trainer_config(cfg).use_comet is True
