@@ -56,8 +56,9 @@ result line):
    path's shapes; K2's band splits at the row counts of T_e=1, 5 and 10;
    K1's launch at the serving shape and K1 at 21 and 42 columns;
    the kernels JSON line (K1, K2, K3, with the launches of the training,
-   skew, sequence, batched, epistemic, segmentation, JSRT, CAMUS and
-   backbone paths), the card line and the final {"ok": true, ...} line;
+   skew, sequence, batched, epistemic, segmentation, JSRT, CAMUS,
+   backbone, ensemble, several-rank and figure paths), the card line and
+   the final {"ok": true, ...} line;
 9. the training path, before the kernels line: `runner.run` at the
    flagship training configuration (8-stage UNet at full width, f32,
    `drop_block`, batch 32, 256^2, K=21, AdamW lr 1e-3 wd 1e-3, augmentation
@@ -234,6 +235,25 @@ result line):
    over NCCL with one rank per card and views/s on one card against two;
    with one, NCCL initialised at world size 1 and a line saying the
    multi-card run was skipped.
+18. the figures and the prediction writer, before the kernels line, on
+   [5]'s 6 served views (no new serving): `point_metrics`,
+   `instant_metrics`, `calibration`, `clinical_metrics`, `skewness`,
+   `plotting` and `prediction_writer` on the card and on the CPU, the
+   outcome asserted by what this machine has: without matplotlib,
+   `figure_errors` names exactly the five processors that draw, each
+   "No module named 'matplotlib'", `clinical_metrics/metric_figures_error`
+   names matplotlib and no PNG is written; with it, no figure error and the
+   card's PNG names the CPU's; without h5py, `processor_errors` is exactly
+   the writer's "No module named 'h5py'" and no predictions.h5; with it,
+   no processor error and one group per view; either way every CSV within
+   PROCESSOR_TOL of the CPU's and the .npy dicts equal. The dashboards'
+   payloads of the CPU run's views prepared on the card and on the CPU from
+   the same rows and MC populations: dense splines (one f64
+   `contour_spline` call a view) finite and within SPLINE_BAR_PX of the
+   CPU's on every sample; every other leaf equal; payload ms per view on
+   the card. `val_figure` once on [5]'s model: without
+   matplotlib it raises ModuleNotFoundError and launches nothing, with it
+   a figure and one K2 launch.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -1510,6 +1530,19 @@ def check_skew_results(results, t_e: int, t_a: int, size: int) -> None:
             raise AssertionError("skew view: no map painted, no mode mask, or mode == mu")
 
 
+def numbers_only(metrics: dict) -> dict:
+    """A processors' summary without `figure_errors`, which may name only a
+    missing matplotlib, and only where this machine lacks it ([18] asserts
+    the whole outcome)."""
+    import importlib.util
+
+    errors = metrics.get("figure_errors", {})
+    if errors and (importlib.util.find_spec("matplotlib") is not None
+                   or any("'matplotlib'" not in e for e in errors.values())):
+        raise AssertionError(f"figure errors: {errors}")
+    return {k: v for k, v in metrics.items() if k != "figure_errors"}
+
+
 def skew_processor_check(results) -> dict:
     """The skewness processor on the served views, run from the card's
     entry point and from the CPU's: the same numbers and skewness.npy."""
@@ -1525,6 +1558,7 @@ def skew_processor_check(results) -> dict:
         host_ms = (time.perf_counter() - t0) * 1e3 / len(results)
         cpu = run_processors(results, tmp / "cpu", cfg, device="cpu")
         saved = [np.load(tmp / d / "skewness.npy", allow_pickle=True).item() for d in ("gpu", "cpu")]
+    gpu, cpu = numbers_only(gpu), numbers_only(cpu)
     if "processor_errors" in gpu or gpu != cpu or set(gpu) != {
             "skewness/error_skew_x", "skewness/error_skew_y", "skewness/mean_alpha_norm"}:
         raise AssertionError(f"skewness processor: card {gpu}, CPU {cpu}")
@@ -3811,6 +3845,213 @@ def multi_rank_phase() -> dict:
     return out
 
 
+# [18]: the figures and the prediction writer on [5]'s served views. The
+# processors that draw, with calibration and the writer; the five that draw
+# record a missing matplotlib under `figure_errors`, the writer a missing
+# h5py under `processor_errors`.
+FIGURE_PROCESSORS = ["point_metrics", "instant_metrics", "clinical_metrics", "skewness",
+                     "plotting"]
+FIGURE_RUN = ["point_metrics", "instant_metrics", "calibration", "clinical_metrics",
+              "skewness", "plotting", "prediction_writer"]
+FIGURE_NPY = ["data_point.npy", "data_instant.npy", "skewness.npy"]
+# The dashboards' dense splines (an f64 solve rounded to f32), card against
+# CPU on every sample: the bar of tests/test_torch_port_raster.py.
+SPLINE_BAR_PX = 2e-4
+
+
+def same_leaves(got, ref, path: str = "") -> list:
+    """The paths where two nested dicts of arrays, lists and scalars
+    differ, NaN matching NaN."""
+    if isinstance(ref, dict):
+        if set(got) != set(ref):
+            return [f"{path}: keys {sorted(set(got) ^ set(ref))}"]
+        return [p for k in ref for p in same_leaves(got[k], ref[k], f"{path}/{k}")]
+    if ref is None or isinstance(ref, (str, bool)):
+        return [] if got == ref else [path]
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return [f"{path}: {got.dtype}{got.shape} != {ref.dtype}{ref.shape}"]
+    equal = np.array_equal(got, ref, equal_nan=got.dtype.kind in "fc")
+    return [] if equal else [path]
+
+
+def spline_reading(res, card: dict, host: dict) -> dict:
+    """Pops the dense splines of both payloads and holds the card's to the
+    CPU's: finite, the same shape, within SPLINE_BAR_PX on every sample.
+    Also reports the card's distance from an f64 evaluation on the CPU."""
+    import torch
+
+    from contouring_uncertainty_torch.ops.spline import contour_spline
+
+    inst = res.instants or {"ED": 0, "ES": min(1, res.img.shape[0] - 1)}
+    diffs, errs = [], []
+    for name in ("ED", "ES"):
+        g = card["panels"][name].pop("dense_samples")
+        h = host["panels"][name].pop("dense_samples")
+        samples = res.contour_samples[inst[name]][:2, :5].reshape(-1, *res.contour_samples.shape[-2:])
+        f64 = contour_spline(torch.as_tensor(samples, dtype=torch.float64), n=256).numpy()
+        if g.shape != h.shape or g.shape != f64.shape or not np.isfinite(g).all():
+            raise AssertionError(f"view {res.id} {name}: dense splines {g.shape} on the card "
+                                 f"(finite: {np.isfinite(g).all()}), {h.shape} on the CPU")
+        diff = np.abs(g - h).max(axis=(1, 2))
+        if not (diff <= SPLINE_BAR_PX).all():
+            raise AssertionError(f"view {res.id} {name}: dense splines card vs CPU {diff} px "
+                                 f"(bar {SPLINE_BAR_PX})")
+        diffs.append(diff)
+        errs.append(np.abs(g - f64).max(axis=(1, 2)))
+    diffs, errs = np.concatenate(diffs), np.concatenate(errs)
+    return {"shape": g.shape, "max": float(diffs.max()), "samples": len(diffs),
+            "max_f64": float(errs.max())}
+
+
+def figure_phase(main_res: dict) -> dict:
+    """[18]: the processors that draw and the writer on [5]'s served views,
+    on the card and on the CPU, their outcome asserted by what this machine
+    has (matplotlib, h5py); the dashboards' payloads on the card against
+    the CPU from the CPU run's rows and MC populations; val_figure once."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.results import clinical, metric_figures, run_processors
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    results = main_res["results"]
+    cfg = {"data": {"results_processors": FIGURE_RUN}}
+
+    def counts():
+        return (dsnt_kernel.row_launches, dsnt_kernel.col_launches, select_kernel.launches)
+
+    calls = []
+    out = {"matplotlib": has_mpl, "h5py": has_h5py, "views": len(results)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu = run_processors(results, tmp / "gpu", cfg, device="cuda")
+        torch.cuda.synchronize()
+        out["host_ms_per_view"] = (time.perf_counter() - t0) * 1e3 / len(results)
+        out["processor_launches"] = tuple(a - b for a, b in zip(counts(), before))
+        with recording(clinical, "view_dashboards", calls.append):
+            cpu = run_processors(results, tmp / "cpu", cfg, device="cpu")
+        for side, metrics, root in (("card", gpu, tmp / "gpu"), ("CPU", cpu, tmp / "cpu")):
+            pngs = sorted(str(p.relative_to(root)) for p in root.rglob("*.png"))
+            errors = metrics.get("processor_errors", {})
+            if has_h5py:
+                if errors:
+                    raise AssertionError(f"processor errors on the {side}: {errors}")
+                import h5py
+
+                with h5py.File(root / "predictions.h5", "r") as f:
+                    groups = sorted(f"{a}/{b}" for a in f for b in f[a])
+                if groups != sorted(r.id for r in results):
+                    raise AssertionError(f"predictions.h5 on the {side} holds {groups}")
+            else:
+                want = {"prediction_writer": "ModuleNotFoundError: No module named 'h5py'"}
+                if errors != want or (root / "predictions.h5").exists():
+                    raise AssertionError(f"without h5py, the {side}'s processor errors are "
+                                         f"{errors} (want {want}) and predictions.h5 "
+                                         f"{'was' if (root / 'predictions.h5').exists() else 'was not'} written")
+            fig_errors = metrics.get("figure_errors")
+            dash_error = metrics.get("clinical_metrics/metric_figures_error", "")
+            if has_mpl:
+                if fig_errors or dash_error or not pngs:
+                    raise AssertionError(f"with matplotlib, the {side} gave figure errors "
+                                         f"{fig_errors}, {dash_error!r} and {len(pngs)} PNGs")
+            else:
+                want = {name: "ModuleNotFoundError: No module named 'matplotlib'"
+                        for name in FIGURE_PROCESSORS}
+                if fig_errors != want or "matplotlib" not in dash_error or pngs:
+                    raise AssertionError(f"without matplotlib, the {side} gave figure errors "
+                                         f"{fig_errors}, metric_figures_error {dash_error!r} "
+                                         f"and PNGs {pngs[:5]}")
+            out[f"{side}_pngs"] = pngs
+        if out["card_pngs"] != out["CPU_pngs"]:
+            raise AssertionError("the card's figures differ from the CPU's: "
+                                 f"{sorted(set(out['card_pngs']) ^ set(out['CPU_pngs']))}")
+        if set(gpu) != set(cpu):
+            raise AssertionError(f"summary keys differ: {sorted(set(gpu) ^ set(cpu))}")
+        bad = {k: (gpu[k], cpu[k]) for k in cpu if differing(k, gpu[k], cpu[k])}
+        csvs = sorted(str(p.relative_to(tmp / "cpu")) for p in (tmp / "cpu").rglob("*.csv"))
+        for name in csvs:
+            header, rows = read_csv_cells(tmp / "gpu" / name)
+            ref_header, ref_rows = read_csv_cells(tmp / "cpu" / name)
+            if header != ref_header or [r[0] for r in rows] != [r[0] for r in ref_rows]:
+                raise AssertionError(f"{name}: the card's columns or rows differ from the CPU's")
+            for row, ref_row in zip(rows, ref_rows):
+                for col, got, ref in zip(header[1:], row[1:], ref_row[1:]):
+                    if differing(col, got, ref):
+                        bad[f"{name}:{row[0]}:{col}"] = (got, ref)
+        for name in FIGURE_NPY:
+            diff = same_leaves(np.load(tmp / "gpu" / name, allow_pickle=True).item(),
+                               np.load(tmp / "cpu" / name, allow_pickle=True).item())
+            if diff:
+                bad[name] = diff[:5]
+        if bad:
+            raise AssertionError(f"the card's processor outputs differ from the CPU's "
+                                 f"(tolerance {PROCESSOR_TOL}): {dict(list(bad.items())[:10])}")
+        out["csvs"], out["npys"] = csvs, FIGURE_NPY
+        out["figure_errors"] = gpu.get("figure_errors")
+        out["processor_errors"] = gpu.get("processor_errors")
+        out["metric_figures_error"] = gpu.get("clinical_metrics/metric_figures_error")
+
+    # The payloads of the CPU run's dashboards, prepared on the card and on
+    # the CPU from the same views, rows and MC populations (the processor
+    # prepares none where matplotlib is absent).
+    if len(calls) != 1 or len(calls[0][0]) != len(results):
+        raise AssertionError(f"the CPU run's dashboards were called {len(calls)} times "
+                             f"for {len(results)} views")
+    fig_payload, instant_rows, view_rows = calls[0][:3]
+    payload_ms, splines = [], []
+    for res, mc in fig_payload.values():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = metric_figures.prepare_view_payload(res, instant_rows, view_rows, mc, "cuda")
+        torch.cuda.synchronize()
+        payload_ms.append((time.perf_counter() - t0) * 1e3)
+        host = metric_figures.prepare_view_payload(res, instant_rows, view_rows, mc, "cpu")
+        splines.append(spline_reading(res, card, host))
+        diff = same_leaves(card, host)
+        if diff:
+            raise AssertionError(f"view {res.id}: the card's payload differs from the CPU's "
+                                 f"at {diff[:5]}")
+    out["payload_ms"] = payload_ms
+    out["splines"] = {"shape": splines[0]["shape"], "samples": sum(r["samples"] for r in splines),
+                      **{k: max(r[k] for r in splines) for k in ("max", "max_f64")}}
+
+    # val_figure: matplotlib first, so without it no forward runs.
+    task, model = main_res["task"], main_res["model"]
+    imgs = np.concatenate([r.img for r in results[:2]])[:4]
+    batch = {"img": torch.as_tensor(imgs, dtype=torch.float32, device="cuda"),
+             "contour": torch.as_tensor(np.concatenate([r.contour for r in results[:2]])[:4],
+                                        device="cuda")}
+    before = counts()
+    if has_mpl:
+        fig = task.val_figure(model, batch)
+        if fig is None or len(fig.axes) != 4:
+            raise AssertionError(f"val_figure returned {fig}")
+        import matplotlib.pyplot as plt
+
+        plt.close(fig)
+    else:
+        try:
+            task.val_figure(model, batch)
+        except ModuleNotFoundError as exc:
+            if exc.name != "matplotlib":
+                raise
+        else:
+            raise AssertionError("val_figure ran without matplotlib")
+    out["val_figure_launches"] = tuple(a - b for a, b in zip(counts(), before))
+    if out["val_figure_launches"][0] != (1 if has_mpl else 0):
+        raise AssertionError(f"val_figure launched K2 {out['val_figure_launches'][0]} times "
+                             f"({'with' if has_mpl else 'without'} matplotlib)")
+    return out
+
+
 def live_children() -> list:
     """This process's child processes that have not been reaped (from
     /proc): every process the run started (the ranks of [17], nvcc,
@@ -4357,6 +4598,31 @@ def main(argv) -> int:
           f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
           f"torch.topk {r['library_ms']:.4f} ms, on {card}")
 
+    phase_start[18] = time.perf_counter()
+    print("[18] figures and the prediction writer on [5]'s 6 views: the processors that draw, "
+          "calibration and prediction_writer on the card and on the CPU, the dashboards' "
+          "payloads card vs CPU, val_figure")
+    figs = figure_phase(main_res)
+    print(f"    this machine: matplotlib {'present' if figs['matplotlib'] else 'absent'}, h5py "
+          f"{'present' if figs['h5py'] else 'absent'}; figure_errors {figs['figure_errors']}; "
+          f"processor_errors {figs['processor_errors']}; clinical_metrics/metric_figures_error "
+          f"{figs['metric_figures_error']!r}; {len(figs['card_pngs'])} PNGs on the card, as on "
+          f"the CPU")
+    print(f"    card vs CPU: {len(figs['csvs'])} CSVs within {PROCESSOR_TOL} (areas and FAC "
+          f"equal), {', '.join(figs['npys'])} equal; processors' host time "
+          f"{figs['host_ms_per_view']:.1f} ms per view, launches (K2, K1, K3) "
+          f"{figs['processor_launches']}")
+    pm = sorted(figs["payload_ms"])
+    sp = figs["splines"]
+    print(f"    dashboard payloads, dense splines {sp['shape']} an instant (f64 solve): card "
+          f"within {sp['max']:.2e} px of the CPU on all {sp['samples']} samples (bar "
+          f"{SPLINE_BAR_PX:.0e}), {sp['max_f64']:.2e} px from an f64 evaluation on the CPU; "
+          f"masks, images and metric infos equal")
+    print(f"    payload ms per view on the card: median {pm[len(pm) // 2]:.2f} (range "
+          f"{pm[0]:.2f}-{pm[-1]:.2f}, first call included) on {card}")
+    print(f"    val_figure: {'a figure' if figs['matplotlib'] else 'ModuleNotFoundError'}; "
+          f"launches (K2, K1, K3) {figs['val_figure_launches']}")
+
     for kern in kernels:
         short = kern["name"].split(" ")[0]
         kern["jsrt"] = {name: {"launches": row["launches"][short],
@@ -4435,6 +4701,9 @@ def main(argv) -> int:
             kern["ensemble"]["kernel"] = ens[short.lower()]
         if short == "K2":
             kern["bf16_training"]["kernel"] = bk16
+        kern["figures"] = {"processors_launches": figs["processor_launches"][index],
+                           "val_figure_launches": figs["val_figure_launches"][index],
+                           "matplotlib": figs["matplotlib"]}
         kern["multi_rank"] = {
             f"rank {r['rank']}": {label: r[label]["launches"][short]
                                   for label in ("train", "serve", "latency")}

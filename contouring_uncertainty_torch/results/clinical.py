@@ -10,23 +10,27 @@ batched call. Per patient, the Simpson volumes of all samples of both views
 (with the predicted and reference masks) come from one batched call. Only
 scalars come back to the host, where the tables are assembled in numpy.
 
-Not ported: the figures (the calibration and correlation plots and the
-per-view dashboards of results/metric_figures.py); the machine with the
-card has no matplotlib. The numeric half of the calibration plot, the
-`{metric}_uce` and `{metric}_a-uce` summary keys, is kept.
+After the tables, the JAX package's figures: each metric family's
+calibration (`{metric}_calibration.png`) and correlation plots
+(`{metric}_correlation_{y}_{x}.png`), drawn after every number and CSV
+(results/__init__.py `draw_figures`), then the per-view dashboards of
+results/metric_figures.py (their splines on `device`, prepared only once
+matplotlib has imported) under `metric_figures/` and `metric_figures2/`,
+whose failure is recorded as `metric_figures_error`.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
+from functools import partial
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from contouring_uncertainty_torch.data.config import Label
-from contouring_uncertainty_torch.results import register
+from contouring_uncertainty_torch.results import FiguresMissing, draw_figures, register
 from contouring_uncertainty_torch.results.utils import (
     Table,
     _pearson,
@@ -78,26 +82,98 @@ def merge_volume_df(patient_df: Table) -> Table:
     return Table(rows)
 
 
-def metric_calibration(df: Table, metric: str, summary: Dict) -> None:
+def metric_calibration(df: Table, metric: str, summary: Dict):
     """Uniform and adaptive UCE of one clinical metric's MC spread against
     its error, as '{metric}_uce' / '{metric}_a-uce' summary keys; rejected
-    rows are left out when at least two remain."""
+    rows are left out when at least two remain. Returns the curves
+    `_plot_metric_calibration` draws, or None where there are none."""
     std_col, err_col = f"{metric}_std", f"{metric}_error"
     if std_col not in df.columns or err_col not in df.columns:
-        return
+        return None
     std = df.column(std_col)
     err = df.column(err_col)
     ok = np.isfinite(std) & np.isfinite(err)
     std, err = std[ok], err[ok]
     if len(std) < 2:
-        return
+        return None
     filters = None
     if f"{metric}_reject" in df.columns:
         filters = ~df.flags(f"{metric}_reject")[ok]
         if filters.sum() < 2:
             filters = None
-    summary[f"{metric}_uce"] = compute_calibration(err, std, filters=filters)[0]
-    summary[f"{metric}_a-uce"] = compute_adaptive_calibration(err, std, filters=filters)[0]
+    uce, conf, acc, sizes = compute_calibration(err, std, filters=filters)
+    a_uce, a_conf, a_acc, _ = compute_adaptive_calibration(err, std, filters=filters)
+    summary[f"{metric}_uce"] = uce
+    summary[f"{metric}_a-uce"] = a_uce
+    return uce, conf, acc, sizes, a_uce, a_conf, a_acc
+
+
+def plot_metric_calibration(df: Table, metric: str, out_dir: Path, summary: Dict) -> None:
+    """`metric_calibration`, then its uniform and adaptive UCE curves with
+    the bin-occupancy bars, '{metric}_calibration.png'."""
+    curves = metric_calibration(df, metric, summary)
+    if curves is not None:
+        _plot_metric_calibration(curves, metric, out_dir)
+
+
+def _plot_metric_calibration(curves, metric: str, out_dir: Path) -> None:
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    uce, conf, acc, sizes, a_uce, a_conf, a_acc = curves
+    f, (ax1, ax2) = plt.subplots(1, 2, figsize=(10, 5))
+    ax1.plot(conf, acc, marker="o")
+    ax2.plot(a_conf, a_acc, marker="o")
+    ax12 = ax1.twinx()
+    width = np.min(np.diff(conf)) / 2 if len(conf) > 1 else None
+    ax12.bar(conf, sizes, alpha=0.7, **({"width": width} if width else {}))
+    for ax, u, title in ((ax1, uce, "UCE"), (ax2, a_uce, "A-UCE")):
+        ax.plot(ax.get_xlim(), ax.get_xlim(), "--", c="k")
+        ax.set_title(f"{title}={u:.3f}")
+        ax.set_ylabel(f"{metric} error")
+        ax.set_xlabel(f"$\\sigma_{{{metric}}}$")
+    plt.tight_layout()
+    plt.savefig(out_dir / f"{metric}_calibration.png", dpi=80)
+    plt.close(f)
+
+
+def plot_metric_correlation(df: Table, metric: str, out_dir: Path, x: str = "gt",
+                            y: str = "pred", color: Optional[str] = "std") -> None:
+    """Scatter of one clinical metric, y against x, with the identity line
+    and Pearson r, colored by the MC std unless `color` is None:
+    '{metric}_correlation_{y}_{x}.png'."""
+    x_col, y_col = f"{metric}_{x}", f"{metric}_{y}"
+    if x_col not in df.columns or y_col not in df.columns:
+        return
+    xs = df.column(x_col)
+    ys = df.column(y_col)
+    ok = np.isfinite(xs) & np.isfinite(ys)
+    if ok.sum() < 2:
+        return
+    xs, ys = xs[ok], ys[ok]
+    cs = None
+    if color is not None and f"{metric}_{color}" in df.columns:
+        cs = df.column(f"{metric}_{color}")[ok]
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    f, ax = plt.subplots(figsize=(5, 5))
+    sc = ax.scatter(xs, ys, c=cs, cmap="viridis" if cs is not None else None)
+    lo, hi = min(xs.min(), ys.min()), max(xs.max(), ys.max())
+    ax.plot([lo, hi], [lo, hi], "--", c="k")
+    ax.set_xlabel(f"{metric} {x}")
+    ax.set_ylabel(f"{metric} {y}")
+    ax.set_title(f"r={_pearson(xs, ys):.3f}")
+    if cs is not None:
+        f.colorbar(sc, label=f"{metric} std")
+    plt.tight_layout()
+    plt.savefig(out_dir / f"{metric}_correlation_{y}_{x}.png", dpi=80)
+    plt.close(f)
 
 
 def _ed_es(res):
@@ -162,6 +238,24 @@ def _patient_volumes(a2c, a4c, masks: Dict[str, torch.Tensor], device: torch.dev
     return edv.cpu().numpy(), esv.cpu().numpy(), with_gt
 
 
+def view_dashboards(fig_payload: Dict[str, tuple], instant_rows: Dict[str, Dict],
+                    view_rows: Dict[str, Dict], out_dir: Path, device: torch.device) -> None:
+    """Per-view dashboards in metric_figures/ (spline contours) and
+    metric_figures2/ (mask contours), from `fig_payload` (view id -> (res,
+    raw MC populations)) and the processor's rows. matplotlib is imported
+    first: without it the payloads' spline launches would be thrown away."""
+    import matplotlib  # noqa: F401
+
+    from contouring_uncertainty_torch.results.metric_figures import (
+        prepare_view_payload,
+        render_dashboards,
+    )
+
+    payloads = [prepare_view_payload(res, instant_rows, view_rows, mc_pops, device)
+                for res, mc_pops in fig_payload.values()]
+    render_dashboards(payloads, out_dir)
+
+
 @register("clinical_metrics", on_device=True)
 def clinical_metrics(results: List, out_dir: Path, device: torch.device) -> dict:
     out_dir = Path(out_dir) / "clinical"
@@ -171,6 +265,7 @@ def clinical_metrics(results: List, out_dir: Path, device: torch.device) -> dict
     view_rows: Dict[str, Dict] = {}
     patients: Dict[str, Dict[str, object]] = defaultdict(dict)
     masks: Dict[str, torch.Tensor] = {}  # view id -> (N, Te, Ta, H, W) bool, on device
+    fig_payload: Dict[str, tuple] = {}  # view id -> (res, raw MC populations)
 
     for res in results:
         if res.pred_samples is None:
@@ -200,6 +295,8 @@ def clinical_metrics(results: List, out_dir: Path, device: torch.device) -> dict
             )
         row = {f"FAC_{k}": v for k, v in _metric_row(pred_fac, gt_fac, fac_mc, 0.0, 1.0).items()}
         gls_mc, pred_gls, gt_gls = _view_gls(res, samples, ed, es, device)
+        fig_payload[res.id] = (res, {"Area_ED": areas_mc[ed], "Area_ES": areas_mc[es],
+                                     "FAC": fac_mc, "GLS": gls_mc})
         row.update({f"GLS_{k}": v for k, v in _metric_row(pred_gls, gt_gls, gls_mc, 0.0, 1.0).items()})
         view_rows[res.id] = row
 
@@ -265,15 +362,34 @@ def clinical_metrics(results: List, out_dir: Path, device: torch.device) -> dict
         dfs["volume"] = merge_volume_df(dfs["patient"])
         dfs["volume"].to_csv(out_dir / "volume_df.csv")
 
-    # Calibration of each clinical metric's MC spread.
+    # Calibration and correlation plots of each clinical metric's MC spread.
     families = {
         "instant": ("Area",),
         "view": ("FAC", "GLS"),
         "patient": ("EF", "ESV", "EDV"),
         "volume": ("Volume",),
     }
+    draws = []
     for name, metrics in families.items():
-        if name in dfs:
-            for metric in metrics:
-                metric_calibration(dfs[name], metric, summary)
+        if name not in dfs:
+            continue
+        for metric in metrics:
+            curves = metric_calibration(dfs[name], metric, summary)
+            if curves is not None:
+                draws.append(partial(_plot_metric_calibration, curves, metric, out_dir))
+            draws.append(partial(plot_metric_correlation, dfs[name], metric, out_dir))
+            draws.append(partial(plot_metric_correlation, dfs[name], metric, out_dir,
+                                 x="pred", y="mean", color=None))
+    try:
+        draw_figures(summary, draws)
+        missing = None
+    except FiguresMissing as exc:
+        missing = exc  # raised after the dashboards record their own error
+
+    try:
+        view_dashboards(fig_payload, instant_rows, view_rows, out_dir, device)
+    except Exception as exc:  # figures must not void the metric summary
+        summary["metric_figures_error"] = f"{type(exc).__name__}: {exc}"
+    if missing is not None:
+        raise missing  # its metrics are `summary`, metric_figures_error included
     return summary

@@ -1,21 +1,23 @@
 """Instant-level metrics: Dice, landmark L2, uncertainty correlations ->
-instant_metrics.csv and data_instant.npy.
+instant_metrics.csv and data_instant.npy, then correlation_instant.png.
 
-Counterpart of contouring_uncertainty_tpu/results/instant_metrics.py,
-without the correlation figure.
+Counterpart of contouring_uncertainty_tpu/results/instant_metrics.py; the
+figure is drawn after the numbers (results/__init__.py `draw_figures`).
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
+from functools import partial
 from pathlib import Path
 from typing import List
 
 import numpy as np
 
-from contouring_uncertainty_torch.results import register
+from contouring_uncertainty_torch.results import draw_figures, register
 from contouring_uncertainty_torch.results.utils import (
     Table,
+    _plot_corr,
     compute_correlations,
     dataframe_to_dict,
     dice,
@@ -61,6 +63,10 @@ def instant_metrics(results: List, out_dir: Path) -> dict:
             allow_pickle=True)
 
     summary = {k: float(np.nanmean(v)) for k, v in metrics.items()}
+    draws = []
     if uncertainties and metrics:
-        summary.update(dataframe_to_dict(compute_correlations(uncertainties, metrics), "corr-"))
-    return summary
+        corr = compute_correlations(uncertainties, metrics)
+        summary.update(dataframe_to_dict(corr, "corr-"))
+        draws.append(partial(_plot_corr, corr, "Instant Metrics Correlation",
+                             out_dir / "correlation_instant.png"))
+    return draw_figures(summary, draws)

@@ -1,26 +1,34 @@
 """Per-landmark metrics: X/Y/L2 errors (mu, mode, posterior) with adaptive
-calibration and threshold sweeps -> data_point.npy.
+calibration and threshold sweeps -> data_point.npy, then the JAX
+package's figures: correlation_point.png, calibration_points.png,
+post_calibration_points.png, thresholds_points.png and
+corr_thresholds-Error-cov_det.png.
 
-Counterpart of contouring_uncertainty_tpu/results/point_metrics.py,
-without its figures.
+Counterpart of contouring_uncertainty_tpu/results/point_metrics.py; the
+figures are drawn after the numbers (results/__init__.py `draw_figures`).
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
+from functools import partial
 from pathlib import Path
 from typing import List
 
 import numpy as np
 
-from contouring_uncertainty_torch.results import register
+from contouring_uncertainty_torch.results import draw_figures, register
 from contouring_uncertainty_torch.results.utils import (
     _pearson,
-    calibration,
+    _plot_calibration,
+    _plot_corr,
+    _plot_corr_thresholds,
+    _plot_thresholds,
+    calibration_curves,
     compute_correlations,
+    correlation_sweep,
     dataframe_to_dict,
-    thresholded_correlation,
-    thresholded_metrics,
+    threshold_curves,
 )
 
 
@@ -56,8 +64,12 @@ def point_metrics(results: List, out_dir: Path) -> dict:
             allow_pickle=True)
 
     summary = {k: float(np.nanmean(v)) for k, v in metrics.items()}
+    draws = []
     if uncertainties:
-        summary.update(dataframe_to_dict(compute_correlations(uncertainties, metrics), "corr-"))
+        corr = compute_correlations(uncertainties, metrics)
+        summary.update(dataframe_to_dict(corr, "corr-"))
+        draws.append(partial(_plot_corr, corr, "Point Metrics Correlation",
+                             out_dir / "correlation_point.png"))
 
         # Average per-landmark error vs average determinant correlation.
         if errors and determinants:
@@ -65,20 +77,28 @@ def point_metrics(results: List, out_dir: Path) -> dict:
             det_k = np.stack(determinants).mean(0)
             summary["avg_cov-avg_det"] = _pearson(det_k, err_k)
 
-        summary.update(calibration(
-            uncertainties, metrics,
-            ["cov_xx", "cov_yy", "cov_det", "cov_eigval_sum"],
-            ["X-Error", "Y-Error", "Error", "Error"], adaptive=True,
-        ))
-        summary.update(calibration(
-            uncertainties, metrics,
-            ["post_cov_xx", "post_cov_yy", "post_cov_det", "post_cov_eigval_sum"],
-            ["post_X-Error", "post_Y-Error", "post_Error", "post_Error"], adaptive=True,
-        ))
-        summary.update(thresholded_metrics(
+        for prefix, filename in (("", "calibration_points.png"),
+                                 ("post_", "post_calibration_points.png")):
+            results, curves = calibration_curves(
+                uncertainties, metrics,
+                [f"{prefix}cov_xx", f"{prefix}cov_yy", f"{prefix}cov_det",
+                 f"{prefix}cov_eigval_sum"],
+                [f"{prefix}X-Error", f"{prefix}Y-Error", f"{prefix}Error", f"{prefix}Error"],
+                adaptive=True,
+            )
+            summary.update(results)
+            if curves:
+                draws.append(partial(_plot_calibration, curves, out_dir / filename))
+        results, curves = threshold_curves(
             uncertainties, metrics,
             ["cov_xx", "cov_yy", "cov_det"],
             ["X-Error", "Y-Error", "Error"],
-        ))
-        summary.update(thresholded_correlation(uncertainties, metrics, "cov_det", "Error"))
-    return summary
+        )
+        summary.update(results)
+        if curves:
+            draws.append(partial(_plot_thresholds, curves, out_dir / "thresholds_points.png"))
+        results, sweep = correlation_sweep(uncertainties, metrics, "cov_det", "Error")
+        summary.update(results)
+        if sweep is not None:
+            draws.append(partial(_plot_corr_thresholds, sweep, "cov_det", "Error", out_dir))
+    return draw_figures(summary, draws)

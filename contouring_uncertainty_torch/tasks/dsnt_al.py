@@ -7,8 +7,8 @@ Counterpart of contouring_uncertainty_tpu/tasks/dsnt_al.py: `build_model`
 takes one model or a deep ensemble, a list of models), `loss` and
 `val_metrics` (training: the per-point Gaussian NLL, and the validation Dice
 of the linear contour reconstruction, rasterized through the crossing
-selection). `val_figure` (matplotlib) is not ported (ROADMAP.md Queue 1,
-item 13): it raises.
+selection) and `val_figure` (the validation panel the trainer logs each
+epoch; matplotlib, imported inside it).
 
 Where the JAX task takes `variables` and an rng key, the port takes the
 model (its parameters are the module's) and a `torch.Generator` for the
@@ -211,5 +211,35 @@ class DSNTAleatoric:
         return tuple(per_frame_samples(a, img.shape[:-3], t_e) for a in out)
 
     def val_figure(self, model, batch, max_items: int = 4):
-        raise NotImplementedError("validation figures are not ported yet (ROADMAP.md "
-                                  "Queue 1, item 13)")
+        """Contour-overlay panel of the first `max_items` images of a batch:
+        each image with its reference landmarks, the predicted means and
+        their 2-sigma confidence ellipses. Returns a matplotlib figure.
+        matplotlib is imported before the forward, so without it nothing
+        runs on the device."""
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        from contouring_uncertainty_torch.utils.plotting import confidence_ellipse
+
+        img = batch[Tags.img][:max_items]
+        with torch.no_grad():
+            mu, sigma = self.forward_gaussians(model, img)
+        mu = mu.float().cpu().numpy()
+        sigma = sigma.float().cpu().numpy()
+        n = img.shape[0]
+        fig, axes = plt.subplots(1, n, figsize=(3 * n, 3), squeeze=False)
+        gt = batch.get(Tags.contour)
+        for i, ax in enumerate(axes[0]):
+            ax.imshow(img[i, 0].float().cpu().numpy(), cmap="gray")
+            if gt is not None:
+                g = gt[i].cpu().numpy()
+                ax.scatter(g[:, 0], g[:, 1], s=6, c="lime", label="gt")
+            ax.scatter(mu[i, :, 0], mu[i, :, 1], s=6, c="red", label="pred")
+            for k in range(mu.shape[1]):
+                confidence_ellipse(mu[i, k, 0], mu[i, k, 1], sigma[i, k], ax,
+                                   n_std=2.0, edgecolor="orange", alpha=0.6)
+            ax.set_axis_off()
+        axes[0, 0].legend(loc="lower right", fontsize=6)
+        fig.tight_layout()
+        return fig

@@ -29,7 +29,8 @@ with others draws what it draws alone; a data-parallel training rank draws
 its rows of the batch's (`rng.RowBlock`; the losses' normals hold the
 batch on their second axis). Without a generator, the losses'
 normals come from a generator seeded 0 (the JAX tasks' `key(0)`).
-`val_figure` (matplotlib) is not ported (ROADMAP.md Queue 1, item 13): it raises.
+`val_figure` draws the validation panel the trainer logs each epoch
+(matplotlib, imported inside it).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -167,8 +169,35 @@ class SegmentationUncertaintyTask:
         return self.loss(model, batch, None, train=False)[1]
 
     def val_figure(self, model, batch, max_items: int = 4):
-        raise NotImplementedError("validation figures are not ported yet (ROADMAP.md "
-                                  "Queue 1, item 13)")
+        """Overlay panel of the first `max_items` images of a batch: each
+        image, its predicted label map (one deterministic forward) and the
+        reference boundary. Returns a matplotlib figure; matplotlib is
+        imported before the forward."""
+        import matplotlib
+
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        img = batch[Tags.img][:max_items]
+        with torch.no_grad():
+            probs = activate(model(img)["out"]).float().cpu().numpy()
+        if probs.shape[1] == 1:
+            pred = (probs[:, 0] > 0.5).astype(np.int32)
+        else:
+            pred = probs.argmax(axis=1)
+        n = img.shape[0]
+        fig, axes = plt.subplots(1, n, figsize=(3 * n, 3), squeeze=False)
+        gt = batch.get(Tags.gt)
+        for i, ax in enumerate(axes[0]):
+            ax.imshow(img[i, 0].float().cpu().numpy(), cmap="gray")
+            ax.imshow(pred[i], alpha=0.35, cmap="viridis",
+                      interpolation="nearest")
+            if gt is not None:
+                ax.contour(gt[i].cpu().numpy(), levels=[0.5], colors="lime",
+                           linewidths=0.8)
+            ax.set_axis_off()
+        fig.tight_layout()
+        return fig
 
     # ----------------------------------------------------------------- predict
 

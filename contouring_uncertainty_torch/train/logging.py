@@ -7,10 +7,9 @@ project PROJECT_NAME and `use_tensorboard` a
 `torch.utils.tensorboard.SummaryWriter` under `<run_dir>/tb`. A back end
 that fails to start (not installed, no API key) prints why and the run goes
 on with JSONL, as in the JAX package. Both are imported only when asked
-for. The metrics CSV is written by the trainer itself.
-
-`log_figure` (matplotlib figures) is not ported (ROADMAP.md Queue 1, item
-13): it raises.
+for. The metrics CSV is written by the trainer itself. `log_figure`
+writes a matplotlib figure under `<run_dir>/figures/` and hands it to the
+back ends that started.
 """
 
 from __future__ import annotations
@@ -62,8 +61,19 @@ class ExperimentLogger:
                     pass
 
     def log_figure(self, name: str, fig, step: Optional[int] = None):
-        raise NotImplementedError("figure logging is not ported yet (ROADMAP.md Queue 1, "
-                                  "item 13)")
+        """Save a matplotlib figure as figures/{name}_{step}.png (dpi 80)
+        and attach it to Comet and TensorBoard where they started (a
+        TensorBoard failure is ignored, as in the JAX package)."""
+        path = self.run_dir / "figures" / f"{name}_{step or 0}.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        fig.savefig(path, dpi=80)
+        if self._comet is not None:
+            self._comet.log_figure(name, fig, step=step)
+        if self._tb is not None:
+            try:
+                self._tb.add_figure(name, fig, step or 0)
+            except Exception:
+                pass
 
     def close(self):
         self._jsonl.close()

@@ -25,7 +25,10 @@ Counterpart of contouring_uncertainty_tpu/train/trainer.py:
   with the JAX column names, the JSONL log and its Comet and TensorBoard
   back ends (`use_comet`, `use_tensorboard`: train/logging.py), a periodic
   resumable `{name}_last.ckpt`, the best `{name}.ckpt`, `train_complete`
-  and `{name}_phases.json`.
+  and `{name}_phases.json`; with `log_figures`, the task's `val_figure` on
+  the first 4 validation images each epoch, logged as
+  `figures/val_contours_{epoch}.png` (a failure, such as a missing
+  matplotlib, is printed and the fit goes on, as in the JAX trainer).
 
 A model in bf16 (`task.model.dtype=bfloat16`) trains as the JAX package's
 does: f32 parameters and AdamW state, convolutions in bf16 (weights cast
@@ -50,10 +53,7 @@ compute one process's step up to the order of the sums. The gradients are
 averaged over the data axis (one all-reduce per step), the logs averaged
 over it, so every rank takes the same early-stopping, best-weights and
 divergence decisions. Rank 0 alone writes the checkpoints, the metrics
-CSV and JSONL, the summary and the phases file.
-
-Not ported (ROADMAP.md Queue 1, item 13): the per-epoch validation figures
-of the JAX trainer's `log_figures` (the tasks' `val_figure`).
+CSV and JSONL, the summary, the phases file and the figures.
 """
 
 from __future__ import annotations
@@ -126,6 +126,9 @@ class TrainerConfig:
     use_comet: bool = False
     use_tensorboard: bool = False
     save_every: int = 25  # periodic resumable checkpoint, in epochs
+    # Per-epoch validation figure (the task's val_figure), written under
+    # {run_dir}/figures/ and attached to Comet/TensorBoard when active.
+    log_figures: bool = True
 
 
 def _constant(value: float) -> Callable[[int], float]:
@@ -438,6 +441,8 @@ class Trainer:
                 if writer:
                     self._log_row(row)
                     exp_logger.log_metrics(row, step=epoch)
+                    if cfg.log_figures and hasattr(self.task, "val_figure"):
+                        self._log_val_figure(exp_logger, val_arrays, epoch)
 
                 val_loss = row["val/loss"]
                 if np.isfinite(val_loss) and val_loss < best_val:
@@ -469,6 +474,20 @@ class Trainer:
                                   "best_val_loss": float(best_val), "seed": cfg.seed})
             (run_dir / "train_complete").write_text("1")
         return best_params, ckpt_path
+
+    def _log_val_figure(self, exp_logger: ExperimentLogger, val_arrays, epoch: int):
+        """The task's val_figure on the first 4 validation images, logged
+        as `val_contours`; a failure is printed, never raised."""
+        try:
+            batch = next(_iterate(val_arrays, 4, None, shuffle=False, drop_last=False))
+            fig = self.task.val_figure(self.model, _to_device(batch, self.device))
+            if fig is not None:
+                exp_logger.log_figure("val_contours", fig, step=epoch)
+                import matplotlib.pyplot as plt
+
+                plt.close(fig)
+        except Exception as exc:  # figures must never kill a fit
+            print(f"[trainer] val figure failed: {exc}")
 
     def _log_row(self, row: Dict[str, Any]):
         new = not self._metrics_file.exists()

@@ -7,17 +7,11 @@
   ignores it on one device, from the runner and from run_predict (on
   several ranks: tests/test_torch_port_parallel.py); a multi-structure
   data source, which raised before JSRT was ported, now serves through
-  both, the lowest label winning overlaps;
-- every "not ported yet" message names the ROADMAP.md item that holds it
-  (figures: the loggers' `log_figure`, the tasks' `val_figure`).
+  both, the lowest label winning overlaps.
 
 (The NaN rule of the crossing selection is gated in
 tests/test_torch_port_raster.py.)
 """
-
-import re
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,14 +22,9 @@ from contouring_uncertainty_tpu.config import compose as jcompose
 from contouring_uncertainty_torch import factory, runner
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch.config import compose
-from contouring_uncertainty_torch.data.config import DataParams
-from contouring_uncertainty_torch.results import FIGURES_NOT_PORTED, NOT_PORTED
-from contouring_uncertainty_torch.tasks import DSNTAleatoric, McDropoutUncertainty
-from contouring_uncertainty_torch.train.logging import ExperimentLogger
 
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parents[1]
 SMALL_RUN = ["data=synthetic", "data.image_size=32", "data.n_patients=5",
              "task.model.kernels=[[3,3],[3,3],[3,3]]", "task.model.strides=[[1,1],[2,2],[2,2]]"]
 
@@ -215,65 +204,3 @@ def test_predict_mesh_is_read_as_the_jax_runner_reads_it(entry, tmp_path):
     assert tpred.predict_mesh_mode({}) == "auto"
     for raw in ("auto", True, "off"):
         assert tpred.predict_mesh({"predict_mesh": raw}) is None
-
-
-def _roadmap_items():
-    """ROADMAP.md Queue 1: item number -> heading."""
-    text = (REPO / "ROADMAP.md").read_text()
-    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
-    return {int(n): title for n, title in re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M)}
-
-
-def _message(fn):
-    with pytest.raises(NotImplementedError) as info:
-        fn()
-    return str(info.value)
-
-
-def _log_figure(**backends):
-    """ExperimentLogger.log_figure, the logger in a directory of its own
-    (removed after) with these back ends asked for."""
-    with tempfile.TemporaryDirectory() as d:
-        logger = ExperimentLogger(d, "x", **backends)
-        try:
-            logger.log_figure("val_contours", None, step=0)
-        finally:
-            logger.close()
-
-
-CASES = {
-    # Six of these cases held the CAMUS source (item 2) and the other
-    # backbones and UNet flags (item 9), then the TensorBoard and Comet
-    # loggers and deep ensembles (item 5), and four `predict_sample_parallel`
-    # (item 11), until each was ported; they hold options that stay
-    # unported.
-    "log_figure, logger": ("Figures", lambda: _log_figure()),
-    "log_figure, tensorboard logger": ("Figures", lambda: _log_figure(use_tensorboard=True)),
-    "log_figure, comet logger": ("Figures", lambda: _log_figure(use_comet=True)),
-    "val_figure, contour task": ("Figures", lambda: DSNTAleatoric(
-        data_params=DataParams(in_shape=(1, 32, 32), out_shape=(21, 2))).val_figure(None, {})),
-    "val_figure, segmentation task": ("Figures", lambda: McDropoutUncertainty(
-        data_params=DataParams(in_shape=(1, 32, 32), out_shape=(2, 32, 32))).val_figure(None, {})),
-}
-
-
-@pytest.mark.parametrize("case", list(CASES))
-def test_not_ported_messages_name_their_roadmap_item(case, tmp_path, monkeypatch):
-    """Each "not ported yet" error names the ROADMAP.md Queue 1 item whose
-    heading holds that feature; a run refused writes nothing."""
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.delenv("SAVE_PATH", raising=False)
-    keyword, fn = CASES[case]
-    item = int(re.search(r"ROADMAP\.md Queue 1, item (\d+)", _message(fn)).group(1))
-    assert keyword.lower() in _roadmap_items()[item].lower(), (case, item)
-    assert not any(tmp_path.iterdir())
-
-
-@pytest.mark.parametrize("name", [*NOT_PORTED, *FIGURES_NOT_PORTED])
-def test_unported_processors_name_their_roadmap_item(name):
-    """An unported processor, or the figure of a ported one (skewness),
-    names the ROADMAP.md Queue 1 item whose heading holds it."""
-    keyword = {"skewness": "Figures", "plotting": "Figures",
-               "prediction_writer": "prediction writer"}[name]
-    item = NOT_PORTED.get(name, FIGURES_NOT_PORTED.get(name))
-    assert keyword.lower() in _roadmap_items()[item].lower()

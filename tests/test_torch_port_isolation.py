@@ -1,9 +1,13 @@
 """The PyTorch port stands alone: it imports no JAX (its multi-GPU modules
 under parallel/ included), nothing of the JAX package and none of h5py (but inside the JSRT and CAMUS readers' load
-functions, the writers and the raw-data generators), PIL (but inside the
-generators' resize), matplotlib, pandas, PyYAML and orbax; its entry points
-default to the GPU and raise without one instead of carrying on on the CPU;
-and chip_smoke.py refuses to run without a card or outside a checkout.
+functions, the writers, the raw-data generators and the prediction
+writer), PIL (but inside the generators' resize), matplotlib (but inside
+the functions that draw: utils/plotting.py, results/metric_figures.py, the
+processors' `_plot_*`, the tasks' `val_figure`, the trainer's figure hook),
+pandas, PyYAML and orbax; every module imports with matplotlib and h5py
+absent, as on the machine with the card; its entry points default to the
+GPU and raise without one instead of carrying on on the CPU; and
+chip_smoke.py refuses to run without a card or outside a checkout.
 """
 
 import ast
@@ -38,16 +42,32 @@ def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-# The one exception: the JSRT and CAMUS readers' load functions, the
-# writers and the raw-data generators import h5py inside themselves, as the
-# JAX package's do (the machine with the card has no h5py and feeds the
-# readers from arrays).
+# The exceptions: the JSRT and CAMUS readers' load functions, the writers,
+# the raw-data generators and the prediction writer import h5py inside
+# themselves, and the functions that draw import matplotlib inside
+# themselves, as the JAX package's do (the machine with the card has
+# neither; it feeds the readers from arrays, and chip_smoke.py [18] imports
+# each only where this machine has it).
 H5PY_FUNCTIONS = {PACKAGE / "data" / "lung.py": {"_load", "write_jsrt_hdf5"},
                   PACKAGE / "data" / "camus.py": {"_split_patients", "load_split"},
                   PACKAGE / "data" / "synthetic.py": {"write_camus_hdf5"},
-                  PACKAGE / "data" / "generators.py": {"generate_camus", "generate_jsrt"}}
+                  PACKAGE / "data" / "generators.py": {"generate_camus", "generate_jsrt"},
+                  PACKAGE / "results" / "extras.py": {"prediction_writer"},
+                  REPO / "chip_smoke.py": {"figure_phase"}}
+MATPLOTLIB_FUNCTIONS = {
+    PACKAGE / "utils" / "plotting.py": {"confidence_ellipse"},
+    PACKAGE / "results" / "utils.py": {"_plot_calibration", "_plot_thresholds",
+                                       "_plot_corr_thresholds", "_plot_corr"},
+    PACKAGE / "results" / "clinical.py": {"_plot_metric_calibration", "plot_metric_correlation",
+                                          "view_dashboards"},
+    PACKAGE / "results" / "extras.py": {"_plot_skewness", "_plot_samples"},
+    PACKAGE / "results" / "metric_figures.py": {"render_view_payload"},
+    PACKAGE / "tasks" / "dsnt_al.py": {"val_figure"},
+    PACKAGE / "tasks" / "segmentation.py": {"val_figure"},
+    PACKAGE / "train" / "trainer.py": {"_log_val_figure"},
+    REPO / "chip_smoke.py": {"figure_phase"}}
 # Package -> the functions that may import it inside themselves, by module.
-LOCAL_IMPORTS = {"h5py": H5PY_FUNCTIONS,
+LOCAL_IMPORTS = {"h5py": H5PY_FUNCTIONS, "matplotlib": MATPLOTLIB_FUNCTIONS,
                  "PIL": {PACKAGE / "data" / "generators.py": {"_resize"}}}
 
 
@@ -95,6 +115,29 @@ def test_importing_the_port_loads_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_port_imports_without_matplotlib_and_h5py():
+    """In a fresh interpreter with matplotlib and h5py hidden (as on the
+    machine with the card), every module of the package and chip_smoke
+    imports, the new figure modules among them."""
+    modules = sorted(
+        "contouring_uncertainty_torch." + ".".join(p.relative_to(PACKAGE).with_suffix("").parts)
+        for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
+    assert {"contouring_uncertainty_torch.utils.plotting",
+            "contouring_uncertainty_torch.results.metric_figures"} <= set(modules)
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "sys.modules['h5py'] = None\n"
+        f"for m in {modules + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('imported', len(sys.modules))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("imported")
 
 
 PARALLEL = ("distributed", "mesh", "serving")

@@ -7,9 +7,9 @@ converted to the JAX package's BatchResult with its own Label. Both
 packages run point_metrics, calibration, clinical_metrics,
 instant_metrics, mutual_info and sigma_stats; their CSVs (read with
 pandas, here only), .npy dicts and metrics.json are compared. The JAX
-package also draws figures, which the port does not port: its
-`matplotlib.pyplot.savefig` and per-view dashboards are switched off while
-it runs, which changes none of its numbers.
+package's `matplotlib.pyplot.savefig` and per-view dashboards are switched
+off while it runs, which changes none of its numbers; the port draws its
+figures (held against JAX's in tests/test_torch_port_figures.py).
 
 Tolerances: every value that does not come from the clinical metrics'
 device reductions is computed by the same numpy code on the same inputs and
@@ -34,7 +34,7 @@ from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch import runner
 from contouring_uncertainty_torch.data.config import BatchResult, Label
 from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
-from contouring_uncertainty_torch.results import NOT_PORTED, run_processors
+from contouring_uncertainty_torch.results import run_processors
 from contouring_uncertainty_torch.results.utils import Table
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 
@@ -193,17 +193,13 @@ def test_mask_gls_branch_matches_jax(views, tmp_path):
 
 
 def test_unported_and_unknown_processors_are_recorded(views, tmp_path):
-    """A name the JAX package registers but the port does not have yet
-    records where it waits (ROADMAP.md Queue 1); an unknown name records
-    that; the others still run."""
-    names = ["instant_metrics", *NOT_PORTED, "no_such_processor"]
+    """An unknown processor name is recorded as such; the others still
+    run."""
+    names = ["instant_metrics", "no_such_processor"]
     got = run_processors(views, tmp_path, {"data": {"results_processors": names}},
                          device="cpu")
     errors = got["processor_errors"]
-    assert set(errors) == {*NOT_PORTED, "no_such_processor"}
-    for name, item in NOT_PORTED.items():
-        assert errors[name] == f"not ported (ROADMAP.md Queue 1, item {item})"
-    assert errors["no_such_processor"] == "unknown processor (not registered)"
+    assert errors == {"no_such_processor": "unknown processor (not registered)"}
     assert "instant_metrics/Dice" in got
     assert json.loads((tmp_path / "metrics.json").read_text())["processor_errors"] == errors
 
@@ -232,8 +228,9 @@ def test_runner_runs_the_processors_on_the_cpu(tmp_path, capsys):
     """The slice as a whole: runner.run(device="cpu") on data=synthetic with
     the five flagship processors writes the CSVs, .npy dicts and
     metrics.json under save_path/results and reports no processor error;
-    an eval-only run with an unported or unknown processor records it in
-    processor_errors and makes main exit 1."""
+    an eval-only run with the `plotting` processor draws its panels, and
+    one with an unknown processor records it in processor_errors and makes
+    main exit 1."""
     overrides = ["data=synthetic", "data.image_size=64", "data.n_patients=5",
                  "task.model.kernels=[[3,3],[3,3],[3,3],[3,3]]",
                  "task.model.strides=[[1,1],[2,2],[2,2],[2,2]]", "task.t_a=4",
@@ -255,7 +252,9 @@ def test_runner_runs_the_processors_on_the_cpu(tmp_path, capsys):
     failing = overrides + ["train=false", "test=false",
                            "data.results_processors=[instant_metrics, plotting, nonsense]"]
     evaluated = runner.run(failing, device="cpu")
-    assert set(evaluated["processor_errors"]) == {"plotting", "nonsense"}
+    assert set(evaluated["processor_errors"]) == {"nonsense"}
+    assert sorted(p.name for p in (out / "figures").iterdir()) == [
+        "patient0005_2CH.png", "patient0005_4CH.png"]
     with pytest.raises(SystemExit) as exit_info:
         runner.main(failing + ["--device=cpu"])
     assert exit_info.value.code == 1

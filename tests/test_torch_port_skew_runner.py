@@ -41,15 +41,15 @@ def test_skew_configs_build_their_tasks_as_jax():
             assert getattr(task, field) == getattr(jtask, field), (overrides, field)
 
 
-def test_runner_trains_and_predicts_dsnt_skew_on_the_cpu(tmp_path, capsys):
+def test_runner_trains_and_predicts_dsnt_skew_on_the_cpu(tmp_path):
     """runner.run(task=dsnt-skew) at 64^2, 4 stages, 2 epochs: every skew
     log key finite in the history, the metrics CSV and the JSONL log; the
     checkpoint's task name; the test metrics through val_metrics (loss logs
     and Dice); two predicted views with mu, mode and alpha (K, 2) per
     frame and the mode's mask as the prediction; the skewness processor's
-    numbers and skewness.npy with no processor error (its figure recorded
-    as not ported); the eval-only branch loads the checkpoint and gives the
-    same test metrics."""
+    numbers, skewness.npy and its figure skewness_error.png with no
+    processor or figure error; the eval-only branch loads the checkpoint
+    and gives the same test metrics."""
     overrides = ["data=synthetic", "data.image_size=64", "data.n_patients=5", "task=dsnt-skew",
                  "task.model.kernels=[[3,3],[3,3],[3,3],[3,3]]",
                  "task.model.strides=[[1,1],[2,2],[2,2],[2,2]]",
@@ -88,8 +88,8 @@ def test_runner_trains_and_predicts_dsnt_skew_on_the_cpu(tmp_path, capsys):
             "skewness/mean_alpha_norm"} <= set(metrics)
     saved = np.load(tmp_path / "results" / "skewness.npy", allow_pickle=True).item()
     assert saved["errors"].shape == saved["average_skew"].shape == (4, 21, 2)
-    assert "skewness: its figure is not ported (ROADMAP.md Queue 1, item 13)" in \
-        capsys.readouterr().out
+    assert (tmp_path / "results" / "skewness_error.png").stat().st_size > 0
+    assert "figure_errors" not in metrics
 
     evaluated = runner.run(overrides + ["train=false", "predict=false"], device="cpu")
     assert evaluated["ckpt_path"] == str(ckpt)

@@ -229,7 +229,8 @@ def test_fit_draws_the_jax_fits_batches(tmp_path, monkeypatch):
     monkeypatch.setattr(native_loader, "batches_served", 0)
     task = DSNTAleatoric(data_params=DataParams(in_shape=(1, 32, 32), out_shape=(21, 2)),
                          model_kwargs=dict(small))
-    trainer = Trainer(task, TrainerConfig(save_path=str(tmp_path / "torch"), **common),
+    trainer = Trainer(task, TrainerConfig(save_path=str(tmp_path / "torch"), log_figures=False,
+                                          **common),
                       device="cpu")
     trainer.fit(train, val)
     assert native_loader.batches_served == 6
@@ -246,13 +247,16 @@ def test_fit_draws_the_jax_fits_batches(tmp_path, monkeypatch):
 class _FakeExperiment:
     def __init__(self, project_name=None):
         self.project_name = project_name
-        self.params, self.metrics, self.ended = {}, [], False
+        self.params, self.metrics, self.figures, self.ended = {}, [], [], False
 
     def log_parameters(self, params):
         self.params.update(params)
 
     def log_metrics(self, metrics, step=None):
         self.metrics.append((dict(metrics), step))
+
+    def log_figure(self, name, fig, step=None):
+        self.figures.append((name, fig, step))
 
     def end(self):
         self.ended = True
@@ -270,11 +274,14 @@ class _FakeWriter:
     instances = []
 
     def __init__(self, logdir):
-        self.logdir, self.scalars, self.closed = logdir, [], False
+        self.logdir, self.scalars, self.figures, self.closed = logdir, [], [], False
         _FakeWriter.instances.append(self)
 
     def add_scalar(self, key, value, step):
         self.scalars.append((key, value, step))
+
+    def add_figure(self, key, fig, step):
+        self.figures.append((key, fig, step))
 
     def close(self):
         self.closed = True
@@ -284,7 +291,12 @@ def test_logger_fans_out_to_comet_and_tensorboard(tmp_path, monkeypatch):
     """With both back ends faked: Comet gets the project, no parameters,
     each metric payload with its step and the end; TensorBoard
     each scalar under <run_dir>/tb; the JSONL file gets every record; a
-    figure raises (not ported)."""
+    figure is saved as figures/{name}_{step}.png and handed to both."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
     experiments = []
     monkeypatch.setitem(sys.modules, "comet_ml", _fake_comet(experiments))
     tb_mod = types.ModuleType("torch.utils.tensorboard")
@@ -293,15 +305,19 @@ def test_logger_fans_out_to_comet_and_tensorboard(tmp_path, monkeypatch):
     _FakeWriter.instances.clear()
     logger = ExperimentLogger(tmp_path, "run", use_comet=True, use_tensorboard=True)
     logger.log_metrics({"train/loss": 1.5, "val/dice": 0.8, "note": "x"}, step=3)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        logger.log_figure("val_contours", None, step=3)
+    fig = plt.figure(figsize=(2, 2))
+    logger.log_figure("val_contours", fig, step=3)
+    plt.close(fig)
     logger.close()
+    assert (tmp_path / "figures" / "val_contours_3.png").stat().st_size > 0
     (exp,) = experiments
+    assert exp.figures == [("val_contours", fig, 3)]
     assert exp.project_name == "contouring-uncertainty-tpu" and exp.params == {}
     assert exp.metrics == [({"train/loss": 1.5, "val/dice": 0.8, "note": "x"}, 3)] and exp.ended
     (tb,) = _FakeWriter.instances
     assert tb.logdir == str(tmp_path / "tb") and tb.closed
     assert tb.scalars == [("train/loss", 1.5, 3), ("val/dice", 0.8, 3)]
+    assert tb.figures == [("val_contours", fig, 3)]
     record = json.loads((tmp_path / "run_metrics.jsonl").read_text())
     assert record == {"step": 3, "train/loss": 1.5, "val/dice": 0.8, "note": "x"}
 
