@@ -226,12 +226,26 @@ result line):
    step losses within 1e-4, both ranks' weights equal); (b) view-parallel
    run_predict of 8 views at [5]'s configuration against one process,
    every output bitwise (rank 0 returns them, rank 1 none); (c) one view
-   in the latency mode on a 1 x 2 mesh (predict_sample_parallel=2) against
-   one process at the JAX package's latency budgets (LATENCY_BARS). Each
-   rank's K2 and K3 launches are counted per part (at least 1 where the
-   part runs them); K3 is checked and timed at one rank's share of a
-   view in the latency mode (260 contours, T_a 13 of 25; the forwards and
-   so K2 run whole on every rank). With two cards or more, the same
+   in the latency mode on a 1 x 2 mesh (predict_sample_parallel=2), split
+   as the JAX package splits it: each rank runs its blocks of the
+   MC-dropout tail's 20 rows (one block of 10; one process runs both, one
+   after another), K2 once on its 210 heatmaps with the whole batch's band
+   count, and its T_a share (13 or 12 of 25) through the sampler and K3;
+   against one process at the JAX package's latency budgets (LATENCY_BARS)
+   and every output bitwise (sha256, the sample masks included); and one
+   view of [12]'s mcdropout configuration through SegPredictor on the same
+   mesh (its tail split the same way, no K2 or K3), every output bitwise.
+   Each rank's K2 and K3 launches are counted per part (at least 1 where
+   the part runs them); the tail rows, K2 rows and bands and K3 contours
+   of each rank are recorded, printed and checked; K3 is checked and
+   timed at one rank's share of a view (260 contours), K2 at one rank's
+   (210, 65536) bf16 rows, each beside its bound. (d) more ranks than
+   blocks or samples, in this process: the shards of four ranks of [5]'s
+   first test view taken one after another (T_e = 10: two tail blocks,
+   ranks 2 and 3 none; T_a = 2: ranks 2 and 3 no sample), their tail rows
+   and samples concatenated bitwise one process's, the view's generator
+   left where one process leaves it, no K2 or K3 launch for an empty
+   share. With two cards or more, the same
    over NCCL with one rank per card and views/s on one card against two;
    with one, NCCL initialised at world size 1 and a line saying the
    multi-card run was skipped.
@@ -3579,13 +3593,17 @@ def bf16_step_check() -> dict:
 # GPU), each driving (a) three data-parallel SGD steps of [9]'s model and
 # global batch, (b) view-parallel run_predict of 8 views at [5]'s
 # configuration (13 synthetic patients), (c) one view in the latency mode on
-# a 1 x 2 mesh (predict_sample_parallel=2), against one process on the card.
-# SGD, not [9]'s AdamW, for the reason gpu_vs_cpu_step gives. Bars: (a) each
-# leaf's update within STEP_BARS["grad_leaf"] of the leaf's largest plus
-# STEP_BARS["zero_grad"] of the largest of all (the conv biases ahead of an
-# instance norm: rounding noise), the step losses within 1e-4 relative;
-# (b) every output bitwise; (c) the JAX package's latency-mode budgets
-# (tests/test_parallel.py).
+# a 1 x 2 mesh (predict_sample_parallel=2: each rank its block of the
+# MC-dropout tail's rows, K2 on its heatmaps, its T_a share through the
+# sampler and K3) and one view of [12]'s mcdropout through SegPredictor on
+# the same mesh, against one process on the card; (d) four ranks' shards of
+# a view taken in this process (two of them empty). SGD, not [9]'s AdamW, for
+# the reason gpu_vs_cpu_step gives. Bars: (a) each leaf's update within
+# STEP_BARS["grad_leaf"] of the leaf's largest plus STEP_BARS["zero_grad"]
+# of the largest of all (the conv biases ahead of an instance norm: rounding
+# noise), the step losses within 1e-4 relative; (b) every output bitwise;
+# (c) the JAX package's latency-mode budgets (tests/test_parallel.py) and,
+# as (b), every output bitwise, the mcdropout view's too; (d) bitwise.
 MULTI_CFG = dict(steps=3, lr=1e-2, views_patients=13, views=8, seed=0)
 LATENCY_BARS = {"mu": 1e-4, "cov": 1e-4, "samples_q80": 2.5e-2, "samples_max": 3.5,
                 "pred_share": 1e-2, "entropy_mean": 0.03}
@@ -3674,10 +3692,53 @@ def served_digests(setup, mesh, timed: bool = False) -> dict:
     return out
 
 
+@contextmanager
+def split_recording(model):
+    """Within the block: the rows of each call of `model`'s stochastic tail
+    (its first dropout stage), the (rows, bands) of each K2 launch and the
+    contours of each K3 launch (the launch wrappers wrapped, their counts
+    untouched)."""
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+
+    rec = {"tail": [], "k2": [], "k3": []}
+    unet = getattr(model, "unet", model)
+    handle = unet.stage(unet.first_drop + 1).register_forward_hook(
+        lambda mod, inputs, out: rec["tail"].append(inputs[0].shape[0]))
+    k2, k3 = dsnt_kernel.raw_moments_cuda, select_kernel.min_k_crossings_kernel
+
+    def k2_rec(x2d, height, width, bands=None):
+        rec["k2"].append((x2d.shape[0], bands))
+        return k2(x2d, height, width, bands)
+
+    def k3_rec(dense, height, overflow_rows=None):
+        rec["k3"].append(dense.shape[0])
+        return k3(dense, height, overflow_rows)
+
+    dsnt_kernel.raw_moments_cuda, select_kernel.min_k_crossings_kernel = k2_rec, k3_rec
+    try:
+        yield rec
+    finally:
+        dsnt_kernel.raw_moments_cuda, select_kernel.min_k_crossings_kernel = k2, k3
+        handle.remove()
+
+
+def output_digests(out: dict, prefix: str = "") -> dict:
+    """Every output of a predictor's dict (nested dicts flattened) as its
+    digest; None stays None."""
+    flat = {}
+    for k, v in out.items():
+        if isinstance(v, dict):
+            flat.update(output_digests(v, f"{prefix}{k}/"))
+        else:
+            flat[prefix + k] = None if v is None else digest(v)
+    return flat
+
+
 def latency_view(setup, mesh) -> dict:
     """The first test view of `setup` through AleatoricPredictor on `mesh`
     (None: this process alone), its draws from view_generator(seed, 0) ->
-    numpy outputs (the sample masks as a digest)."""
+    numpy outputs (the sample masks as a digest), every output's digest,
+    and the rows each tail call, K2 launch and K3 launch took."""
     import torch
 
     from contouring_uncertainty_torch.predict import (
@@ -3691,17 +3752,48 @@ def latency_view(setup, mesh) -> dict:
     task, model, data = setup
     sampler = PosteriorShapeModelSampler(get_or_fit_prior(data, None), device="cuda")
     view = next(iter(data.predict_views("test")))
-    out = _to_numpy(AleatoricPredictor(task, model, sampler, device="cuda", mesh=mesh)(
-        view["img"], view_generator(MAIN_CFG["seed"], 0)))
-    torch.cuda.synchronize()
+    with split_recording(model) as rec:
+        out = _to_numpy(AleatoricPredictor(task, model, sampler, device="cuda", mesh=mesh)(
+            view["img"], view_generator(MAIN_CFG["seed"], 0)))
+        torch.cuda.synchronize()
     keep = ("mu", "cov", "contour_samples", "pred", "entropy_map")
-    return {**{k: out[k] for k in keep}, "pred_samples": digest(out["pred_samples"])}
+    return {**{k: out[k] for k in keep}, "pred_samples": digest(out["pred_samples"]),
+            "digests": output_digests(out), "rows": rec}
+
+
+def seg_setup(data):
+    """[12]'s mcdropout task and model (8-stage UNet, bf16 trunk, T_e 10,
+    T_a 1, [5]'s seed) on `data`."""
+    import torch
+
+    task = seg_task("mcdropout", data.data_params)
+    model = task.build_model(device="cuda",
+                             generator=torch.Generator().manual_seed(MAIN_CFG["seed"]))
+    return task, model, data
+
+
+def seg_latency_view(setup, mesh) -> dict:
+    """The first test view of `setup` (seg_setup) through SegPredictor on
+    `mesh` (None: this process alone) -> every output's digest and the
+    rows each tail call took."""
+    import torch
+
+    from contouring_uncertainty_torch.predict import SegPredictor, _to_numpy, view_generator
+
+    task, model, data = setup
+    view = next(iter(data.predict_views("test")))
+    with split_recording(model) as rec:
+        out = _to_numpy(SegPredictor(task, model, device="cuda", mesh=mesh)(
+            view["img"], view_generator(MAIN_CFG["seed"], 0)))
+        torch.cuda.synchronize()
+    return {"digests": output_digests(out), "rows": rec}
 
 
 def rank_worker(device, timed: bool) -> dict:
     """One rank of [17]: (a) ddp_steps, (b) served_digests on make_mesh(),
-    (c) latency_view on make_mesh(model_parallel=2), each with the kernels'
-    launch counts set to 0 just before it and read just after."""
+    (c) latency_view and seg_latency_view on make_mesh(model_parallel=2),
+    each with the kernels' launch counts set to 0 just before it and read
+    just after."""
     import torch
     import torch.distributed as dist
 
@@ -3714,9 +3806,11 @@ def rank_worker(device, timed: bool) -> dict:
            "device": str(device), "backend": dist.get_backend(),
            "card": torch.cuda.get_device_name(device)}
     setup = multi_serving_setup()
+    seg = seg_setup(setup[2])
     for label, fn in (("train", ddp_steps),
                       ("serve", lambda: served_digests(setup, make_mesh(), timed)),
-                      ("latency", lambda: latency_view(setup, make_mesh(model_parallel=2)))):
+                      ("latency", lambda: latency_view(setup, make_mesh(model_parallel=2))),
+                      ("seg_latency", lambda: seg_latency_view(seg, make_mesh(model_parallel=2)))):
         torch.cuda.synchronize()
         dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
         t0 = time.perf_counter()
@@ -3776,8 +3870,117 @@ def check_ranks(ranks: list, one: dict) -> dict:
                 if r[label]["launches"][k] < 1:
                     raise AssertionError(f"[17] rank {r['rank']} launched {k} "
                                          f"{r[label]['launches'][k]} times in {label}")
+        if any(r["seg_latency"]["launches"].values()):
+            raise AssertionError(f"[17] rank {r['rank']} launched {r['seg_latency']['launches']}"
+                                 " in the segmentation view (no K2, K1 or K3 there)")
+        for label in ("latency", "seg_latency"):
+            bad = [k for k, d in one[label]["digests"].items() if r[label]["digests"].get(k) != d]
+            if bad or r[label]["digests"].keys() != one[label]["digests"].keys():
+                raise AssertionError(f"[17] {label} on rank {r['rank']}: outputs differ from "
+                                     f"one process's: {bad}")
+    check_split_rows(ranks, one)
     return {"ddp_worst_share": worst, "latency_err": lat_err,
             "latency_samples_bitwise": lat_err["samples_max"] == 0.0}
+
+
+def check_split_rows(ranks: list, one: dict) -> None:
+    """What each rank of the latency mode ran against one process: its
+    blocks of the MC-dropout tail's rows (one process all of them, in the
+    same blocks), K2 once on its rows' heatmaps with the whole batch's band
+    count, K3 once on its T_a share's contours; in the segmentation view
+    its blocks of the tail."""
+    from contouring_uncertainty_torch.ops.dsnt_kernel import row_bands
+    from contouring_uncertainty_torch.parallel.serving import SampleShard
+
+    c, n = MAIN_CFG, 2
+    for label in ("latency", "seg_latency"):
+        t_e = c["t_e"] if label == "latency" else SEG_CFG["mcdropout"]["t_e"]
+        tail = one[label]["rows"]["tail"]
+        block = tail[0]
+        if sum(tail) != t_e * n or set(tail) != {block}:
+            raise AssertionError(f"[17] one process's {label} tail ran rows {tail}")
+        for r in ranks:
+            part = SampleShard(None, r["rank"], len(ranks)).part(t_e * n, block)
+            want = [block] * ((part.stop - part.start) // block)
+            if r[label]["rows"]["tail"] != want:
+                raise AssertionError(f"[17] rank {r['rank']}'s {label} tail ran rows "
+                                     f"{r[label]['rows']['tail']}, expected {want}")
+    whole = c["t_e"] * n * c["k"]
+    bands = row_bands(whole, c["size"], c["size"], 2, n_sm())
+    if one["latency"]["rows"]["k2"] != [(whole, None)]:  # the kernel's default: `bands`
+        raise AssertionError(f"[17] one process's K2 launches {one['latency']['rows']['k2']}")
+    for r in ranks:
+        rows = sum(r["latency"]["rows"]["tail"]) * c["k"]
+        share = SampleShard(None, r["rank"], len(ranks)).part(c["t_a"])
+        contours = n * c["t_e"] * (share.stop - share.start)
+        if r["latency"]["rows"]["k2"] != [(rows, bands)] or \
+                r["latency"]["rows"]["k3"] != [contours]:
+            raise AssertionError(f"[17] rank {r['rank']}: K2 launches (rows, bands) "
+                                 f"{r['latency']['rows']['k2']} (expected {[(rows, bands)]}), "
+                                 f"K3 contours {r['latency']['rows']['k3']} (expected "
+                                 f"{[contours]})")
+
+
+def empty_shares_check(setup) -> dict:
+    """(d) More ranks than blocks or samples, on the card in this process:
+    the shards of four ranks taken one after another on [5]'s first test
+    view (T_e = 10: two tail blocks, ranks 2 and 3 none; T_a = 2: ranks 2
+    and 3 no sample). Each rank's tail rows and samples, concatenated in
+    rank order, must be bitwise one process's, and every rank must leave
+    the view's generator where one process leaves it; the DSNT head and the
+    rasterizer of a rank with no share launch no K2 and no K3."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
+    from contouring_uncertainty_torch.ops.dsnt import logits_to_pixel_gaussians
+    from contouring_uncertainty_torch.parallel.serving import SampleShard
+    from contouring_uncertainty_torch.predict import (
+        get_or_fit_prior,
+        rasterize_labelmap,
+        view_generator,
+    )
+    from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler
+    from contouring_uncertainty_torch.tasks.dsnt_al import mc_dropout_apply
+
+    c, k, t_a = MAIN_CFG, 4, 2
+    task, model, data = setup
+    sampler = PosteriorShapeModelSampler(get_or_fit_prior(data, None), device="cuda")
+    img = torch.as_tensor(next(iter(data.predict_views("test")))["img"], device="cuda")
+    shards = [SampleShard(None, i, k) for i in range(k)]
+    with torch.inference_mode():
+        g = view_generator(c["seed"], 0)
+        whole = mc_dropout_apply(model, img, c["t_e"], g)["out"]
+        after = g.get_state()
+        tails, moved = [], []
+        for shard in shards:
+            g = view_generator(c["seed"], 0)
+            tails.append(mc_dropout_apply(model, img, c["t_e"], g, shard)["out"])
+            moved.append(not torch.equal(g.get_state(), after))
+        mu, cov = logits_to_pixel_gaussians(whole.unflatten(0, (c["t_e"], -1)).transpose(0, 1))
+        g = view_generator(c["seed"], 0)
+        samples = sampler.sample_batch([g], mu[None], cov[None], n=t_a)
+        after = g.get_state()
+        parts = []
+        for shard in shards:
+            g, share = view_generator(c["seed"], 0), shard.part(t_a)
+            parts.append(sampler.sample_batch(shard.row_blocks([g], t_a, axis=1), mu[None],
+                                              cov[None], n=share.stop - share.start))
+            moved.append(not torch.equal(g.get_state(), after))
+        k2, k3 = dsnt_kernel.row_launches, select_kernel.launches
+        empty_head = logits_to_pixel_gaussians(tails[-1], whole_rows=whole.shape[0] * c["k"])
+        empty_masks = rasterize_labelmap(parts[-1], [(0, c["k"], 1)], c["size"], c["size"])
+        torch.cuda.synchronize()
+        launched = (dsnt_kernel.row_launches - k2, select_kernel.launches - k3)
+    out = {"tail_rows": [t.shape[0] for t in tails], "samples": [p.shape[-3] for p in parts],
+           "tail_bitwise": torch.equal(torch.cat(tails), whole),
+           "samples_bitwise": torch.equal(torch.cat(parts, dim=-3), samples),
+           "generators_moved": sum(moved), "empty_launches": launched,
+           "empty_shapes": [tuple(empty_head[0].shape), tuple(empty_masks.shape)]}
+    if out["tail_rows"] != [10, 10, 0, 0] or out["samples"] != [1, 1, 0, 0] \
+            or not out["tail_bitwise"] or not out["samples_bitwise"] \
+            or out["generators_moved"] or launched != (0, 0):
+        raise AssertionError(f"[17] (d) shares of four ranks: {out}")
+    return out
 
 
 def nccl_world_of_one() -> float:
@@ -3802,7 +4005,7 @@ def nccl_world_of_one() -> float:
 
 
 def multi_rank_phase() -> dict:
-    """[17]: one process's (a) (b) (c) on the card, two gloo ranks on it,
+    """[17]: one process's (a) (b) (c) on the card, two gloo ranks on it, (d),
     with two or more cards the NCCL ranks one per card and views/s on one
     card against two, NCCL at world size 1; K3 at one rank's share of a
     view in the latency mode."""
@@ -3811,12 +4014,15 @@ def multi_rank_phase() -> dict:
     from contouring_uncertainty_torch.ops.spline import contour_spline
     from contouring_uncertainty_torch.parallel import distributed
     from contouring_uncertainty_torch.parallel.serving import SampleShard
+    from contouring_uncertainty_torch.predict import view_generator
+    from contouring_uncertainty_torch.tasks.dsnt_al import forward_views
 
     n_cards = torch.cuda.device_count()
     t0 = time.perf_counter()
     setup = multi_serving_setup()
     one = {"train": ddp_steps(), "serve": served_digests(setup, None, timed=n_cards >= 2),
-           "latency": latency_view(setup, None)}
+           "latency": latency_view(setup, None),
+           "seg_latency": seg_latency_view(seg_setup(setup[2]), None)}
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     gloo = distributed.spawn(rank_worker, 2, backend="gloo", devices=["cuda:0", "cuda:0"],
@@ -3842,6 +4048,15 @@ def multi_rank_phase() -> dict:
     part = SampleShard(None, 0, 2).take(samples, -3).reshape(-1, c["k"], 2)
     out["k3"] = k3_reading(contour_spline(part, n=1024).contiguous(), c["size"],
                            "one rank's share of a view")
+    # K2 at rank 0's rows of the view: the heatmaps of the tail's first
+    # block (its first T_e / 2 epistemic samples), 210 of 420.
+    task, model, data = setup
+    img = torch.as_tensor(next(iter(data.predict_views("test")))["img"], device="cuda")
+    with torch.inference_mode():
+        logits = forward_views(model, img, c["t_e"],
+                               view_generator(c["seed"], 0), SampleShard(None, 0, 2))["out"]
+    out["k2"] = k2_reading(logits.reshape(-1, c["size"] ** 2), c["size"])
+    out["empty"] = empty_shares_check(setup)
     return out
 
 
@@ -4559,8 +4774,10 @@ def main(argv) -> int:
     print("[17] several ranks through torch.distributed: two ranks spawned on this card over "
           "gloo, (a) data-parallel SGD steps of [9]'s model and global batch, (b) "
           f"view-parallel run_predict of {MULTI_CFG['views']} views at [5]'s configuration, "
-          "(c) one view in the latency mode (predict_sample_parallel=2), each against one "
-          "process on the card")
+          "(c) one view in the latency mode (predict_sample_parallel=2: the MC-dropout tail "
+          "in row blocks, K2 on each rank's rows, the sampler on each rank's T_a share) and "
+          "one view of [12]'s mcdropout through SegPredictor, each against one process on "
+          "the card")
     multi = multi_rank_phase()
     chk = multi["gloo_check"]
     print(f"    one process {multi['one_s']:.1f} s; two gloo ranks on {multi['gloo'][0]['card']} "
@@ -4568,9 +4785,16 @@ def main(argv) -> int:
           f"{multi['gloo'][0]['backend']}) {multi['gloo_s']:.1f} s including their start-up")
     for r in multi["gloo"]:
         print(f"    rank {r['rank']}: launches (K2, K1, K3) train {r['train']['launches']}, "
-              f"serve {r['serve']['launches']}, latency {r['latency']['launches']}; seconds "
-              f"train {r['train']['s']:.1f}, serve {r['serve']['s']:.1f}, latency "
-              f"{r['latency']['s']:.1f}")
+              f"serve {r['serve']['launches']}, latency {r['latency']['launches']}, "
+              f"segmentation view {r['seg_latency']['launches']}; seconds train "
+              f"{r['train']['s']:.1f}, serve {r['serve']['s']:.1f}, latency "
+              f"{r['latency']['s']:.1f}, segmentation view {r['seg_latency']['s']:.1f}")
+    for who, rows in [("one process", multi["one"])] + [
+            (f"rank {r['rank']}", r) for r in multi["gloo"]]:
+        lat = rows["latency"]["rows"]
+        print(f"    (c) {who}: MC-dropout tail rows per call {lat['tail']}, K2 launches "
+              f"(heatmaps, bands) {lat['k2']}, K3 contours {lat['k3']}; segmentation view "
+              f"tail rows {rows['seg_latency']['rows']['tail']}")
     print(f"    (a) {MULTI_CFG['steps']} SGD steps, global batch {TRAIN_CFG['batch']} on mesh "
           f"{multi['gloo'][0]['train']['mesh']}: each leaf's update against one process's "
           f"within {chk['ddp_worst_share']:.3f} of its bar at worst ({STEP_BARS['grad_leaf']} "
@@ -4582,7 +4806,10 @@ def main(argv) -> int:
           "returned none")
     print(f"    (c) latency mode against one process: "
           f"{ {k: float(f'{v:.3e}') for k, v in chk['latency_err'].items()} } (bars "
-          f"{LATENCY_BARS}); samples bitwise: {chk['latency_samples_bitwise']}")
+          f"{LATENCY_BARS}); samples bitwise: {chk['latency_samples_bitwise']}; all "
+          f"{len(multi['one']['latency']['digests'])} outputs bitwise (sha256), and the "
+          f"mcdropout view's {len(multi['one']['seg_latency']['digests'])} through "
+          "SegPredictor")
     if "nccl" in multi:
         one_rate = multi["one"]["serve"]["views_per_s"]
         two_rate = multi["nccl"][0]["serve"]["views_per_s"]
@@ -4593,10 +4820,20 @@ def main(argv) -> int:
         print(f"    NCCL at world size 1: all-reduce of ones(4) = {multi['nccl_world_1']}; the "
               "multi-card run (NCCL, one rank per card, views/s on one card against two) was "
               f"skipped: {torch.cuda.device_count()} card visible, it needs a second")
+    r = multi["empty"]
+    print(f"    (d) four ranks' shards in this process: tail rows {r['tail_rows']}, samples "
+          f"{r['samples']} (T_a 2); concatenated bitwise one process's (tail "
+          f"{r['tail_bitwise']}, samples {r['samples_bitwise']}); generators left elsewhere "
+          f"than one process's: {r['generators_moved']}; an empty share's (K2, K3) launches "
+          f"{r['empty_launches']}, outputs {r['empty_shapes']}")
     r = multi["k3"]
     print(f"    K3 at one rank's share of a view {r['shape']}: bitwise, {r['ms']:.4f} ms (bound "
           f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
           f"torch.topk {r['library_ms']:.4f} ms, on {card}")
+    r = multi["k2"]
+    print(f"    K2 at one rank's rows of a view {r['shape']} {r['dtype']}: {r['err']} against "
+          f"f64, {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms, on {card}")
 
     phase_start[18] = time.perf_counter()
     print("[18] figures and the prediction writer on [5]'s 6 views: the processors that draw, "

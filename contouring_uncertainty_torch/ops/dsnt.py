@@ -15,6 +15,8 @@ through it.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from contouring_uncertainty_torch.ops.coords import normalized_linspace, normalized_to_pixel
@@ -90,15 +92,19 @@ def heatmaps_to_pixel_gaussians(logits: torch.Tensor, use_covar: bool = True):
     return probs, mu, sigma
 
 
-def logits_to_pixel_gaussians(logits: torch.Tensor, use_covar: bool = True):
+def logits_to_pixel_gaussians(logits: torch.Tensor, use_covar: bool = True,
+                              whole_rows: Optional[int] = None):
     """Lean DSNT head used on the serving path: logits (..., K, H, W) ->
     (mu (..., K, 2), sigma (..., K, 2, 2)) without materializing the softmax.
 
     The (rows, H*W) view of the logits goes through `dsnt_raw_moments`: the
     CUDA row kernel for CUDA tensors (bf16, f16 or f32, one read of the
-    logits), the plain f32 separable reduction for CPU tensors."""
+    logits), the plain f32 separable reduction for CPU tensors. With
+    `whole_rows` (the heatmaps of the whole batch, when `logits` are one
+    rank's rows of it) the kernel splits each heatmap as it would for the
+    whole batch."""
     *lead, height, width = logits.shape
-    raw = dsnt_raw_moments(logits.reshape(-1, height * width), height, width)
+    raw = dsnt_raw_moments(logits.reshape(-1, height * width), height, width, whole_rows)
     raw = raw[:, :6].reshape(*lead, 6)
     return raw6_to_pixel_gaussians(raw, height, width, use_covar)
 

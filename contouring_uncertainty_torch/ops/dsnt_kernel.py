@@ -222,8 +222,7 @@ def raw_moments_cuda(x2d: torch.Tensor, height: int, width: int,
         raise ValueError(f"dsnt CUDA kernel takes 16-byte aligned rows with unit pixel "
                          f"stride, got strides {x2d.stride()}")
     if bands is None:
-        n_sm = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-        bands = row_bands(rows, height, width, x2d.element_size(), n_sm)
+        bands = row_bands(rows, height, width, x2d.element_size(), _sm_count(x2d.device))
     out = torch.empty((rows, N_MOM), dtype=torch.float32, device=x2d.device)
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     err = _cuda_library().cu_dsnt_moments(
@@ -271,11 +270,24 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def _raw_moments(x2d: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _raw_moments(x2d: torch.Tensor, height: int, width: int,
+                 whole_rows: int | None = None) -> torch.Tensor:
+    """Moments of a (rows, HW) view by its route. `whole_rows`: the rows of
+    the whole batch when x2d holds one rank's rows of it; K2 then splits
+    each heatmap into the whole batch's bands (`row_bands`), so a heatmap's
+    moments, summed band by band, do not depend on the rank count."""
     if not _on_card(x2d):
         return raw_moments_plain(x2d, height, width)
+    if x2d.shape[0] == 0:  # a rank dealt no rows: nothing to launch
+        return torch.empty((0, N_MOM), dtype=torch.float32, device=x2d.device)
     if moment_route(x2d) == "rows":
-        return raw_moments_cuda(x2d, height, width)
+        bands = None if whole_rows is None else row_bands(
+            whole_rows, height, width, x2d.element_size(), _sm_count(x2d.device))
+        return raw_moments_cuda(x2d, height, width, bands)
     return raw_moments_cols_cuda(x2d.t(), height, width)
 
 
@@ -303,15 +315,15 @@ class RowMoments(torch.autograd.Function):
     of the JAX custom VJP `dsnt_raw_moments` (`_fwd`/`_bwd`)."""
 
     @staticmethod
-    def forward(ctx, flat_logits, height, width):
+    def forward(ctx, flat_logits, height, width, whole_rows=None):
         ctx.save_for_backward(flat_logits)
         ctx.size = (height, width)
-        return _raw_moments(flat_logits, height, width)
+        return _raw_moments(flat_logits, height, width, whole_rows)
 
     @staticmethod
     def backward(ctx, g):
         (flat_logits,) = ctx.saved_tensors
-        return moments_adjoint(flat_logits, g, *ctx.size), None, None
+        return moments_adjoint(flat_logits, g, *ctx.size), None, None, None
 
 
 class ColMoments(torch.autograd.Function):
@@ -332,10 +344,12 @@ class ColMoments(torch.autograd.Function):
         return moments_adjoint(flat_t.t(), g, *ctx.size).t(), None, None
 
 
-def dsnt_raw_moments(flat_logits: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def dsnt_raw_moments(flat_logits: torch.Tensor, height: int, width: int,
+                     whole_rows: int | None = None) -> torch.Tensor:
     """Row layout (K2's): flat_logits (Rows, H*W) -> (Rows, 8) f32,
-    differentiable on every device."""
-    return RowMoments.apply(flat_logits, height, width)
+    differentiable on every device. `whole_rows`: the rows of the whole
+    batch when these are one rank's (`_raw_moments`)."""
+    return RowMoments.apply(flat_logits, height, width, whole_rows)
 
 
 def dsnt_raw_moments_cols(flat_t: torch.Tensor, height: int, width: int) -> torch.Tensor:

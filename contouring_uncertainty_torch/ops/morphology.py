@@ -99,5 +99,6 @@ def postprocess_sample(mask: torch.Tensor) -> torch.Tensor:
 
 
 def postprocess_batch(masks: torch.Tensor) -> torch.Tensor:
-    """`postprocess_sample` of every (H, W) mask of (..., H, W)."""
-    return postprocess_sample(masks)
+    """`postprocess_sample` of every (H, W) mask of (..., H, W), of none
+    (a rank dealt no samples) too."""
+    return postprocess_sample(masks) if masks.numel() else masks.clone()

@@ -49,11 +49,11 @@ def fill_from_crossings(xs: torch.Tensor, dense: torch.Tensor, width: int,
                         include_boundary: bool = True) -> torch.Tensor:
     """Even-odd masks (M, H, W) from the sorted per-row crossings xs
     (M, H, k) of the polygons dense (M, E, 2)."""
-    m, height, _ = xs.shape
+    m, height, k = xs.shape
     cols = torch.arange(width, dtype=dense.dtype, device=dense.device)
     # counts[y, x] = #{j : x >= xs[y, j]}: a sorted search of each pixel
     # column in the row's crossing list.
-    counts = torch.searchsorted(xs.reshape(m * height, -1),
+    counts = torch.searchsorted(xs.reshape(m * height, k),
                                 cols.expand(m * height, width).contiguous(),
                                 right=True, out_int32=True)
     # An all-NaN row (a NaN candidate, see ops/select_kernel.py) counts no

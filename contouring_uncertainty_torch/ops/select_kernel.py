@@ -106,4 +106,6 @@ def min_k_crossings(dense: torch.Tensor, height: int) -> torch.Tensor:
         return min_k_crossings_plain(dense, height)
     if dense.device.type != "cuda":
         raise RuntimeError(f"no crossing-selection kernel for device {dense.device}")
+    if dense.shape[0] == 0:  # a rank dealt no samples: nothing to launch
+        return torch.empty((0, height, K_CROSSINGS), dtype=torch.float32, device=dense.device)
     return min_k_crossings_kernel(dense, height)

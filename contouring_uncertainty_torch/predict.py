@@ -43,14 +43,22 @@ the JAX package's mesh does:
   j // predict_batch_views; each view runs as it runs alone, and rank 0
   gathers every view's outputs and alone runs the results processors;
 - latency mode (`__call__` with a mesh of several ranks): one view's
-  Monte-Carlo chain split over every rank (parallel/serving.py): the
-  forwards, the DSNT head and the sampler run whole on every rank (the
-  view's draws), each rank rasterizes its share of the T_a samples per
-  forward (spline and crossing selection), and the sample masks are
-  gathered, so the outputs are one process's whatever the rank count. The
-  JAX package also splits the MC-dropout forward's rows; here that moved
-  an untrained bf16 head's mu by 0.29 px on an H100 (cuDNN rounds the tail
-  convolutions otherwise at half the batch), so the port does not;
+  Monte-Carlo chain split over every rank (parallel/serving.py), as the
+  JAX package splits it. The encoder prefix runs at batch N on every rank;
+  the MC-dropout tail's T_e*N rows run in row blocks whose size depends on
+  T_e and N only (`tasks/dsnt_al.py mc_block_rows`; one process runs all
+  of them, one after another), each rank its blocks, with its rows of the
+  whole batch's dropout masks; the DSNT head (K2) runs on each rank's
+  heatmaps with the whole batch's band count and (mu, Sigma[, alpha]) are
+  gathered; each rank then draws and samples only its share of the T_a
+  samples per prediction (its rows of every draw; the per-prediction
+  operators whole), rasterizes them, and the contour samples and sample
+  masks are gathered. Every output is one process's, bitwise, whatever
+  the rank count. A rank dealt no block or no sample (more ranks than
+  blocks or samples) runs none, makes the view's draws all the same, and
+  sends an empty part to the gathers. A deep ensemble's members and the
+  deterministic forward (T_e = 1) run whole on every rank, as JAX's do; SegPredictor splits McDropoutUncertainty's
+  forward the same way and the post-processing of the sample masks;
 - composed (`predict_sample_parallel` = s > 1): views over the data axis,
   each view's chain over the s ranks of the model axis, as the latency
   mode splits it.
@@ -306,8 +314,9 @@ class AleatoricPredictor:
 
     With a `mesh` of several ranks, `__call__` splits the view's chain over
     every rank (the latency mode) and `batched` over the mesh's model axis
-    (the composed mode); every rank of the group returns the whole
-    outputs."""
+    (the composed mode): the MC-dropout rows, the DSNT head, the sampler's
+    T_a samples and their rasterization; every rank of the group returns
+    the whole outputs."""
 
     def __init__(self, task, model, sampler, t_a: Optional[int] = None,
                  soft_mask: bool = False, contour_groups=None,
@@ -341,18 +350,28 @@ class AleatoricPredictor:
         return self._serve(imgs, generators, sample_shard(self.mesh, (MODEL_AXIS,)))
 
     def _serve(self, imgs, generators: Generators, shard: SampleShard) -> Dict:
-        """`batched` with each view's chain split over `shard`."""
+        """`batched` with each view's chain split over `shard`: the
+        MC-dropout rows and the DSNT head in the task's `predict`, then this
+        rank's T_a share of each prediction's samples (its rows of every
+        draw) through the sampler and the rasterizer, the contour samples
+        and sample masks gathered."""
         imgs = torch.as_tensor(np.asarray(imgs, np.float32)).to(self.device)
         h, w = imgs.shape[-2:]
-        mu_te, cov_te, *skew = self.task.predict(self.model, imgs, generator=generators)
+        mu_te, cov_te, *skew = self.task.predict(self.model, imgs, generator=generators,
+                                                 shard=shard)
         alpha_te = skew[0] if skew else None
         sample_kw = {} if alpha_te is None else {"alpha": alpha_te}
-        samples = self.sampler.sample_batch(generators, mu_te, cov_te, n=self.t_a, **sample_kw)
+        share = shard.part(self.t_a)
+        # (V, N, T_e, share, K, 2): the single-instant samplers draw (B, n, ...)
+        samples = self.sampler.sample_batch(shard.row_blocks(generators, self.t_a, axis=1),
+                                            mu_te, cov_te, n=share.stop - share.start,
+                                            **sample_kw)
         mu, cov = fuse_epistemic_aleatoric(mu_te, cov_te)  # (V, N, K, 2)
-        post_mu, post_cov = population_posterior(samples)
 
         # (V, N, T_e, T_a, H, W): this rank's T_a share, then all of them.
-        labels = rasterize_labelmap(shard.take(samples, -3), self.groups, h, w)
+        labels = rasterize_labelmap(samples, self.groups, h, w)
+        samples = shard.gather(samples, -3, self.t_a)
+        post_mu, post_cov = population_posterior(samples)
         if self.soft_mask:
             occupancy = shard.gather(gaussian_blur((labels > 0).to(torch.float32)), -3,
                                      self.t_a)
@@ -407,9 +426,10 @@ class SegPredictor:
     and report its mean over the predicted area.
 
     With a `mesh` of several ranks, `__call__` (every rank) and `batched`
-    (the model axis) split the post-processing of the (T_e, T_a) sample
-    masks over the ranks and gather them; the forwards run whole on every
-    rank."""
+    (the model axis) split McDropoutUncertainty's forward in row blocks
+    (its logits gathered) and the post-processing of the (T_e, T_a) sample
+    masks over the ranks (gathered); the other baselines' forwards run
+    whole on every rank."""
 
     BORDER_PAD = 10
 
@@ -437,7 +457,7 @@ class SegPredictor:
     def _serve(self, imgs, generators: Generators, shard: SampleShard) -> Dict:
         imgs = torch.as_tensor(np.asarray(imgs, np.float32)).to(self.device)
         # (V, N, T_e, T_a, C, H, W)
-        probs = self.task.predict_probs(self.model, imgs, generators)
+        probs = self.task.predict_probs(self.model, imgs, generators, shard=shard)
         c = probs.shape[-3]
 
         def postprocess(masks):  # (V, N, T_e, T_a, H, W), this rank's share of the samples

@@ -40,13 +40,13 @@ class ShapePrior(NamedTuple):
 def transform(prior: ShapePrior, s: torch.Tensor) -> torch.Tensor:
     """Scaler transform (s - mean) / scale over the flattened last two axes."""
     shape = s.shape
-    flat = (s.reshape(*shape[:-2], -1) - prior.train_mean) / prior.train_scale
+    flat = (s.flatten(-2) - prior.train_mean) / prior.train_scale
     return flat.reshape(shape)
 
 
 def inverse_transform(prior: ShapePrior, s: torch.Tensor) -> torch.Tensor:
     shape = s.shape
-    flat = s.reshape(*shape[:-2], -1) * prior.train_scale + prior.train_mean
+    flat = s.flatten(-2) * prior.train_scale + prior.train_mean
     return flat.reshape(shape)
 
 
@@ -138,6 +138,15 @@ def refit_d(prior: ShapePrior, pred_flat_t: torch.Tensor) -> torch.Tensor:
     return prior.x_train_mean - pred_flat_t
 
 
+def rows_times(rows: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """rows (B, S, P) @ mat ((P, Q) or (B, P, Q)) -> (B, S, Q), each
+    output the sum of its P products over the last axis of a (B, S, Q, P)
+    tensor. A matmul's kernel, and with it the rounding of a row, may
+    change with S; this does not, so a rank that computes its share of the
+    S samples per prediction gets one process's bits for them."""
+    return (rows.unsqueeze(-2) * mat.transpose(-1, -2).unsqueeze(-3)).sum(-1)
+
+
 def posterior_shape_model_sm(
     s_g_t: torch.Tensor,
     mu_t: torch.Tensor,
@@ -154,12 +163,13 @@ def posterior_shape_model_sm(
         mu_c  = mu + (M C)^T S^-1 (s_g - mu)_g,   M C = M C0 + u d^T
         cov_c = C - (M C)^T S^-1 (M C),           C = C0 + d d^T
 
-    The (P, P) work is per prediction; per sample only the matvec remains.
+    The (P, P) work is per prediction; per sample only the matvec remains
+    (`rows_times`, whose rounding does not depend on S).
     cov_c is accurate at the level sigmas, not at the tiny fill sigma (the
     samplers read only mu_c from the fill step)."""
     resid = (s_g_t - mu_t[:, None]) * op.g_mask  # (B, S, P)
     if d is None:
-        mu_c = mu_t[:, None] + resid @ op.h0
+        mu_c = mu_t[:, None] + rows_times(resid, op.h0)
         cov_c = (op.c0 - op.mc0.T @ op.h0).expand(mu_t.shape[0], -1, -1)
         return mu_c, cov_c
     u = op.g_mask * d  # (B, P)
@@ -170,7 +180,7 @@ def posterior_shape_model_sm(
     sinv = op.k0 - v[:, :, None] * v[:, None, :] / beta[:, None, None]
     mc = op.mc0 + u[:, :, None] * d[:, None, :]
     half = sinv @ mc  # S^-1 (M C)
-    mu_c = mu_t[:, None] + resid @ half
+    mu_c = mu_t[:, None] + rows_times(resid, half)
     cov_c = op.c0 + d[:, :, None] * d[:, None, :] - mc.transpose(-1, -2) @ half
     return mu_c, cov_c
 

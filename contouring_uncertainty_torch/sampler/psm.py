@@ -12,6 +12,17 @@ The JAX package vmaps one sample at a time; here the whole population is a
 written-out batch: B predictions (frames x epistemic samples) x S samples.
 Random draws come from explicit generators: one, or one per view when
 the leading axis of the predictions holds V views (rng.py).
+
+In the latency and composed modes (predict.py) a rank samples only its
+share of each prediction's T_a samples: n is its share and each view's
+generator is cut to its rows of every draw (`rng.RowBlock` on the draws'
+sample axis, axis 1 of (B, n, ...)). Its samples are then bitwise one
+process's: every per-sample step is elementwise, or, in the posterior
+shape model, a last-axis sum whose rounding does not change with n
+(`prior.rows_times`, not a matmul); the per-prediction operators (the
+refit column, the Sherman-Morrison terms) are computed whole on every
+rank. No part of the chain runs whole. The skew and sequence samplers
+(psm_skew.py, sequence.py) split the same way.
 """
 
 from __future__ import annotations

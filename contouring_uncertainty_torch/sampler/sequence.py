@@ -31,7 +31,7 @@ import torch
 
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions.linalg import sym_matrix_pow
-from contouring_uncertainty_torch.rng import Generators, draw_uniform
+from contouring_uncertainty_torch.rng import Generators, draw_uniform, on_axis
 from contouring_uncertainty_torch.sampler import prior as prior_lib
 from contouring_uncertainty_torch.sampler.prior import ShapePrior
 from contouring_uncertainty_torch.sampler.psm import PosteriorShapeModelSampler, merge_priors
@@ -80,8 +80,12 @@ class SequencePSMSampler:
         return mean.expand(mu.shape[0], mean.shape[0]), None
 
     def _sample_instant(self, generator: Generators, mu, cov, alpha):
-        """One draw per pair: mu (B, S, K, 2) -> (B, S, K, 2)."""
-        return self.instant.sample_batch(generator, mu, cov, n=1)[..., 0, :, :]
+        """One draw per pair: mu (B, S, K, 2) -> (B, S, K, 2). The
+        single-instant sampler draws for the B*S pairs flattened into its
+        axis 0, where a row block of the S samples lies in each of B runs
+        (`rng.on_axis`)."""
+        return self.instant.sample_batch(on_axis(generator, 0, mu.shape[0]), mu, cov,
+                                         n=1)[..., 0, :, :]
 
     def _sequence_posterior(self, s_first, first_is_0, seq_mu_t, seq_d):
         """The sequence posterior given each pair's first instant:
@@ -158,4 +162,5 @@ class SequenceSkewPSMSampler(SequencePSMSampler):
         return seq_pred_t, prior_lib.refit_d(sp, seq_pred_t)
 
     def _sample_instant(self, generator: Generators, mu, cov, alpha):
-        return self.instant.sample_batch(generator, mu, cov, alpha=alpha, n=1)[..., 0, :, :]
+        return self.instant.sample_batch(on_axis(generator, 0, mu.shape[0]), mu, cov,
+                                         alpha=alpha, n=1)[..., 0, :, :]

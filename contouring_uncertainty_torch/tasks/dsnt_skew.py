@@ -28,13 +28,9 @@ from contouring_uncertainty_torch.device import DeviceLike, resolve_device
 from contouring_uncertainty_torch.distributions import bsn
 from contouring_uncertainty_torch.models.unet import ConfidenceNet
 from contouring_uncertainty_torch.ops import dsnt as dsnt_ops
+from contouring_uncertainty_torch.parallel.serving import NO_SHARD, SampleShard
 from contouring_uncertainty_torch.rng import Generators
-from contouring_uncertainty_torch.tasks.dsnt_al import (
-    DSNTAleatoric,
-    epistemic_samples,
-    forward_views,
-    per_frame_samples,
-)
+from contouring_uncertainty_torch.tasks.dsnt_al import DSNTAleatoric
 
 
 class SkewUNet(nn.Module):
@@ -133,8 +129,9 @@ class DSNTSkew(DSNTAleatoric):
         }
         return loss, logs, mu
 
-    def _outputs_to_skew(self, out):
-        mu, sigma = dsnt_ops.logits_to_pixel_gaussians(out["out"], use_covar=self.covar)
+    def _outputs_to_skew(self, out, whole_rows: Optional[int] = None):
+        mu, sigma = dsnt_ops.logits_to_pixel_gaussians(out["out"], use_covar=self.covar,
+                                                       whole_rows=whole_rows)
         alpha = self._scatter_alpha(out["alpha_raw"])
         # Test-time y flip: the image's y axis points down.
         alpha = alpha * torch.tensor([1.0, -1.0], dtype=alpha.dtype, device=alpha.device)
@@ -145,14 +142,15 @@ class DSNTSkew(DSNTAleatoric):
         return self._outputs_to_skew(
             model(img, deterministic=not mc_dropout, generator=generator))
 
-    def predict(self, model, img, generator: Generators = None):
+    def predict(self, model, img, generator: Generators = None,
+                shard: SampleShard = NO_SHARD):
         """-> mu (N, T_e, K, 2), cov (N, T_e, K, 2, 2), alpha (N, T_e, K, 2)
         for one view (N, C, H, W); (V, N, T_e, ...) for V views (V, N, C, H,
         W), with one generator per view. T_e > 1 uses one MC-dropout forward
-        per view at batch T_e*N with the encoder prefix shared; T_e == 1 is
-        deterministic; a deep ensemble (a list of models) gives T_e = its
-        length, each member's forward deterministic. The DSNT head runs once
-        on all views' heatmaps."""
-        t_e = epistemic_samples(model, self.t_e)
-        outs = self._outputs_to_skew(forward_views(model, img, t_e, generator))
-        return tuple(per_frame_samples(a, img.shape[:-3], t_e) for a in outs)
+        per view with the encoder prefix shared, its T_e*N rows in blocks;
+        T_e == 1 is deterministic; a deep ensemble (a list of models) gives
+        T_e = its length, each member's forward deterministic. The DSNT head
+        runs once on all views' heatmaps. With a `shard`, each rank runs its
+        blocks of the MC-dropout rows, the DSNT head and the ConfidenceNet on
+        them, and every rank gets the gathered (mu, cov, alpha)."""
+        return self._served_outputs(model, img, generator, shard, self._outputs_to_skew)

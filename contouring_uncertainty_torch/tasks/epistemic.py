@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from contouring_uncertainty_torch.device import DeviceLike
+from contouring_uncertainty_torch.parallel.serving import NO_SHARD, SampleShard
 from contouring_uncertainty_torch.rng import Generators
 from contouring_uncertainty_torch.tasks.dsnt_al import DSNTAleatoric
 
@@ -39,9 +40,11 @@ class EpistemicUncertainty(DSNTAleatoric):
                     self.model_kwargs["dropout"] = 0.1
         return super().build_model(device, generator)
 
-    def predict(self, model, img, generator: Generators = None):
-        """The DSNT-AL means (..., T_e, K, 2) with covariances of zero."""
-        mu_te, cov_te = super().predict(model, img, generator=generator)
+    def predict(self, model, img, generator: Generators = None,
+                shard: SampleShard = NO_SHARD):
+        """The DSNT-AL means (..., T_e, K, 2) with covariances of zero (with
+        a `shard`, its forward split as DSNT-AL's)."""
+        mu_te, cov_te = super().predict(model, img, generator=generator, shard=shard)
         return mu_te, torch.zeros_like(cov_te)
 
     def predict_point_stats(self, model, img, generator: Generators = None):

@@ -8,7 +8,8 @@ Counterpart of contouring_uncertainty_tpu/tasks/segmentation.py:
   otherwise) plus soft Dice, with the deep-supervision ladder when the
   model returns those heads; a deterministic forward for prediction;
 - `McDropoutUncertainty`: T_e MC-dropout forwards with the encoder prefix
-  shared (tasks/dsnt_al.py `mc_dropout_apply`); `drop_block` on by default;
+  shared, their rows in blocks (tasks/dsnt_al.py `mc_dropout_apply`; with
+  a shard each rank runs its blocks); `drop_block` on by default;
 - `AleatoricUncertainty`: logits and a softplus sigma head (`ssn_rank=1`),
   the CE of the MC-integrated probabilities over `iterations` draws;
 - `TTAUncertainty`: T_a random geometric and intensity augmentations per
@@ -46,8 +47,9 @@ import torch.nn.functional as F
 from contouring_uncertainty_torch.data import augment as aug
 from contouring_uncertainty_torch.data.config import DataParams, Tags
 from contouring_uncertainty_torch.device import DeviceLike, resolve_device
+from contouring_uncertainty_torch.parallel.serving import NO_SHARD, SampleShard
 from contouring_uncertainty_torch.rng import Generators, draw_normal, draw_uniform
-from contouring_uncertainty_torch.tasks.dsnt_al import mc_dropout_apply
+from contouring_uncertainty_torch.tasks.dsnt_al import mc_block_rows, mc_dropout_apply
 from contouring_uncertainty_torch.utils.metrics import soft_dice
 
 
@@ -201,9 +203,12 @@ class SegmentationUncertaintyTask:
 
     # ----------------------------------------------------------------- predict
 
-    def predict_probs(self, model, img: torch.Tensor, generators: Generators = None):
+    def predict_probs(self, model, img: torch.Tensor, generators: Generators = None,
+                      shard: SampleShard = NO_SHARD):
         """Probabilities (N, T_e, T_a, C, H, W) of one view, or of V views
-        (V, N, ...). Base: one deterministic forward per view."""
+        (V, N, ...). Base: one deterministic forward per view. `shard` (the
+        latency and composed modes) splits only the MC-dropout forward of
+        `McDropoutUncertainty`; the other tasks' forwards are whole."""
         imgs, _, single = _as_views(img, generators)
         probs = torch.stack([activate(model(v)["out"]) for v in imgs])[:, :, None, None]
         return probs[0] if single else probs
@@ -221,13 +226,18 @@ class McDropoutUncertainty(SegmentationUncertaintyTask):
             self.model_kwargs.setdefault("drop_block", True)
         return super().build_model(device, generator)
 
-    def predict_probs(self, model, img, generators: Generators = None):
-        """Per view one MC-dropout forward at batch T_e*N, the encoder
-        prefix shared, its masks from the view's generator."""
+    def predict_probs(self, model, img, generators: Generators = None,
+                      shard: SampleShard = NO_SHARD):
+        """Per view one MC-dropout forward of the T_e*N rows in blocks, the
+        encoder prefix shared, its masks from the view's generator. With a
+        `shard` (T_e > 1) each rank runs its blocks of the rows and the
+        logits are gathered."""
         imgs, gens, single = _as_views(img, generators)
         n = imgs.shape[1]
-        logits = torch.stack([mc_dropout_apply(model, v, self.t_e, g)["out"]
-                              for v, g in zip(imgs, gens)])  # (V, T_e*N, C, H, W)
+        split = shard if self.t_e > 1 else NO_SHARD
+        logits = torch.stack([mc_dropout_apply(model, v, self.t_e, g, split)["out"]
+                              for v, g in zip(imgs, gens)])  # (V, this rank's rows, C, H, W)
+        logits = split.gather(logits, 1, self.t_e * n, mc_block_rows(self.t_e, n))
         probs = activate(logits).unflatten(1, (self.t_e, n)).transpose(1, 2)[:, :, :, None]
         return probs[0] if single else probs
 
@@ -266,7 +276,8 @@ class AleatoricUncertainty(SegmentationUncertaintyTask):
         loss = self.ce_weight * ce + self.dice_weight * (1.0 - dice.mean())
         return loss, {"loss": loss, "ce": ce, "dice": dice.mean()}
 
-    def predict_probs(self, model, img, generators: Generators = None):
+    def predict_probs(self, model, img, generators: Generators = None,
+                      shard: SampleShard = NO_SHARD):
         """Per view one deterministic forward, then T_a draws of
         logits + sigma * eps, eps from the view's generator."""
         imgs, gens, single = _as_views(img, generators)
@@ -285,7 +296,8 @@ class TTAUncertainty(SegmentationUncertaintyTask):
 
     task_name: str = "tta"
 
-    def predict_probs(self, model, img, generators: Generators = None):
+    def predict_probs(self, model, img, generators: Generators = None,
+                      shard: SampleShard = NO_SHARD):
         """Per view T_a parameter sets for its N frames, one forward over
         the T_a*N warped images (draw-major), the logits warped back in f32."""
         imgs, gens, single = _as_views(img, generators)
@@ -374,7 +386,8 @@ class StochasticSegmentationNetwork(SegmentationUncertaintyTask):
         dice = soft_dice(activate(out["out"]), y, c)
         return loss, {"loss": loss, "ce": loss, "dice": dice.mean()}
 
-    def predict_probs(self, model, img, generators: Generators = None):
+    def predict_probs(self, model, img, generators: Generators = None,
+                      shard: SampleShard = NO_SHARD):
         """Per view one deterministic forward, then T_a logit draws (not
         antithetic) from the view's generator."""
         imgs, gens, single = _as_views(img, generators)

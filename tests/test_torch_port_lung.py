@@ -254,7 +254,7 @@ class _JFixed:
 class _TFixed(_JFixed):
     """The port's counterpart: one view (V = 1) of the same arrays."""
 
-    def predict(self, model, imgs, generator=None):
+    def predict(self, model, imgs, generator=None, shard=None):
         return tuple(torch.as_tensor(a)[None] for a in self.outs)
 
     def sample_batch(self, generators, mu, cov, n=None, alpha=None):

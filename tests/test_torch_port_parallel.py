@@ -18,11 +18,17 @@ every process. Budgets:
 - view-parallel serving on two ranks equals one process bitwise, output by
   output, at one view per dispatch and at four (a ragged last dispatch:
   rank 0 serves four views, rank 1 two);
-- the latency and composed modes (the forwards whole on every rank, each
-  rank rasterizing its share of a view's T_a samples; the segmentation
+- the latency and composed modes (each rank running its row blocks of the
+  MC-dropout tail, the DSNT head on its rows, and its share of a view's
+  T_a samples through the sampler and the rasterizer; the segmentation
   predictor post-processing its share of the sample masks): every output
   bitwise one process's, where the JAX package holds its latency mode to
-  budgets (tests/test_parallel.py; it also splits the MC-dropout rows);
+  budgets (tests/test_parallel.py); each rank's tail rows, dropout masks,
+  sampler draws and K2 launch recorded and held to its rows of one
+  process's, T_e = 3 (three blocks on two ranks) and T_a = 1 (rank 1
+  dealt no sample) included; four ranks' shards of the MC-dropout tail
+  and of each sampler, taken in one process, two of them empty, their
+  rows concatenated bitwise one process's;
 - three SGD steps of the data-parallel trainer with augmentation and
   dropout on: every parameter within 1e-5 of its leaf's largest value of
   one process's (the order of the gradient sums);
@@ -36,6 +42,8 @@ every process. Budgets:
   1e-2 of its leaf's largest plus 1e-4 of the largest of all.
 """
 
+from contextlib import contextmanager
+
 import numpy as np
 import pytest
 import torch
@@ -43,7 +51,11 @@ import torch
 from contouring_uncertainty_torch import predict as tpred
 from contouring_uncertainty_torch import runner
 from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
+from contouring_uncertainty_torch.models import build_backbone
 from contouring_uncertainty_torch.models.unet import UNet
+from contouring_uncertainty_torch import rng
+from contouring_uncertainty_torch.models import unet as tunet
+from contouring_uncertainty_torch.ops import dsnt_kernel
 from contouring_uncertainty_torch.ops.dsnt import logits_to_pixel_gaussians
 from contouring_uncertainty_torch.parallel import (
     distributed,
@@ -55,8 +67,15 @@ from contouring_uncertainty_torch.parallel import (
     shard_host_batch,
     sharded_forward,
 )
-from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
-from contouring_uncertainty_torch.tasks import DSNTAleatoric, McDropoutUncertainty
+from contouring_uncertainty_torch.parallel.serving import SampleShard
+from contouring_uncertainty_torch.sampler import (
+    PosteriorShapeModelSampler,
+    SkewPosteriorShapeModelSampler,
+    fit_shape_prior,
+)
+from contouring_uncertainty_torch.sampler.sequence import SequencePSMSampler, SequenceSkewPSMSampler
+from contouring_uncertainty_torch.tasks import DSNTAleatoric, DSNTSkew, McDropoutUncertainty
+from contouring_uncertainty_torch.tasks.dsnt_al import mc_block_rows, mc_dropout_apply
 from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 from contouring_uncertainty_torch.train import trainer as trainer_mod
 
@@ -138,6 +157,106 @@ def _results(results):
     return [{k: getattr(r, k) for k in keys} for r in results]
 
 
+@contextmanager
+def _recorded(model, sampler=None):
+    """Within the block, record the rows of each call of `model`'s encoder
+    prefix (its first stage) and of its stochastic tail (its first dropout
+    stage), every dropout mask (`draw_uniform` in models/unet.py: a tail
+    block's rows of the whole batch's mask) and, within
+    `sampler.sample_batch`, every draw (the outermost `rng._draw` calls)."""
+    rec = {"prefix": [], "tail": [], "masks": [], "draws": []}
+    unet = getattr(model, "unet", model)
+    rows = lambda key: lambda mod, inputs, out: rec[key].append(inputs[0].shape[0])
+    handles = [unet.stage(0).register_forward_hook(rows("prefix")),
+               unet.stage(unet.first_drop + 1).register_forward_hook(rows("tail"))]
+    draw_uniform, draw, depth, sampling = tunet.draw_uniform, rng._draw, [0], [False]
+
+    def masks(*args, **kwargs):
+        u = draw_uniform(*args, **kwargs)
+        rec["masks"].append(u.numpy().copy())
+        return u
+
+    def draws(*args, **kwargs):
+        depth[0] += 1
+        try:
+            out = draw(*args, **kwargs)
+        finally:
+            depth[0] -= 1
+        if sampling[0] and depth[0] == 0:
+            rec["draws"].append(out.numpy().copy())
+        return out
+
+    sample_batch = sampler.sample_batch if sampler is not None else None
+
+    def sampled(*args, **kwargs):
+        sampling[0] = True
+        try:
+            return sample_batch(*args, **kwargs)
+        finally:
+            sampling[0] = False
+
+    tunet.draw_uniform, rng._draw = masks, draws
+    if sampler is not None:
+        sampler.sample_batch = sampled
+    try:
+        yield rec
+    finally:
+        tunet.draw_uniform, rng._draw = draw_uniform, draw
+        if sampler is not None:
+            del sampler.sample_batch
+        for h in handles:
+            h.remove()
+
+
+@contextmanager
+def _k2_route(calls):
+    """Within the block, the moments take K2's route as on a card with 132
+    SMs, the kernel standing in as its plain version: each launch's (rows,
+    bands) is appended to `calls`."""
+    saved = dsnt_kernel._on_card, dsnt_kernel._sm_count, dsnt_kernel.raw_moments_cuda
+
+    def kernel(x2d, height, width, bands=None):
+        calls.append((x2d.shape[0], bands))
+        return dsnt_kernel.raw_moments_plain(x2d, height, width)
+
+    dsnt_kernel._on_card, dsnt_kernel._sm_count = (lambda x: True), (lambda device: 132)
+    dsnt_kernel.raw_moments_cuda = kernel
+    try:
+        yield calls
+    finally:
+        dsnt_kernel._on_card, dsnt_kernel._sm_count, dsnt_kernel.raw_moments_cuda = saved
+
+
+def _split_runs(data, mesh_for):
+    """The recorded split cases, alike in one process and on the ranks
+    (`mesh_for(1)` the latency mesh, None in one process): one view in the
+    latency mode of DSNT-AL at T_E (two blocks of N rows), at T_e = 3
+    (three blocks: an uneven deal on two ranks) and of DSNTSkew at T_E;
+    DSNT-AL at T_E with K2's route recorded; and T_a = 1, one sample for
+    two ranks (rank 1 gets none)."""
+    prior = fit_shape_prior(data.train_arrays("train")["contour"])
+    view = next(iter(data.predict_views("test")))["img"]
+    out = {}
+    for name, cls, t_e in (("latency", DSNTAleatoric, T_E), ("uneven", DSNTAleatoric, 3),
+                           ("skew", DSNTSkew, T_E)):
+        task = cls(data_params=data.data_params, t_e=t_e, t_a=T_A,
+                   model_kwargs=dict(SMALL, drop_block=True))
+        model = _model(task)
+        sampler = (SkewPosteriorShapeModelSampler(prior, image_extent=SIZE - 1.0, device="cpu")
+                   if cls is DSNTSkew else PosteriorShapeModelSampler(prior, device="cpu"))
+        lat = tpred.AleatoricPredictor(task, model, sampler, device="cpu", mesh=mesh_for(1))
+        with _recorded(model, sampler) as rec:
+            rec["outputs"] = tpred._to_numpy(lat(view, tpred.view_generator(0, 0)))
+        out[name] = rec
+        if name == "latency":
+            with _k2_route([]) as calls:
+                routed = tpred._to_numpy(lat(view, tpred.view_generator(0, 0)))
+            out["k2"] = {"calls": calls, "outputs": routed}
+            lat.t_a = 1
+            out["t_a_1"] = tpred._to_numpy(lat(view, tpred.view_generator(0, 0)))
+    return out
+
+
 def _predict_runs(data, tmp, mesh_for):
     """The serving checks that run alike on one process and on the ranks:
     `mesh_for(s)` gives the mesh (None in one process)."""
@@ -150,18 +269,25 @@ def _predict_runs(data, tmp, mesh_for):
                                    device="cpu", mesh=mesh_for(1))
     seg_task = McDropoutUncertainty(data_params=data.data_params, t_e=3,
                                     model_kwargs=dict(SMALL))
-    seg = tpred.SegPredictor(seg_task, _model(seg_task), device="cpu", mesh=mesh_for(1))
-    return {
+    seg_model = _model(seg_task)
+    seg = tpred.SegPredictor(seg_task, seg_model, device="cpu", mesh=mesh_for(1))
+    runs = {
         "views_1": _results(tpred.run_predict(task, model, data, cfg, device="cpu",
                                               mesh=mesh_for(1))),
         "views_4": _results(tpred.run_predict(task, model, data,
                                               {**cfg, "predict_batch_views": 4},
                                               device="cpu", mesh=mesh_for(1))),
-        "composed": _results(tpred.run_predict(task, model, data, cfg, device="cpu",
-                                               mesh=mesh_for(2))),
-        "latency": tpred._to_numpy(lat(view, tpred.view_generator(0, 0))),
-        "seg_latency": tpred._to_numpy(seg(view, tpred.view_generator(0, 0))),
     }
+    with _recorded(model) as rec:
+        runs["composed"] = _results(tpred.run_predict(task, model, data, cfg, device="cpu",
+                                                      mesh=mesh_for(2)))
+    runs["composed_rows"] = rec
+    runs["latency"] = tpred._to_numpy(lat(view, tpred.view_generator(0, 0)))
+    with _recorded(seg_model) as rec:
+        runs["seg_latency"] = tpred._to_numpy(seg(view, tpred.view_generator(0, 0)))
+    runs["seg_rows"] = rec
+    runs["split"] = _split_runs(data, mesh_for)
+    return runs
 
 
 def _jax_serving(data, state, tmp, mesh):
@@ -564,6 +690,244 @@ def test_segpredictor_latency_mode_matches_one_process(ranks, one_process, r):
     (2 and 1); every output bitwise one process's."""
     got, ref = ranks[r]["predict"]["seg_latency"], one_process["predict"]["seg_latency"]
     _assert_equal(got, ref)
+
+
+def _tail_blocks(t_e: int, r=None):
+    """(rows of a block, this rank's blocks, the first of them) of the
+    T_e*N MC-dropout rows of a view (N = 2 frames) on rank r of two, or of
+    one process (r None)."""
+    block = mc_block_rows(t_e, 2)
+    part = slice(0, 2 * t_e) if r is None else SampleShard(None, r, 2).part(2 * t_e, block)
+    return block, (part.stop - part.start) // block, part.start // block
+
+
+# The recorded runs of (a): name -> (where in `_predict_runs`, T_e, views).
+TAIL_RUNS = {"latency": (("split", "latency"), T_E, 1), "composed": (("composed_rows",), T_E, 6),
+             "skew": (("split", "skew"), T_E, 1), "seg_mcdropout": (("seg_rows",), 3, 1)}
+
+
+def _run(got, where):
+    for key in where:
+        got = got[key]
+    return got
+
+
+@pytest.mark.parametrize("name", list(TAIL_RUNS))
+def test_mc_tail_runs_only_this_ranks_rows(ranks, one_process, name):
+    """(a) Forward hooks on the encoder prefix (the UNet's first stage) and
+    on the stochastic tail (its first dropout stage): per view the prefix
+    runs once at batch N on every rank; the tail runs in blocks of
+    `mc_block_rows` rows, one process all of them (T_e = 2: two of N rows;
+    T_e = 3: three), each rank only its own (two ranks: one block each at
+    T_e = 2, two and one at T_e = 3), in the latency mode of DSNT-AL and
+    DSNTSkew, the composed mode (six views) and the segmentation MC-dropout
+    baseline."""
+    where, t_e, views = TAIL_RUNS[name]
+    for r, got in [(None, _run(one_process["predict"], where))] + [
+            (r, _run(ranks[r]["predict"], where)) for r in (0, 1)]:
+        block, count, _ = _tail_blocks(t_e, r)
+        assert got["prefix"] == [2] * views, (r, got["prefix"])
+        assert got["tail"] == [block] * count * views, (r, got["tail"])
+    assert sum(_tail_blocks(t_e, r)[1] for r in (0, 1)) == _tail_blocks(t_e)[1]
+
+
+@pytest.mark.parametrize("name", ["latency", "uneven", "skew"])
+def test_dropout_masks_and_sampler_draws_are_this_ranks_rows(ranks, one_process, name):
+    """(b) Every dropout mask a rank's tail takes is its rows of one
+    process's mask of the same layer (the whole batch's masks drawn once
+    from the view's generator), and every draw of its sampler is its rows
+    of one process's draw on the T_a axis (T_a = 3: rank 0 samples 0-1,
+    rank 1 sample 2), in the same order: DSNT-AL at T_e = 2 and 3 (the
+    uneven deal), DSNTSkew's sampler (esn)."""
+    one = one_process["predict"]["split"][name]
+    t_e = 3 if name == "uneven" else T_E
+    block, total, _ = _tail_blocks(t_e)
+    layers = len(one["masks"]) // total
+    assert layers > 0 and len(one["masks"]) == layers * total
+    assert any((m >= 0.5).any() for m in one["masks"])  # dropout is live
+    assert len(one["draws"]) > 1
+    for r in (0, 1):
+        got = ranks[r]["predict"]["split"][name]
+        _, count, first = _tail_blocks(t_e, r)
+        assert len(got["masks"]) == layers * count
+        for j in range(count):
+            for layer in range(layers):
+                np.testing.assert_array_equal(got["masks"][j * layers + layer],
+                                              one["masks"][(first + j) * layers + layer])
+        share = SampleShard(None, r, 2).part(T_A)
+        assert len(got["draws"]) == len(one["draws"])
+        for g, o in zip(got["draws"], one["draws"]):
+            np.testing.assert_array_equal(g, o[:, share])
+
+
+@pytest.mark.parametrize("r", [0, 1])
+def test_k2_takes_this_ranks_rows_with_the_whole_batch_bands(ranks, one_process, r):
+    """(c) K2's route (the moments' rows route taken as on a card of 132
+    SMs, the kernel standing in as its plain version): one launch per view,
+    on this rank's 42 of the view's 84 heatmaps (T_e = 2, N = 2, K = 21),
+    with the whole batch's band count, `row_bands(84, ...)` = 2, not its
+    own rows' 4; one process launches once on all 84 with the kernel's
+    default (that count). The outputs equal the plain route's bitwise."""
+    got, one = ranks[r]["predict"]["split"], one_process["predict"]["split"]
+    whole = T_E * 2 * 21
+    bands = dsnt_kernel.row_bands(whole, SIZE, SIZE, 4, 132)
+    assert bands == 2 and dsnt_kernel.row_bands(whole // 2, SIZE, SIZE, 4, 132) == 4
+    assert one["k2"]["calls"] == [(whole, None)]
+    assert got["k2"]["calls"] == [(whole // 2, bands)]
+    _assert_equal(got["k2"]["outputs"], got["latency"]["outputs"])
+    _assert_equal(got["k2"]["outputs"], one["latency"]["outputs"])
+
+
+@pytest.mark.parametrize("name", ["uneven", "skew"])
+@pytest.mark.parametrize("r", [0, 1])
+def test_split_latency_mode_matches_one_process(ranks, one_process, name, r):
+    """(d) The latency mode at T_e = 3 (three blocks dealt two and one to
+    the two ranks, T_a = 3 split two and one) and DSNTSkew's (its
+    ConfidenceNet on each rank's rows, the skew sampler split): every
+    output of every rank bitwise one process's."""
+    _assert_equal(ranks[r]["predict"]["split"][name]["outputs"],
+                  one_process["predict"]["split"][name]["outputs"])
+
+
+@pytest.mark.parametrize("r", [0, 1])
+def test_a_sample_axis_fewer_than_the_ranks_matches_one_process(ranks, one_process, r):
+    """T_a = 1 in the latency mode on two ranks: rank 1 is dealt no sample
+    (it samples and rasterizes none and sends an empty part to the
+    gathers), and every output of both ranks is bitwise one process's."""
+    _assert_equal(ranks[r]["predict"]["split"]["t_a_1"],
+                  one_process["predict"]["split"]["t_a_1"])
+
+
+@pytest.mark.parametrize("n,block,k,want", [
+    (20, 10, 2, [(0, 10), (10, 20)]),
+    (6, 2, 2, [(0, 4), (4, 6)]),
+    (25, 1, 2, [(0, 13), (13, 25)]),
+    (25, 1, 4, [(0, 7), (7, 13), (13, 19), (19, 25)]),
+    (20, 10, 4, [(0, 10), (10, 20), (20, 20), (20, 20)]),
+    (2, 1, 8, [(0, 1), (1, 2)] + [(2, 2)] * 6),
+])
+def test_sample_shard_deals_whole_blocks(n, block, k, want):
+    """SampleShard.part deals n / block whole blocks as torch.tensor_split
+    deals them, the first ranks one block longer, and the last ranks none
+    where there are fewer blocks than ranks (the flagship T_e = 10 on four
+    ranks, T_a = 2 on eight). mc_block_rows: T_e / p epistemic samples of N
+    rows (p the smallest prime factor of T_e), two blocks at the flagship
+    T_e = 10, N = 2."""
+    assert [mc_block_rows(t, 2) for t in (1, 2, 3, 4, 5, 9, 10, 25)] == [2, 2, 2, 4, 2, 6, 10, 10]
+    parts = [SampleShard(None, i, k).part(n, block) for i in range(k)]
+    assert [(p.start, p.stop) for p in parts] == want
+    ref = torch.tensor_split(torch.arange(n).reshape(-1, block), k)
+    assert [(int(t.flatten()[0]), int(t.flatten()[-1]) + 1) if t.numel() else (n, n)
+            for t in ref] == want
+    with pytest.raises(ValueError, match="does not split in blocks"):
+        SampleShard(None, 0, k).part(2 * block + 1, 2 * block)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_row_blocks_draw_their_rows_of_the_whole_draw(axis):
+    """rng.RowBlock on a draw's T_a axis (1: (B, n, K, 2)) or on axis 0
+    holding the samples of each prediction flattened ((B*n, 1, K, 2), the
+    sequence sampler's instants, `rng.on_axis` with the B runs), with V = 2
+    generators: the blocks of three ranks, the last dealt no rows, draw
+    their rows of what the whole draw gives each view, and leave each
+    generator where the whole draw leaves it."""
+    b, n, part = 3, 5, [slice(0, 3), slice(3, 5), slice(5, 5)]
+    gens = lambda: [torch.Generator().manual_seed(v) for v in range(2)]
+    whole_gens = gens()
+    whole = rng.draw_normal(whole_gens, (2 * b, n, 4, 2))
+    after = [g.get_state() for g in whole_gens]
+    for rows in part:
+        mine = gens()
+        blocks = [rng.RowBlock(g, rows, n, 1) for g in mine]
+        m = rows.stop - rows.start
+        if axis == 0:
+            blocks = rng.on_axis(blocks, 0, 2 * b)
+        shape = (2 * b, m, 4, 2) if axis == 1 else (2 * b * m, 1, 4, 2)
+        got = rng.draw_normal(blocks, shape)
+        want = whole[:, rows] if axis == 1 else whole[:, rows].reshape(2 * b * m, 1, 4, 2)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert all(torch.equal(g.get_state(), s) for g, s in zip(mine, after))
+
+
+# Backbones of the MC-dropout forward: (name, kwargs), the UNet's shared
+# prefix and the tiled input of the others.
+MC_BACKBONES = {"unet": dict(SMALL, drop_block=True),
+                "enet": dict(init_channels=8, dropout=0.3),
+                "resnet": dict(layers=(1, 1, 1, 1), dropout=0.3)}
+
+
+@pytest.mark.parametrize("name,t_e", [("unet", 2), ("unet", 3), ("enet", 2), ("resnet", 3)])
+def test_mc_dropout_apply_deals_out_its_blocks_to_more_ranks(name, t_e):
+    """mc_dropout_apply on four ranks (their shards taken one after another
+    in one process): T_e = 2 gives two blocks (ranks 2 and 3 none), T_e = 3
+    three (rank 3 none). Each rank's rows, concatenated in rank order, are
+    bitwise the whole forward's, a rank with no block returns no rows, and
+    every rank leaves the generator where the whole forward leaves it (a
+    rank with no block still draws the masks), on the UNet's shared prefix
+    and on the tiled input of ENet and the ResNet regressor."""
+    model = build_backbone(name, (1, SIZE, SIZE), (21, 2) if name == "resnet" else (21, SIZE, SIZE),
+                           **MC_BACKBONES[name])
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model.eval()
+    img = torch.as_tensor(np.random.default_rng(2).normal(size=(2, 1, SIZE, SIZE)),
+                          dtype=torch.float32)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(5)
+        whole = mc_dropout_apply(model, img, t_e, g)
+        after, parts = g.get_state(), []
+        for i in range(4):
+            g = torch.Generator().manual_seed(5)
+            parts.append(mc_dropout_apply(model, img, t_e, g, SampleShard(None, i, 4)))
+            assert torch.equal(g.get_state(), after), i
+    blocks = t_e * 2 // mc_block_rows(t_e, 2)
+    assert [p["out"].shape[0] for p in parts] == [mc_block_rows(t_e, 2)] * blocks + [0] * (4 - blocks)
+    assert float((whole["out"][:2] - whole["out"][2:4]).abs().max()) > 0  # dropout is live
+    for key, value in whole.items():
+        if isinstance(value, torch.Tensor):
+            torch.testing.assert_close(torch.cat([p[key] for p in parts]), value, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["psm", "skew", "sequence", "sequence_skew"])
+def test_sampler_deals_out_its_samples_to_more_ranks(name):
+    """Each sampler at T_a = 2 on four ranks (their shards taken one after
+    another in one process; ranks 2 and 3 are dealt no sample), two views
+    with a generator each: every rank's samples, concatenated in rank order,
+    are bitwise one process's, and every rank leaves each view's generator
+    where one process leaves it, the sequence samplers' instants (rows on a
+    flattened axis, `rng.on_axis`) included."""
+    data = synthetic_camus_data(n_patients=6, size=SIZE, seed=0)
+    contours = data.train_arrays("train")["contour"]
+    half = len(contours) // 2
+    prior = fit_shape_prior(contours)
+    seq_prior = fit_shape_prior(np.concatenate([contours[:half], contours[half:2 * half]], axis=1))
+    gen = np.random.default_rng(0)
+    v, t_e, t_a, k = 2, 3, 2, contours.shape[1]
+    mu = torch.as_tensor(contours[gen.integers(0, len(contours), v * 2 * t_e)]
+                         .reshape(v, 2, t_e, k, 2) + 0.3 * gen.normal(size=(v, 2, t_e, k, 2)),
+                         dtype=torch.float32)
+    a = gen.normal(size=(v, 2, t_e, k, 2, 2)) * 0.5
+    cov = torch.as_tensor(a @ np.swapaxes(a, -1, -2) + 0.3 * np.eye(2), dtype=torch.float32)
+    alpha = {"alpha": torch.as_tensor(gen.normal(size=(v, 2, t_e, k, 2)), dtype=torch.float32)}
+    sampler, kw = {
+        "psm": (PosteriorShapeModelSampler(prior, device="cpu"), {}),
+        "skew": (SkewPosteriorShapeModelSampler(prior, image_extent=SIZE - 1.0, device="cpu"),
+                 alpha),
+        "sequence": (SequencePSMSampler(prior, seq_prior, device="cpu"), {}),
+        "sequence_skew": (SequenceSkewPSMSampler(prior, seq_prior, image_extent=SIZE - 1.0,
+                                                 device="cpu"), alpha),
+    }[name]
+    gens = lambda: [torch.Generator().manual_seed(i) for i in range(v)]
+    g = gens()
+    whole = sampler.sample_batch(g, mu, cov, n=t_a, **kw)
+    after, parts = [x.get_state() for x in g], []
+    for i in range(4):
+        shard, g = SampleShard(None, i, 4), gens()
+        share = shard.part(t_a)
+        parts.append(sampler.sample_batch(shard.row_blocks(g, t_a, axis=1), mu, cov,
+                                          n=share.stop - share.start, **kw))
+        assert all(torch.equal(x.get_state(), y) for x, y in zip(g, after)), i
+    assert [p.shape[-3] for p in parts] == [1, 1, 0, 0]
+    torch.testing.assert_close(torch.cat(parts, dim=-3), whole, rtol=0, atol=0)
 
 
 def _assert_matches_jax(got, ref):

@@ -44,6 +44,7 @@ from contouring_uncertainty_torch.data.config import BatchResult, DataParams
 from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.models import unet as tunet
 from contouring_uncertainty_torch.results import run_processors
+from contouring_uncertainty_torch.rng import RowBlock
 from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
 from contouring_uncertainty_torch.tasks import segmentation as tseg
 from contouring_uncertainty_torch.tasks.epistemic import EpistemicUncertainty
@@ -91,11 +92,18 @@ def capture_masks(fn):
 
 def masks_as_uniforms(masks):
     """Stands in for rng.draw_uniform in models/unet.py: uniforms that keep
-    exactly the channels of the next captured mask."""
-    queue = list(masks)
+    exactly the channels of the next captured mask. The row blocks of an
+    MC-dropout forward (an `rng.RowBlock` each, tasks/dsnt_al.py
+    `mc_dropout_apply`) run one after another: each block takes, in order,
+    its rows of the captured masks, the block of rows [r, ...) from the
+    mask after the last one a block of rows [r, ...) took."""
+    masks, taken = list(masks), {}
 
     def draw(generators, shape, dtype=torch.float32, device=None):
-        keep = queue.pop(0)
+        rows = generators.rows if isinstance(generators, RowBlock) else slice(0, shape[0])
+        i = taken.get(rows.start, 0)
+        taken[rows.start] = i + 1
+        keep = masks[i][rows]
         assert tuple(shape) == (*keep.shape, 1, 1), (shape, keep.shape)
         return torch.as_tensor(np.where(keep, 0.0, 1.0).reshape(shape), dtype=dtype,
                                device=device)

@@ -258,11 +258,11 @@ def test_predict_and_val_metrics_match_jax(pair):
 
 def test_skew_unet_mc_dropout_takes_the_shared_prefix(pair, monkeypatch):
     """mc_dropout_apply routes a SkewUNet through its UNet's shared encoder
-    prefix (encode_prefix once at batch N, decode_from_prefix at T_e*N) and
-    matches the full forward of the tiled input with the same generator
-    seed, logits and alpha_raw within 1e-5; a model that neither is nor
-    wraps a UNet (the other backbones) runs that tiled forward itself, as
-    the JAX task's route for them."""
+    prefix (encode_prefix once at batch N, decode_from_prefix on the T_e*N
+    rows, in T_e = 3 row blocks of N) and matches the full forward of the
+    tiled input with the same generator seed, logits and alpha_raw within
+    1e-5; a model that neither is nor wraps a UNet (the other backbones)
+    runs that tiled forward itself, as the JAX task's route for them."""
     *_, task, model, batch = pair
     modes = []
     forward = tunet.UNet.forward
@@ -275,7 +275,7 @@ def test_skew_unet_mc_dropout_takes_the_shared_prefix(pair, monkeypatch):
     x = torch.as_tensor(batch["img"][:2])
     with torch.no_grad():
         shared = mc_dropout_apply(model, x, 3, torch.Generator().manual_seed(5))
-        assert modes == ["encode_prefix", "decode_from_prefix"]
+        assert modes == ["encode_prefix"] + ["decode_from_prefix"] * 3
         tiled = model(x.repeat(3, 1, 1, 1), deterministic=False,
                       generator=torch.Generator().manual_seed(5))
     for key in ("out", "alpha_raw"):
@@ -289,7 +289,7 @@ def test_skew_unet_mc_dropout_takes_the_shared_prefix(pair, monkeypatch):
     modes.clear()
     with torch.no_grad():
         other = mc_dropout_apply(NotAUNet(), x, 3, torch.Generator().manual_seed(5))
-    assert modes == ["full"]
+    assert modes == ["full"] * 3
     for key in ("out", "alpha_raw"):
         torch.testing.assert_close(other[key], tiled[key], rtol=0, atol=0)
     with pytest.raises(ValueError, match="bottleneck_out"):
