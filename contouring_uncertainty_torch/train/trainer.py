@@ -4,8 +4,9 @@ Counterpart of contouring_uncertainty_tpu/train/trainer.py:
 
 - `train_step`: uint8 feed dequantised on the device, augmentation
   (data/augment.py), the task's loss with dropout on, backward, one
-  optimizer update; `eval_step`: the task's `val_metrics` without
-  gradients;
+  optimizer update, each part and each wait of the feed a `cut.` span
+  (`utils/profiling.py span`) where `torch.profiler` records; `eval_step`:
+  the task's `val_metrics` without gradients;
 - optimizers and learning-rate schedules follow optax's rules, as the JAX
   trainer builds them (`_make_optimizer`, `_lr_schedule`): AdamW with
   decoupled decay; Adam, SGD and RMSprop with the decay added to the
@@ -93,7 +94,7 @@ from contouring_uncertainty_torch.train.checkpoint import (
     save_checkpoint,
 )
 from contouring_uncertainty_torch.train.logging import ExperimentLogger
-from contouring_uncertainty_torch.utils.profiling import PhaseTimer, model_summary
+from contouring_uncertainty_torch.utils.profiling import PhaseTimer, model_summary, span
 
 
 @dataclass
@@ -300,19 +301,25 @@ class Trainer:
         computes on its rows); `step` is the update count before this
         update (the schedule's argument). Returns this rank's loss logs,
         detached."""
-        batch, generator = self._local(batch, train=True)
-        img = batch[Tags.img]
-        if img.dtype == torch.uint8:
-            batch = {**batch, Tags.img: img.to(torch.float32) / 255.0}
-        if self.config.augment:
-            batch = aug.apply(batch, aug.sample_params(generator, img.shape[0]))
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, logs = self.task.loss(self.model, batch, generator=generator, train=True)
-        loss.backward()
-        self._average_gradients()
-        self.apply_update(step)
-        return {k: v.detach() for k, v in logs.items()}
+        with span("cut.train.step"):
+            batch, generator = self._local(batch, train=True)
+            with span("cut.train.augment"):
+                img = batch[Tags.img]
+                if img.dtype == torch.uint8:
+                    batch = {**batch, Tags.img: img.to(torch.float32) / 255.0}
+                if self.config.augment:
+                    batch = aug.apply(batch, aug.sample_params(generator, img.shape[0]))
+            with span("cut.train.zero_grad"):
+                self.model.train()
+                self.optimizer.zero_grad(set_to_none=True)
+            with span("cut.train.forward"):
+                loss, logs = self.task.loss(self.model, batch, generator=generator, train=True)
+            with span("cut.train.backward"):
+                loss.backward()
+            with span("cut.train.update"):
+                self._average_gradients()
+                self.apply_update(step)
+            return {k: v.detach() for k, v in logs.items()}
 
     def _average_gradients(self):
         """Average the parameters' gradients over the mesh's data axis, in
@@ -564,7 +571,8 @@ def _device_prefetch(batch_iter: Iterator, device: torch.device,
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("cut.feed.starved" if q.empty() else "cut.feed.get"):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, Exception):

@@ -1,4 +1,4 @@
-"""Phase timing and the model summary of a training run.
+"""Phase timing, the model summary and the trace spans of a training run.
 
 Counterpart of contouring_uncertainty_tpu/utils/profiling.py:
 
@@ -7,14 +7,35 @@ Counterpart of contouring_uncertainty_tpu/utils/profiling.py:
   a phase's time includes the device work it queued); written to
   `{name}_phases.json` beside the metrics CSV;
 - `model_summary`: a parameter table (module, shape, count, total), the
-  counterpart of the flax `tabulate` dump in `summary.txt`.
+  counterpart of the flax `tabulate` dump in `summary.txt`;
+- `span`: a named span of the training path for `torch.profiler`, opened
+  only while a profiler records the calling thread (else one shared null
+  context, for one C call of about 0.1 us). Every name starts with `cut.`,
+  and all open on the thread that runs the training loop:
 
-The JAX `device_trace` has no counterpart here: `torch.profiler` is used
-directly where a trace is wanted.
+  - `cut.feed.get`, `cut.feed.starved`: `train/trainer.py
+    _device_prefetch`'s wait for each next item of its queue (a batch, or
+    the epoch's end), when one was already queued or when it was empty;
+  - `cut.train.step`: `Trainer.train_step`'s whole body, and inside it in
+    turn `cut.train.augment` (the uint8 dequantise, the augmentation's
+    draws and warp), `cut.train.zero_grad` (`model.train()`,
+    `optimizer.zero_grad`), `cut.train.forward` (the task's loss: the
+    model, its head and the NLL), `cut.train.backward` (`loss.backward()`;
+    its ops run on the autograd engine's thread, inside this span's time)
+    and `cut.train.update` (the gradients' all-reduce, the optimizer's
+    update).
+
+  A profiler records the thread that started it: the feed's worker thread
+  is not seen. The serving path has no spans. A span changes no
+  arithmetic.
+
+The JAX `device_trace` is, here, `torch.profiler` around the call, which
+these spans annotate.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import time
@@ -24,6 +45,15 @@ from pathlib import Path
 from typing import Dict, List
 
 import torch
+
+_NULL = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled  # True on a thread a profiler records
+
+
+def span(name: str):
+    """`torch.profiler.record_function(name)` while a profiler records the
+    calling thread, else a shared null context. `name` starts with `cut.`."""
+    return torch.profiler.record_function(name) if _recording() else _NULL
 
 
 class PhaseTimer:
