@@ -12,8 +12,8 @@ result line):
 
 1. card check: CUDA present; the card's name and power limit; TF32 off for
    matmuls and cuDNN convolutions;
-2. build: nvcc for the two CUDA sources (csrc/min_k_crossings.cu,
-   csrc/dsnt_moments.cu) and g++ for the C++ batch prefetcher
+2. build: nvcc for the three CUDA sources (csrc/min_k_crossings.cu,
+   csrc/dsnt_moments.cu, csrc/conv_epilogue.cu) and g++ for the C++ batch prefetcher
    (csrc/prefetch_loader.cpp), all in parallel, from the sources in this
    checkout into contouring_uncertainty_torch/_build/, with ptxas's
    register report; a prefetcher that does not build fails the run;
@@ -268,6 +268,23 @@ result line):
    the card. `val_figure` once on [5]'s model: without
    matplotlib it raises ModuleNotFoundError and launches nothing, with it
    a figure and one K2 launch.
+19. the ConvLayer epilogue kernels (ops/conv_epilogue.py ->
+   csrc/conv_epilogue.cu), before the kernels line: at each of unet2's 15
+   ConvBlocks' plane shapes at batch 32 (the three deepest encoder stages
+   with channel dropout at 0.5), the forward and backward kernels and the
+   plain f32 chain (conv bias add, dropout, InstanceNorm, LeakyReLU, with
+   autograd) on the same f32 inputs, each held to an f64 evaluation of the
+   same formula from those inputs on its own side of every kink: y, dx and
+   the three parameter gradients, the kernels' error at most
+   EPILOGUE_BAR times the plain chain's (or one f32 rounding, the larger);
+   each timed (CUDA graphs) beside its byte bound and the plain chain's
+   forward and backward; a whole step's 30 layers summed. The kernels'
+   launches are counted on the paths that run them ([9], the skew,
+   ensemble, bf16, segmentation, JSRT, LV+MYO, backbone and DDP training
+   steps, `epilogue_ledger`): in every train step one forward and one
+   backward launch per ConvLayer call on the kernel route (30 of each in a
+   unet2 step, none in bf16); the kernels line carries each path's
+   launches per step and [19]'s times.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -382,6 +399,21 @@ GRAD_BAR = 1e-5
 STEP_BARS = {"grad_leaf": 1e-2, "no_cudnn": 1e-3, "kernel_vs_plain": 1e-5,
              "kink_flips": 16, "kink_zero": 1e-4,
              "grad_all": 1e-5, "param_round": 2e-7, "zero_grad": 1e-3}
+
+
+# The ConvLayer epilogue kernels ([19]): unet2's 15 ConvBlocks at 256^2
+# (channels, plane side, channel dropout), encoder then decoder; two
+# ConvLayers each. Each kernel output's error against f64 at most
+# EPILOGUE_BAR times the plain f32 chain's, or EPILOGUE_FLOOR (one f32
+# rounding) where that is larger.
+EPILOGUE_BLOCKS = [(32, 256, False), (64, 128, False), (128, 64, False), (256, 32, False),
+                   (480, 16, False), (480, 8, True), (480, 4, True), (480, 2, True),
+                   (480, 4, False), (480, 8, False), (480, 16, False), (256, 32, False),
+                   (128, 64, False), (64, 128, False), (32, 256, False)]
+EPILOGUE_BATCH = 32
+UNET2_LAYERS = 2 * (2 * 8 - 1)  # ConvLayers of the 8-stage UNet: 2 per ConvBlock
+EPILOGUE_BAR = 2.0
+EPILOGUE_FLOOR = 2.0 ** -24
 
 
 def card_line() -> str:
@@ -1035,12 +1067,57 @@ def launch_ledger():
             setattr(cls, name, fn)
 
 
+@contextmanager
+def epilogue_ledger():
+    """Per train step (`Trainer.train_step`, wrapped while the block runs):
+    the ConvLayer epilogue kernels' (forward, backward) launches and the
+    ConvLayer calls on the kernel route (`epilogue_route`) in it."""
+    from contouring_uncertainty_torch.models.unet import ConvLayer
+    from contouring_uncertainty_torch.ops import conv_epilogue as ce
+    from contouring_uncertainty_torch.train import Trainer
+
+    steps, routed = [], [0]
+    step_fn, forward_fn = Trainer.train_step, ConvLayer.forward
+
+    def forward(self, x, *args, **kwargs):
+        routed[0] += self.epilogue_route(x.device) == "kernel"
+        return forward_fn(self, x, *args, **kwargs)
+
+    def train_step(self, *args, **kwargs):
+        before, routed[0] = (ce.fwd_launches, ce.bwd_launches), 0
+        out = step_fn(self, *args, **kwargs)
+        steps.append((ce.fwd_launches - before[0], ce.bwd_launches - before[1], routed[0]))
+        return out
+
+    Trainer.train_step, ConvLayer.forward = train_step, forward
+    try:
+        yield steps
+    finally:
+        Trainer.train_step, ConvLayer.forward = step_fn, forward_fn
+
+
+def epilogue_per_step(label: str, steps: list, layers=None) -> dict:
+    """From `epilogue_ledger`'s steps: every step launched the forward and
+    the backward kernel once per ConvLayer call on the kernel route (and
+    made `layers` such calls, where given), the same in every step ->
+    launches per step."""
+    want = None if layers is None else (layers, layers, layers)
+    if not steps or len(set(steps)) != 1 or steps[0][0] != steps[0][2] \
+            or steps[0][1] != steps[0][2] or want not in (None, steps[0]):
+        raise AssertionError(f"{label}: conv epilogue launches (forward, backward, ConvLayer "
+                             f"calls on the kernel route) per train step {sorted(set(steps))}, "
+                             f"expected one launch of each per call"
+                             f"{'' if want is None else f', {layers} calls'}")
+    return {"forward": steps[0][0], "backward": steps[0][1], "steps": len(steps)}
+
+
 def training_run() -> dict:
     """runner.run at the flagship training configuration, launches counted."""
     import torch
 
     from contouring_uncertainty_torch import runner
     from contouring_uncertainty_torch.data import native_loader
+    from contouring_uncertainty_torch.ops import conv_epilogue as ce
     from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -1048,15 +1125,18 @@ def training_run() -> dict:
     torch.cuda.reset_peak_memory_stats()
     dsnt_kernel.row_launches = dsnt_kernel.col_launches = 0
     select_kernel.launches = 0
+    ce.fwd_launches = ce.bwd_launches = 0
     native_loader.batches_served = 0
     t0 = time.perf_counter()
-    with launch_ledger() as ledger:
+    with launch_ledger() as ledger, epilogue_ledger() as epi:
         result = runner.run(TRAIN_OVERRIDES)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     feed = native_feed(len(ledger["train step"]))
     totals = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
               "K3": select_kernel.launches}
+    epilogue = {**epilogue_per_step("[9] training", epi, layers=UNET2_LAYERS),
+                "run_forward": ce.fwd_launches, "run_backward": ce.bwd_launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # Gates: finite losses, the files a run leaves, launches where expected.
@@ -1116,7 +1196,7 @@ def training_run() -> dict:
             "ckpt": result["ckpt_path"], "views": len(result["predict"]),
             "clinical_rows": expected_rows,
             "ledger": {label: len(calls) for label, calls in ledger.items()},
-            "per_call": expected, "totals": totals, "peak_gib": peak_gib,
+            "per_call": expected, "totals": totals, "epilogue": epilogue, "peak_gib": peak_gib,
             "step_ms": median_ms, "step_ms_range": (later[0], later[-1]),
             "first_step_ms": steps[0], "images_per_s": TRAIN_CFG["batch"] / median_ms * 1e3,
             "eval_ms": phases.get("eval_step", {}).get("median_ms"), "feed": feed,
@@ -1714,12 +1794,13 @@ def skew_training() -> dict:
     dsnt_kernel.row_launches = dsnt_kernel.col_launches = 0
     select_kernel.launches = 0
     t0 = time.perf_counter()
-    with launch_ledger() as ledger:
+    with launch_ledger() as ledger, epilogue_ledger() as epi:
         result = runner.run(SKEW_TRAIN_OVERRIDES)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     totals = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
               "K3": select_kernel.launches}
+    epilogue = epilogue_per_step("skew training", epi)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     history = result["history"]
     if len(history) != SKEW_EPOCHS:
@@ -1764,7 +1845,8 @@ def skew_training() -> dict:
                              f"tensors moved {len(moved_head)} of {len(head)}")
     shutil.rmtree(SKEW_DIR, ignore_errors=True)
     return {"history": history, "test": result["test_metrics"], "wall_s": wall_s,
-            "views": len(result["predict"]), "totals": totals, "peak_gib": peak_gib,
+            "views": len(result["predict"]), "totals": totals, "epilogue": epilogue,
+            "peak_gib": peak_gib,
             "ledger": {label: len(calls) for label, calls in ledger.items()},
             "step_ms": later[len(later) // 2], "step_ms_range": (later[0], later[-1]),
             "first_step_ms": steps[0], "images_per_s": TRAIN_CFG["batch"] / later[len(later) // 2] * 1e3,
@@ -2975,7 +3057,8 @@ def batch_of_32(data):
 
 def train_steps(label: str, trainer, batch, steps: int, fit_steps: int = 0) -> dict:
     """A warm-up step, then `steps` timed steps (every loss finite, launches
-    counted from 0: their totals and per step), peak memory; with
+    counted from 0: their totals and per step; the conv epilogue's in
+    every step, `epilogue_per_step`), peak memory; with
     `fit_steps`, that many more steps without augmentation, in which the
     loss must fall."""
     import torch
@@ -2985,20 +3068,22 @@ def train_steps(label: str, trainer, batch, steps: int, fit_steps: int = 0) -> d
     trainer.init_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses = [float(trainer.train_step(batch, 0)["loss"])]
-    dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
-    steps_ms = []
-    for step in range(1, 1 + steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses.append(float(trainer.train_step(batch, step)["loss"]))
-        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    with epilogue_ledger() as epi:
+        losses = [float(trainer.train_step(batch, 0)["loss"])]
+        dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+        steps_ms = []
+        for step in range(1, 1 + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(batch, step)["loss"]))
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
                 "K3": select_kernel.launches}
     if not np.isfinite(losses).all():
         raise AssertionError(f"{label}: non-finite training loss {losses}")
     out = {"losses": losses, "launches": launches,
            "per_step": {k: v / steps for k, v in launches.items()},
+           "epilogue_per_step": epilogue_per_step(label, epi),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if fit_steps:
         trainer.config.augment = False
@@ -3376,7 +3461,7 @@ def ensemble_training() -> dict:
     native_loader.batches_served = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with launch_ledger() as ledger:
+    with launch_ledger() as ledger, epilogue_ledger() as epi:
         result = runner.run(ENSEMBLE_TRAIN_OVERRIDES)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -3400,6 +3485,7 @@ def ensemble_training() -> dict:
         if not calls or any(call != expected[label] for call in calls):
             raise AssertionError(f"ensemble training {label}: launches {calls}")
     feed = native_feed(len(ledger["train step"]))
+    epilogue = epilogue_per_step("ensemble training", epi, layers=UNET2_LAYERS)
     # Each member's steps as its PhaseTimer took them, its first left out.
     steps = []
     for i in range(2):
@@ -3410,7 +3496,8 @@ def ensemble_training() -> dict:
     return {"wall_s": wall_s, "history": result["history"], "views": len(result["predict"]),
             "step_ms": steps[len(steps) // 2], "step_ms_range": (steps[0], steps[-1]),
             "calls": {k: len(v) for k, v in ledger.items()}, "per_call": expected,
-            "feed": feed, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "epilogue": epilogue, "feed": feed,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def bf16_training() -> dict:
@@ -3433,7 +3520,7 @@ def bf16_training() -> dict:
     torch.cuda.reset_peak_memory_stats()
     fed, fits = [], []
     t0 = time.perf_counter()
-    with launch_ledger() as ledger, \
+    with launch_ledger() as ledger, epilogue_ledger() as epi, \
             recording(Trainer, "fit", fits.append), \
             recording(Trainer, "train_step",
                       lambda args: fed.append(args[1][Tags.contour].cpu().numpy())):
@@ -3449,6 +3536,7 @@ def bf16_training() -> dict:
     for label, want in expected.items():
         if not ledger[label] or any(call != want for call in ledger[label]):
             raise AssertionError(f"bf16 training {label}: launches {ledger[label]}")
+    epilogue = epilogue_per_step("bf16 training", epi, layers=0)  # the op-by-op chain
     feed = native_feed(len(ledger["train step"]))
     # The library's first epoch on the host, over sample indices.
     trainer, train, val = fits[0][:3]
@@ -3471,7 +3559,7 @@ def bf16_training() -> dict:
             "images_per_s": TRAIN_CFG["batch"] / median_ms * 1e3, "feed": feed,
             "first_epoch_batches": len(order), "data_wait": data_wait(phases),
             "calls": {k: len(v) for k, v in ledger.items()}, "per_call": expected,
-            "trainer": trainer, "val": val}
+            "epilogue": epilogue, "trainer": trainer, "val": val}
 
 
 def bf16_kernel_checks(trainer, val) -> dict:
@@ -3797,6 +3885,7 @@ def rank_worker(device, timed: bool) -> dict:
     import torch
     import torch.distributed as dist
 
+    from contouring_uncertainty_torch.ops import conv_epilogue as ce
     from contouring_uncertainty_torch.ops import dsnt_kernel, select_kernel
     from contouring_uncertainty_torch.parallel import distributed, make_mesh
 
@@ -3813,12 +3902,14 @@ def rank_worker(device, timed: bool) -> dict:
                       ("seg_latency", lambda: seg_latency_view(seg, make_mesh(model_parallel=2)))):
         torch.cuda.synchronize()
         dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+        ce.fwd_launches = ce.bwd_launches = 0
         t0 = time.perf_counter()
         out[label] = fn()
         torch.cuda.synchronize()
         out[label]["s"] = time.perf_counter() - t0
         out[label]["launches"] = {"K2": dsnt_kernel.row_launches,
                                   "K1": dsnt_kernel.col_launches, "K3": select_kernel.launches}
+        out[label]["epilogue"] = {"forward": ce.fwd_launches, "backward": ce.bwd_launches}
     if out["rank"] != 0:
         out["train"].pop("updates")
     return out
@@ -3870,6 +3961,12 @@ def check_ranks(ranks: list, one: dict) -> dict:
                 if r[label]["launches"][k] < 1:
                     raise AssertionError(f"[17] rank {r['rank']} launched {k} "
                                          f"{r[label]['launches'][k]} times in {label}")
+        want = {"forward": UNET2_LAYERS * MULTI_CFG["steps"],
+                "backward": UNET2_LAYERS * MULTI_CFG["steps"]}
+        if r["train"]["epilogue"] != want:
+            raise AssertionError(f"[17] rank {r['rank']} launched the conv epilogue kernels "
+                                 f"{r['train']['epilogue']} times in its DDP steps, expected "
+                                 f"{want}")
         if any(r["seg_latency"]["launches"].values()):
             raise AssertionError(f"[17] rank {r['rank']} launched {r['seg_latency']['launches']}"
                                  " in the segmentation view (no K2, K1 or K3 there)")
@@ -4285,6 +4382,135 @@ def live_children() -> list:
     return left
 
 
+def epilogue_errors(got, ref, dx_ref) -> dict:
+    """Errors of (y, dx, d conv_bias, d weight, d bias) against an f64
+    reference: each the largest |difference| over the largest |reference|;
+    the conv bias's gradient, a sum of dx that cancels to rounding, over
+    the largest per-channel sum of |dx|."""
+    names = ("y", "dx", "d conv_bias", "d weight", "d bias")
+    out = {}
+    for name, g, r in zip(names, got, ref):
+        diff = float((g.double() - r).abs().max())
+        scale = (float(dx_ref.abs().sum(dim=(0, 2, 3)).max()) if name == "d conv_bias"
+                 else float(r.abs().max()))
+        out[name] = diff / scale
+    return out
+
+
+def epilogue_block(channels: int, side: int, drop: bool, seed: int) -> dict:
+    """One ConvBlock's plane shape at EPILOGUE_BATCH: the kernels and the
+    plain f32 chain against f64, and their times."""
+    import torch
+    import torch.nn.functional as F
+
+    from contouring_uncertainty_torch.models.unet import InstanceNorm, channel_keep
+    from contouring_uncertainty_torch.ops import conv_epilogue as ce
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (EPILOGUE_BATCH, channels, side, side)
+    randn = lambda *size: torch.randn(*size, generator=gen, device="cuda")
+    x = 0.4 + 1.3 * randn(*shape)
+    cb, w, b = 0.2 * randn(channels), 1.0 + 0.3 * randn(channels), 0.5 * randn(channels)
+    gy = randn(*shape)
+    keep = channel_keep(x, 0.5, gen) if drop else None
+    kp = 0.5 if drop else 1.0
+
+    norm = InstanceNorm(channels).cuda()
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+
+    xl, cbl = x.detach().requires_grad_(), cb.detach().requires_grad_()
+
+    def plain_forward():
+        v = xl + cbl[:, None, None]
+        if drop:
+            v = torch.where(keep[:, :, None, None], v / kp, torch.zeros((), device="cuda"))
+        return F.leaky_relu(norm(v), 0.01), [xl, cbl, norm.weight, norm.bias]
+
+    def plain_step():
+        y_p, leaves = plain_forward()
+        return torch.autograd.grad(y_p, leaves, gy)
+
+    y, stats = ce.epilogue_cuda(x, cb, keep, kp, w, b)
+    dx, dcb, dw, db = ce.epilogue_backward_cuda(x, cb, keep, kp, w, b, stats, gy)
+    y_p, leaves = plain_forward()
+    g_p = torch.autograd.grad(y_p, leaves, gy)
+    y_p = y_p.detach()
+    x64, cb64, w64, b64, gy64 = (t.double() for t in (x, cb, w, b, gy))
+    y64, st64 = ce.epilogue_plain(x64, cb64, keep, kp, w64, b64)
+    refs = {}
+    for label, ys in (("kernel", y), ("plain", y_p)):
+        grads = ce.epilogue_backward_plain(x64, cb64, keep, kp, w64, b64, st64, gy64,
+                                           sides=ys > 0)
+        refs[label] = (y64, grads[0], grads[1], grads[2], grads[3])
+    err = {"kernel": epilogue_errors((y, dx, dcb, dw, db), refs["kernel"], refs["kernel"][1]),
+           "plain": epilogue_errors((y_p, g_p[0], g_p[1], g_p[2], g_p[3]), refs["plain"],
+                                    refs["plain"][1])}
+    flips = int(((y > 0) != (y64 > 0)).sum())
+    del y64, st64, refs, x64, gy64
+    share = {k: err["kernel"][k] / max(err["plain"][k], EPILOGUE_FLOOR) for k in err["kernel"]}
+    elems = x.numel()
+    row = {
+        "shape": list(shape), "dropout": drop, "errors": err, "of_plain": share, "flips": flips,
+        "fwd_ms": cuda_ms(lambda: ce.epilogue_cuda(x, cb, keep, kp, w, b)),
+        "bwd_ms": cuda_ms(lambda: ce.epilogue_backward_cuda(x, cb, keep, kp, w, b, stats, gy)),
+        "fwd_bound_ms": 8.0 * elems / HBM_BYTES_PER_S * 1e3,
+        "bwd_bound_ms": 12.0 * elems / HBM_BYTES_PER_S * 1e3,
+        "plain_fwd_ms": cuda_ms(lambda: plain_forward()[0]),
+        "plain_step_ms": cuda_ms(plain_step),
+    }
+    row["plain_bwd_ms"] = row["plain_step_ms"] - row["plain_fwd_ms"]
+    if max(share.values()) > EPILOGUE_BAR:
+        raise AssertionError(f"conv epilogue kernels at {shape} (dropout {drop}): errors {err} "
+                             f"exceed {EPILOGUE_BAR}x the plain chain's: {share}")
+    return row
+
+
+def epilogue_phase() -> dict:
+    """[19]: every block of EPILOGUE_BLOCKS (epilogue_block) and the step's
+    30 layers summed."""
+    import torch
+
+    rows = []
+    for i, (channels, side, drop) in enumerate(EPILOGUE_BLOCKS):
+        row = epilogue_block(channels, side, drop, seed=100 + i)
+        rows.append(row)
+        e, r = row["errors"], row["of_plain"]
+        print(f"    {tuple(row['shape'])}{' dropout' if drop else ''}: forward "
+              f"{row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}, "
+              f"{row['fwd_bound_ms'] / row['fwd_ms']:.0%}), backward {row['bwd_ms']:.4f} ms "
+              f"(bound {row['bwd_bound_ms']:.4f}, {row['bwd_bound_ms'] / row['bwd_ms']:.0%}); "
+              f"plain chain {row['plain_fwd_ms']:.4f} + {row['plain_bwd_ms']:.4f} ms")
+        print("      error vs f64, kernel [plain]: " + ", ".join(
+            f"{k} {e['kernel'][k]:.2e} [{e['plain'][k]:.2e}]" for k in e["kernel"])
+            + f"; worst share {max(r.values()):.2f} of the plain chain's "
+              f"(bar {EPILOGUE_BAR}); kernel kinks on the other side from f64: {row['flips']}")
+        torch.cuda.empty_cache()
+    step = {k: 2 * sum(row[k] for row in rows)
+            for k in ("fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms", "plain_fwd_ms",
+                      "plain_bwd_ms")}
+    print(f"    a step's 30 ConvLayers at batch {EPILOGUE_BATCH}: kernels "
+          f"{step['fwd_ms']:.3f} + {step['bwd_ms']:.3f} ms (bound {step['fwd_bound_ms']:.3f} + "
+          f"{step['bwd_bound_ms']:.3f} ms, "
+          f"{(step['fwd_bound_ms'] + step['bwd_bound_ms']) / (step['fwd_ms'] + step['bwd_ms']):.0%}"
+          f"), plain chain {step['plain_fwd_ms']:.3f} + {step['plain_bwd_ms']:.3f} ms")
+    return {"blocks": rows, "step": step}
+
+
+def epilogue_kernel_entry(epilogue: dict, paths: dict) -> dict:
+    """The kernels line's entry of the ConvLayer epilogue kernels: each
+    training path's launches per train step (`paths`, label -> (forward,
+    backward)), and [19]'s times, bounds and the plain chain's per shape
+    and for a step's 30 layers."""
+    keys = ("fwd_ms", "fwd_bound_ms", "bwd_ms", "bwd_bound_ms", "plain_fwd_ms", "plain_bwd_ms")
+    return {"name": "conv_epilogue (ConvLayer epilogue, forward and backward)",
+            "training_launches_per_step": paths,
+            "shapes": [{"shape": row["shape"], "dropout": row["dropout"],
+                        **{k: row[k] for k in keys}} for row in epilogue["blocks"]],
+            "step": epilogue["step"]}
+
+
 def main(argv) -> int:
     import torch
 
@@ -4408,7 +4634,8 @@ def main(argv) -> int:
           f"{train['images_per_s']:.1f} images/s; val/test batch median "
           f"{train['eval_ms']} ms; peak memory {train['peak_gib']:.2f} GiB on {card}")
     print(f"    launches (K2, K1, K3) per call, every call: {train['per_call']}; calls "
-          f"{train['ledger']}; totals {train['totals']}")
+          f"{train['ledger']}; totals {train['totals']}; conv epilogue per train step, every "
+          f"step: {train['epilogue']}")
     prof = train_profile_and_overfit(profile_dir)
     busy = (prof["kernel_ms"] + prof["copy_ms"]) / prof["wall_ms"]
     print(f"    profiled train steps ({prof['img_shape']}): {prof['wall_ms']:.1f} ms/step, "
@@ -4947,6 +5174,25 @@ def main(argv) -> int:
             for r in multi["gloo"]}
         if short == "K3":
             kern["multi_rank"]["kernel_per_rank_share"] = multi["k3"]
+    phase_start[19] = time.perf_counter()
+    print(f"[19] ConvLayer epilogue kernels at unet2's plane shapes (batch {EPILOGUE_BATCH}) "
+          f"vs the plain f32 chain and f64")
+    epilogue = epilogue_phase()
+    per_step = lambda e: [e["forward"], e["backward"]]
+    paths = {"training": per_step(train["epilogue"]), "skew": per_step(skew_train["epilogue"]),
+             "ensemble": per_step(ens_train["epilogue"]), "bf16": per_step(bf16["epilogue"]),
+             "jsrt": per_step(jtrain["epilogue_per_step"]),
+             "camus LV+MYO": per_step(ctrain["epilogue_per_step"]),
+             **{f"segmentation {name}": per_step(row["epilogue_per_step"])
+                for name, row in seg_train.items()},
+             **{f"backbone {name}": per_step(row["train"]["epilogue_per_step"])
+                for name, row in bb.items() if "train" in row},
+             **{f"multi_rank rank {r['rank']}": [v / MULTI_CFG["steps"]
+                                                for v in per_step(r["train"]["epilogue"])]
+                for r in multi["gloo"]}}
+    kernels.append(epilogue_kernel_entry(epilogue, paths))
+    print(f"    launches (forward, backward) per train step: {paths}")
+
     t_end = time.perf_counter()
     starts = sorted(phase_start.items())
     spans = {f"[{n}]": round(b - a, 1) for (n, a), (_, b) in zip(starts, starts[1:] + [(0, t_end)])}

@@ -39,11 +39,13 @@ NVCC_FLAGS = [
 # name -> (source file under csrc/, that source's own nvcc flags).
 # min_k_crossings: --fmad=false (no mul-add contraction) and IEEE division,
 # so crossing abscissae round exactly like the plain PyTorch version's
-# separate mul and add (bitwise parity). dsnt_moments is held to tolerances:
-# contraction into FMAs stays on.
+# separate mul and add (bitwise parity). dsnt_moments and conv_epilogue are
+# held to tolerances: contraction into FMAs stays on (conv_epilogue rounds
+# its kink test with explicit intrinsics, the same in both its kernels).
 CUDA_SOURCES = {
     "min_k_crossings": ("min_k_crossings.cu", ["--fmad=false", "-prec-div=true"]),
     "dsnt_moments": ("dsnt_moments.cu", ["--fmad=true"]),
+    "conv_epilogue": ("conv_epilogue.cu", ["--fmad=true"]),
 }
 
 # name -> (source file under csrc/, g++ flags): host libraries.

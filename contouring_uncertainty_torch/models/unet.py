@@ -21,7 +21,10 @@ Parameters are float32; convolutions run in `dtype` (weights cast per call),
 instance-norm statistics in f32 (f64 in an f64 model). `set_compute_dtype`
 makes a whole model compute in one dtype, e.g. the f64 reference of the
 training checks. Dropout draws its masks from an explicit `torch.Generator`
-(on the generator's device, then moved; rng.py), in execution order.
+(on the generator's device, then moved; rng.py), in execution order. On the
+card in f32 a ConvLayer's chain after its convolution (conv bias, channel
+dropout, instance norm, LeakyReLU) is one kernel forward and one backward
+(ops/conv_epilogue.py; `ConvLayer.epilogue_route`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from contouring_uncertainty_torch.ops import conv_epilogue
 from contouring_uncertainty_torch.rng import draw_uniform
 
 _NEG_SLOPE = 1e-2
@@ -67,13 +71,18 @@ def same_padding(size, kernel_size, stride, dilation) -> list:
     return pads
 
 
+def channel_keep(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """The (N, C) bool mask of the channels that channel dropout at `rate`
+    keeps: uniforms drawn as (N, C, 1, 1) from `generator`, below 1 - rate."""
+    u = draw_uniform(generator, (x.shape[0], x.shape[1], 1, 1), torch.float32, x.device)
+    return (u < 1.0 - rate).reshape(x.shape[0], x.shape[1])
+
+
 def channel_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
     """Dropout2d: zero whole channels with probability `rate`, scale the
     kept ones by 1/(1-rate) (flax Dropout with broadcast_dims=(H, W))."""
-    keep_prob = 1.0 - rate
-    u = draw_uniform(generator, (x.shape[0], x.shape[1], 1, 1), torch.float32, x.device)
-    keep = u < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+    keep = channel_keep(x, rate, generator)[:, :, None, None]
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class InstanceNorm(nn.Module):
@@ -122,8 +131,8 @@ class Conv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x):
-        b = None if self.bias is None else self.bias.to(self.dtype)
+    def forward(self, x, add_bias: bool = True):
+        b = None if self.bias is None or not add_bias else self.bias.to(self.dtype)
         x = x.to(self.dtype)
         padding = self.padding
         if padding == "SAME":
@@ -181,7 +190,11 @@ class ConvTranspose(nn.Module):
 
 
 class ConvLayer(nn.Module):
-    """conv -> [channel dropout] -> instance norm -> leaky relu."""
+    """conv -> [channel dropout] -> instance norm -> leaky relu. Where
+    `epilogue_route` says "kernel" the convolution runs without its bias
+    and ops/conv_epilogue.py computes the rest of the chain (the same
+    draws, the same arithmetic in f32; a plane over the kernels' 65,536
+    elements raises); elsewhere the chain runs op by op."""
 
     def __init__(self, c_in, features, kernel_size=(3, 3), strides=(1, 1),
                  drop_block=False, drop_rate=0.5, dtype=torch.float32):
@@ -191,12 +204,34 @@ class ConvLayer(nn.Module):
         self.InstanceNorm_0 = InstanceNorm(features, dtype=dtype)
         self.drop_block = drop_block
         self.drop_rate = drop_rate
+        # The LeakyReLU's sides while `leaky_relu_sides` pins them, else None.
+        self.pinned_sides: Optional[torch.Tensor] = None
+
+    def epilogue_route(self, device: torch.device) -> str:
+        """"kernel" on a CUDA device with the convolution and the norm in
+        f32 (f32 norm parameters) and no pinned sides, else "plain": the
+        CPU, an f64 or bf16 model and a pinned model keep the op-by-op
+        chain."""
+        norm = self.InstanceNorm_0
+        if (device.type == "cuda" and self.Conv_0.dtype == norm.dtype == torch.float32
+                and norm.weight.dtype == torch.float32 and self.pinned_sides is None):
+            return "kernel"
+        return "plain"
 
     def forward(self, x, deterministic=True, generator=None):
+        drop = self.drop_block and not deterministic
+        if self.epilogue_route(x.device) == "kernel":
+            x = self.Conv_0(x, add_bias=False)
+            keep = channel_keep(x, self.drop_rate, generator) if drop else None
+            norm = self.InstanceNorm_0
+            return conv_epilogue.conv_epilogue(x, self.Conv_0.bias, keep, 1.0 - self.drop_rate,
+                                               norm.weight, norm.bias)
         x = self.Conv_0(x)
-        if self.drop_block and not deterministic:
+        if drop:
             x = channel_dropout(x, self.drop_rate, generator)
         x = self.InstanceNorm_0(x)
+        if self.pinned_sides is not None:
+            return torch.where(self.pinned_sides.to(x.device), x, _NEG_SLOPE * x)
         return F.leaky_relu(x, _NEG_SLOPE)
 
 
@@ -518,38 +553,30 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 def leaky_relu_sides(model: nn.Module, pin: Optional[Dict[str, torch.Tensor]] = None):
     """Within the block, record on which side of its LeakyReLU kink each
     activation of every ConvLayer of `model` falls in the last forward
-    (layer name -> bool tensor, pre-activation > 0), or, given `pin` (such
-    a record), apply each ConvLayer's LeakyReLU with the slopes of the
-    pinned sides. An f32 forward puts an activation within rounding of
-    zero on either side, and a gradient through it moves by the slopes'
-    difference: pinning an f64 model to an f32 forward's sides gives the
-    f64 gradient on the linear piece that forward chose. Yields the
-    record."""
+    (layer name -> bool tensor, pre-activation > 0, read as the ConvLayer's
+    output > 0: a slope of 0.01 > 0 keeps the sign, on either route), or,
+    given `pin` (such a record), apply each ConvLayer's LeakyReLU with the
+    slopes of the pinned sides (the layers then take the op-by-op chain).
+    An f32 forward puts an activation within rounding of zero on either
+    side, and a gradient through it moves by the slopes' difference:
+    pinning an f64 model to an f32 forward's sides gives the f64 gradient
+    on the linear piece that forward chose. Yields the record."""
     sides = {} if pin is None else pin
-    pre: Dict[str, torch.Tensor] = {}
+    layers = [(name, mod) for name, mod in model.named_modules() if isinstance(mod, ConvLayer)]
     handles = []
-
-    def keep(name):
-        return lambda mod, inputs, y: pre.__setitem__(name, y)
-
-    def record(name):
-        return lambda mod, inputs, out: sides.__setitem__(name, pre.pop(name).detach() > 0)
-
-    def pinned(name):
-        def hook(mod, inputs, out):
-            y = pre.pop(name)
-            return torch.where(pin[name].to(y.device), y, _NEG_SLOPE * y)
-        return hook
-
-    for name, mod in model.named_modules():
-        if isinstance(mod, ConvLayer):
-            handles.append(mod.InstanceNorm_0.register_forward_hook(keep(name)))
-            handles.append(mod.register_forward_hook((record if pin is None else pinned)(name)))
+    for name, mod in layers:
+        if pin is None:
+            handles.append(mod.register_forward_hook(
+                lambda m, inputs, out, name=name: sides.__setitem__(name, out.detach() > 0)))
+        else:
+            mod.pinned_sides = pin[name]
     try:
         yield sides
     finally:
         for h in handles:
             h.remove()
+        for _, mod in layers:
+            mod.pinned_sides = None
 
 
 @contextlib.contextmanager
