@@ -39,9 +39,11 @@ def readings(manifest, cell_name: str, seed: int, seconds: float, control: bool,
     torch.backends.cudnn.allow_tf32 = False
     cell = manifest.cell(cell_name)
     traffic = manifest.traffic(cell["traffic"])
-    ctx = harness.Context(cell=cell_name, config=manifest.config(cell["config"]),
-                          traffic=traffic, seed=seed, seconds=seconds, trace=False,
-                          device=device, t_start=time.perf_counter())
+    config = manifest.config(cell["config"])
+    ctx = harness.Context(cell=cell_name, config=config, traffic=traffic, seed=seed,
+                          seconds=seconds, trace=False, device=device,
+                          t_start=time.perf_counter(),
+                          backbone=manifest.backbone(config["model_name"]))
     manifest.driver(traffic["driver"]).run(ctx, control=control)
     return {"seed": seed, "numbers": ctx.numbers, "control": ctx.control,
             "values": ctx.values}

@@ -5,7 +5,11 @@ Device intervals are the profiler's CUDA-side events (kernels, copies,
 memsets). The busy time is the length of their union; the traced window
 is the host's time from the profiler's start to a synchronise after the
 traced work. Idle gaps are named by the harness span open at the gap's
-middle and the innermost host operation running there.
+middle and the innermost host operation running there. The device
+extents of the host's annotated ranges (`cut.` spans and the harness's
+own; trace category `gpu_user_annotation`) are kept apart, in
+`Reading.annotations`: they are no device work, and add nothing to the
+busy time, the gaps or the breakdown.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ SPAN_PREFIX = "portbench."
 # Trace event categories: the device's work, and what the host was doing.
 DEVICE = {"kernel", "gpu_memcpy", "gpu_memset"}
 HOST = {"cpu_op", "user_annotation", "cuda_runtime", "cuda_driver"}
+ANNOTATION = "gpu_user_annotation"  # a host range's extent on the device
 
 
 @dataclass
@@ -34,7 +39,10 @@ class Reading:
     window_s: float = 0.0
     device: List[Tuple[str, float, float]] = field(default_factory=list)  # (name, start, end) s
     host: List[Tuple[str, float, float]] = field(default_factory=list)
-    flops: float = 0.0  # the UNet's FLOPs of those units (work.py)
+    # The device extents of annotated host ranges (name, start, end) s: from
+    # the first device operation launched inside the range to the last one's end.
+    annotations: List[Tuple[str, float, float]] = field(default_factory=list)
+    flops: float = 0.0  # the backbone's FLOPs of the traced steps (its `train_flops`)
     launches: Dict[str, List[Dict[str, float]]] = field(default_factory=dict)  # kernel -> work
     kind: str = ""  # the driver that traced it: "train"
     t0: float = 0.0  # the traced window's start on the events' clock (s)
@@ -122,15 +130,23 @@ def traced(reading: Optional[Reading]):
             events = json.load(f)["traceEvents"]
     finally:
         os.unlink(path)
+    add_events(reading, events)
+
+
+def add_events(reading: Reading, events: List[dict]) -> None:
+    """The trace's complete events into `reading`, in seconds from the
+    start of the harness's `traced` span: device work, host ranges and
+    device extents of annotated ranges each in a list of its own."""
     spans = [e for e in events if e.get("name") == SPAN_PREFIX + "traced"
              and e.get("cat") == "user_annotation"]
     first = spans[0]["ts"] if spans else 0.0
     for e in events:
         cat = e.get("cat", "")
-        if e.get("ph") != "X" or cat not in DEVICE | HOST:
+        if e.get("ph") != "X" or cat not in DEVICE | HOST | {ANNOTATION}:
             continue
         item = (e["name"], (e["ts"] - first) * 1e-6, (e["ts"] + e.get("dur", 0) - first) * 1e-6)
-        (reading.device if cat in DEVICE else reading.host).append(item)
+        (reading.device if cat in DEVICE else reading.annotations if cat == ANNOTATION
+         else reading.host).append(item)
 
 
 @contextlib.contextmanager

@@ -5,14 +5,15 @@ configuration's training frames. Per epoch `NativePrefetcher.epoch()`
 (augmentation on the device, the loss with dropout on, backward,
 `apply_update`: AdamW). Validation and checkpoints are not in the window.
 
-Set-up builds the trainer (`init_state`, then the benchmark's weights
-loaded into its model), runs the first epoch, whose first
-`checked_steps` steps the reference follows, and hands the same trainer
-to the window. The window runs epochs until the step that ends past
-`--seconds`; `train_images_per_s` is the images of its steps over its
-time, ended by a synchronise. `feed_wait_ms` is the harness's span around
-each wait for the next batch. With `--trace 1` the window's second epoch
-is traced.
+Set-up builds the trainer (`init_state`, then the benchmark's weights,
+drawn by the backbone's rule, `reference/<model_name>.py init`, loaded
+into its model), runs the first epoch, whose first `checked_steps` steps
+the reference follows, and hands the same trainer to the window. The
+window runs epochs until the step that ends past `--seconds`;
+`train_images_per_s` is the images of its steps over its time, ended by
+a synchronise. `feed_wait_ms` is the harness's span around each wait for
+the next batch. With `--trace 1` the window's second epoch is traced;
+its FLOPs are the backbone's `train_flops` an image.
 
 After the window the reference reads the training frames from the films
 and extracts their landmarks itself (reference/landmarks.py). It finds
@@ -52,7 +53,9 @@ def run(ctx, control: bool = False):
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     made = program.make_films(ctx.config, ctx.seed)
     data = program.data_source(ctx.config, made)
-    task, model, weights = program.task_and_model(ctx.config, data, ctx.seed, device)
+    backbone, m = ctx.backbone, ctx.config["model"]
+    task, model, weights = program.task_and_model(ctx.config, data, ctx.seed, device,
+                                                  backbone.init)
     del model
     run_seed = int(ctx.seed) % (2 ** 63)
     tmp = tempfile.mkdtemp(prefix="portbench-")
@@ -114,10 +117,8 @@ def run(ctx, control: bool = False):
                     break
         if reading is not None:
             images = traced_steps * tr["batch_size"]
-            m = ctx.config["model"]
-            convs = work.unet_convs(task.data_params.in_shape, task.data_params.out_shape[0],
-                                    m["kernels"], m["strides"])
-            reading.flops = images * work.unet_train_flops(convs)
+            reading.flops = images * backbone.train_flops(task.data_params.in_shape,
+                                                          task.data_params.out_shape[0], m)
             size = ctx.config["data"]["size"]
             rows = tr["batch_size"] * task.data_params.out_shape[0]
             reading.launches = {"k2": [work.k2_work(rows, size * size, 4)] * traced_steps}
@@ -136,7 +137,6 @@ def run(ctx, control: bool = False):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
-    n_stages = len(ctx.config["model"]["strides"])
     d = ctx.config["data"]
     images, points = ref_landmarks.training_frames(made, d["fold"], 2 * d["points_per_side"] - 1)
     find = {frame.tobytes(): i for i, frame in enumerate(images)}
@@ -154,8 +154,9 @@ def run(ctx, control: bool = False):
         prev = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = tf32
         try:
-            return ref_train.steps(weights, batches, run_seed, n_stages, tr["lr"],
-                                   tr["weight_decay"])
+            return ref_train.steps(weights, batches, run_seed,
+                                   lambda w, x, drop: backbone.forward(w, x, m, drop),
+                                   tr["lr"], tr["weight_decay"])
         finally:
             torch.backends.cudnn.allow_tf32 = prev
 

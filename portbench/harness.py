@@ -12,7 +12,11 @@ gives it:
                           measures the window and checks the outputs;
 - metrics/<metric>.py     `read(reading)`, a per-layer metric from the
                           traced part (None where it finds nothing);
-- limits/<cell>.json      the limits of the numbers that decide `correct`.
+- limits/<cell>.json      the limits of the numbers that decide `correct`;
+- reference/<model_name>.py  a backbone's plain forward, initialisation
+                          rule and FLOP count (reference/unet2.py says
+                          what each gives), by the configuration's
+                          `model_name`.
 """
 
 from __future__ import annotations
@@ -114,6 +118,19 @@ class Manifest:
     def metric_reader(self, name: str) -> ModuleType:
         return load_module(self.root / "metrics" / f"{name}.py")
 
+    def backbone(self, model_name: str) -> ModuleType:
+        """The plain reference of a configuration's backbone."""
+        return load_module(self.root / "reference" / f"{model_name}.py")
+
+
+def cpu_cut(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The configuration at the size its CPU tests run: each section of its
+    `cpu_cut` laid over the section of that name."""
+    out = json.loads(json.dumps(config))
+    for section, overrides in config["cpu_cut"].items():
+        out[section].update(overrides)
+    return out
+
 
 @dataclass
 class Context:
@@ -127,6 +144,7 @@ class Context:
     trace: bool
     device: str
     t_start: float
+    backbone: ModuleType  # reference/<model_name>.py
     values: Dict[str, float] = field(default_factory=dict)  # end-to-end metrics
     attempted: int = 0
     failed: int = 0

@@ -6,8 +6,8 @@ from portbench import work
 
 
 def mfu(reading):
-    """The UNet's FLOPs of the traced units over the traced window, as a
-    share of the f32 peak, in %."""
+    """The backbone's FLOPs of the traced steps over the traced window, as
+    a share of the f32 peak, in %."""
     if reading is None or reading.window_s <= 0 or reading.flops <= 0:
         return None
     return 100.0 * reading.flops / reading.window_s / work.F32_FLOPS_PER_S

@@ -1,11 +1,13 @@
 """The program's own spans in the traced epoch (`cut.` names, opened by
 `contouring_uncertainty_torch/utils/profiling.py span` while the profiler
-records), the runtime calls inside its train steps, and the device's idle
-time charged to the spans.
+records), the runtime calls inside its train steps, the device's idle
+time charged to the spans, and its busy time inside a span's device
+extent.
 
-Everything is read from `Reading.host` and `Reading.device`, on the
-trace's one clock. A traced epoch with no `cut.train.step` (a program
-without the spans) gives None.
+Everything is read from `Reading.host`, `Reading.device` and
+`Reading.annotations` (the spans' device extents), on the trace's one
+clock. A traced epoch with no `cut.train.step` (a program without the
+spans) gives None.
 """
 
 from __future__ import annotations
@@ -75,3 +77,34 @@ def idle_share(reading, names) -> Optional[float]:
         return None
     charged = idle_by_span(reading)
     return 100.0 * sum(charged.get(n, 0.0) for n in names) / reading.window_s
+
+
+def _merged(intervals) -> List[Tuple[float, float]]:
+    """The union of (start, end) intervals as sorted disjoint ones."""
+    out: List[Tuple[float, float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def busy_under(reading, name: str) -> Optional[float]:
+    """The device's busy seconds (the union of its kernels, copies and
+    memsets) inside the device extents of the `name` span, per train step;
+    None where the trace holds no such extent."""
+    inside = steps(reading)
+    extents = [(s, e) for n, s, e in reading.annotations if n == name] if inside else []
+    if not extents:
+        return None
+    busy = _merged((s, e) for _, s, e in reading.device)
+    total, i = 0.0, 0
+    for a, b in _merged(extents):
+        while i < len(busy) and busy[i][1] <= a:
+            i += 1
+        j = i
+        while j < len(busy) and busy[j][0] < b:
+            total += min(b, busy[j][1]) - max(a, busy[j][0])
+            j += 1
+    return total / len(inside)

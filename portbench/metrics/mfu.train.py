@@ -1,5 +1,6 @@
 """mfu.train: the whole training step's share of the H100's f32 peak (67 TFLOP/s):
-the UNet's FLOPs (work.py) of the traced part's images over its window."""
+the backbone's FLOPs (reference/<model_name>.py `train_flops`) of the
+traced part's images over its window."""
 
 from portbench.metrics import _shared
 

@@ -1,6 +1,6 @@
 """The system under test, built from a configuration file: the program's
-data source over the benchmark's films, its DSNT-AL task, and its UNet
-with the benchmark's weights.
+data source over the benchmark's films, its DSNT-AL task, and its
+backbone (the configuration's `model_name`) with the benchmark's weights.
 
 This is the one module of the harness that imports the program
 (`contouring_uncertainty_torch`), and only inside its functions.
@@ -39,10 +39,11 @@ def data_source(config: Dict, made: films.Node):
                                         points_per_side=d["points_per_side"])
 
 
-def task_and_model(config: Dict, data, seed: int, device) -> Tuple[object, torch.nn.Module,
-                                                                   Dict[str, torch.Tensor]]:
-    """The program's DSNT-AL task, its UNet on `device` with the
-    benchmark's weights from `seed`, and those weights."""
+def task_and_model(config: Dict, data, seed: int, device, init: weights_lib.Init
+                   ) -> Tuple[object, torch.nn.Module, Dict[str, torch.Tensor]]:
+    """The program's DSNT-AL task, its backbone on `device` with the
+    benchmark's weights from `seed` by the initialisation rule `init`, and
+    those weights."""
     from contouring_uncertainty_torch.models import build_backbone
     from contouring_uncertainty_torch.tasks import DSNTAleatoric
 
@@ -55,6 +56,7 @@ def task_and_model(config: Dict, data, seed: int, device) -> Tuple[object, torch
     k = task.data_params.out_shape[0]
     with torch.device(device):
         model = build_backbone(config["model_name"], (c, h, w), (k, h, w), **config["model"])
-    made = weights_lib.make({n: v.shape for n, v in model.state_dict().items()}, seed, device)
+    made = weights_lib.make({n: v.shape for n, v in model.state_dict().items()}, seed, device,
+                           init)
     model.load_state_dict(made)
     return task, model.eval(), made

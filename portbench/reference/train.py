@@ -9,9 +9,9 @@ One step on a batch {img (B, 1, H, W) in [0, 1], contour (B, K, 2)}:
    at the inverse map, zero outside; the landmarks rotated by the angle
    the other way on screen, then shifted), contrast and brightness +-0.2
    (x (1 + c) + b, clipped to [0, 1]), then gamma in [0.8, 1.2];
-2. the UNet with dropout on (unet.py), each heatmap's Gaussian (head.py,
-   f32), the loss: the mean over points of log|Sigma| + the Mahalanobis
-   distance of the landmark;
+2. the backbone with dropout on (reference/<model_name>.py `forward`),
+   each heatmap's Gaussian (head.py, f32), the loss: the mean over points
+   of log|Sigma| + the Mahalanobis distance of the landmark;
 3. gradients by autograd, then AdamW (lr 1e-3, betas 0.9 and 0.999, eps
    1e-8, decoupled weight decay 1e-3).
 
@@ -24,11 +24,11 @@ the shift in x and in y, the brightness, the contrast and the gamma, each
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
-from . import head, unet
+from . import head
 
 DEG = math.pi / 180.0
 
@@ -81,9 +81,11 @@ def augment(batch, g):
 
 
 def steps(weights: Dict[str, torch.Tensor], batches: List[Dict[str, torch.Tensor]], seed: int,
-          n_stages: int, lr: float = 1e-3, weight_decay: float = 1e-3) -> Dict[str, object]:
+          forward: Callable, lr: float = 1e-3, weight_decay: float = 1e-3) -> Dict[str, object]:
     """The reference's steps over `batches` from `weights` -> per-step
-    losses, the first step's gradients and the parameters after the last."""
+    losses, the first step's gradients and the parameters after the last.
+    `forward(params, img, drop)` is the backbone's logits, `drop(shape)`
+    the uniforms of a dropout layer."""
     device = next(iter(weights.values())).device
     g = torch.Generator(device=device).manual_seed(int(seed))
     params = {k: v.detach().clone().requires_grad_(True) for k, v in weights.items()}
@@ -93,8 +95,7 @@ def steps(weights: Dict[str, torch.Tensor], batches: List[Dict[str, torch.Tensor
     b1, b2, eps = 0.9, 0.999, 1e-8
     for t, batch in enumerate(batches, start=1):
         img, target = augment(batch, g)
-        logits = unet.forward(params, img, n_stages,
-                              lambda s: torch.rand(s, generator=g, device=device))
+        logits = forward(params, img, lambda s: torch.rand(s, generator=g, device=device))
         mu, cov = head.gaussians(logits, torch.float32)
         loss = head.gaussian_nll(mu, cov, target).mean()
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)

@@ -50,9 +50,10 @@ def measure(args, manifest, require_card: bool = True, device: str = "cuda") -> 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     traffic = manifest.traffic(cell["traffic"])
-    ctx = harness.Context(cell=cell["name"], config=manifest.config(cell["config"]),
-                          traffic=traffic, seed=args.seed, seconds=args.seconds,
-                          trace=bool(args.trace), device=device, t_start=T_START)
+    config = manifest.config(cell["config"])
+    ctx = harness.Context(cell=cell["name"], config=config, traffic=traffic, seed=args.seed,
+                          seconds=args.seconds, trace=bool(args.trace), device=device,
+                          t_start=T_START, backbone=manifest.backbone(config["model_name"]))
     manifest.driver(traffic["driver"]).run(ctx)
 
     found = harness.forbidden_modules()

@@ -1,8 +1,9 @@
 """A run with its timed path broken underneath comes out not correct.
 
 The drivers run whole (set-up, window, check against the reference) on
-the CPU at a tiny size: the configurations cut to 64x64 films of 10
-patients, a 4-stage UNet, batches of 4. The look for a card is skipped.
+the CPU at a tiny size: each configuration cut by its own `cpu_cut`
+(camus-dsnt-al: 64x64 films of 10 patients, a 4-stage UNet), batches of
+4. The look for a card is skipped.
 Each fault is planted in the program and must make `correct` false; the
 same run without it must come out correct."""
 
@@ -25,11 +26,7 @@ def tiny(tmp_path_factory):
     root = tmp / "portbench"
     shutil.copytree(REPO / "portbench", root, ignore=shutil.ignore_patterns("__pycache__"))
     for path in (root / "configs").glob("*.json"):
-        c = json.loads(path.read_text())
-        c["model"]["kernels"] = [[3, 3]] * 4
-        c["model"]["strides"] = [[1, 1]] + [[2, 2]] * 3
-        c["data"].update(size=64, n_patients=10)
-        path.write_text(json.dumps(c))
+        path.write_text(json.dumps(harness.cpu_cut(json.loads(path.read_text()))))
     t = json.loads((root / "traffic" / "train.json").read_text())
     (root / "traffic" / "train.json").write_text(json.dumps({**t, "batch_size": 4}))
     shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")

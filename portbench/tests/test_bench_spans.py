@@ -1,15 +1,18 @@
 """The readers of the program's `cut.` spans (metrics/_spans.py and the
-nine metrics on it).
+ten metrics on it).
 
 On the CPU, a hand-built traced epoch: the device's idle gaps cut at the
 spans' boundaries and charged to the innermost span, the five `idle_*`
 shares and the two remainders summing to `idle.train`, the runtime calls
-counted inside train steps only, and no reading without a step span.
+counted inside train steps only, the device's busy time inside the
+forward's device extents, and no reading without a step span; the trace's
+device extents of annotated ranges kept out of the device's work.
 
 On the card, a traced run of the training cell, with the profiler's raw
 trace kept: one `cut.train.step` a traced step, and every K2 launch
 (`dsnt_moments_kernel`, the row layout) made from inside a
-`cut.train.forward` and started on the device after that span opened.
+`cut.train.forward` and started on the device after that span opened;
+`forward_busy_ms.train` read, within the traced busy time a step.
 """
 
 import json
@@ -97,7 +100,8 @@ def test_feed_readers():
 
 
 @pytest.mark.parametrize("name", IDLE + ["feed_get_ms.train", "feed_starved.train",
-                                         "host_syncs.train", "launches.train"])
+                                         "host_syncs.train", "launches.train",
+                                         "forward_busy_ms.train"])
 def test_no_step_span_reads_nothing(name):
     """A program without the spans (the harness's own spans alone), or no
     trace at all: every reader returns None."""
@@ -105,31 +109,84 @@ def test_no_step_span_reads_nothing(name):
     assert _read(name, None) is None
 
 
-@pytest.mark.card
-def test_k2_launches_inside_forward_on_one_clock(card, tmp_path, monkeypatch):
-    """A traced run of the training cell, the profiler's raw trace copied
-    as it is exported: one `cut.train.step` per traced step, one K2 launch
-    a step, each launch call inside a `cut.train.forward` and its kernel
-    started on the device after that span's start."""
+def test_annotations_stay_apart_from_device_work():
+    """`gpu_user_annotation` events (a host range's device extent) go to
+    `Reading.annotations`, never to `device`: busy time, gaps and breakdown
+    read what they read without them."""
+    def event(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+    work = [event("user_annotation", "portbench.traced", 1000.0, 12e6),
+            event("user_annotation", "cut.train.forward", 1000.0 + 2.5e6, 2.5e6),
+            event("kernel", "k", 1000.0, 1e6), event("gpu_memcpy", "copy", 1000.0 + 3e6, 1e6),
+            event("kernel", "k", 1000.0 + 6e6, 2e6), {"ph": "i", "name": "marker", "ts": 0.0}]
+    extents = [event("gpu_user_annotation", "cut.train.forward", 1000.0 + 2.9e6, 3.5e6),
+               event("gpu_user_annotation", "portbench.traced", 1000.0, 8e6)]
+    plain, kept = (devtrace.Reading(window_s=12.0, kind="train") for _ in range(2))
+    devtrace.add_events(plain, work)
+    devtrace.add_events(kept, work + extents)
+    assert kept.device == plain.device and kept.host == plain.host
+    assert plain.annotations == []
+    assert kept.annotations == [("cut.train.forward", pytest.approx(2.9), pytest.approx(6.4)),
+                                ("portbench.traced", 0.0, 8.0)]
+    assert kept.busy_s() == plain.busy_s() == pytest.approx(4.0)
+    assert kept.gaps() == plain.gaps()
+    assert kept.breakdown() == plain.breakdown()
+
+
+def test_forward_busy_is_the_union_inside_the_forward_extents():
+    """Two steps. The forward's extents [2.5, 5] and [9.5, 10]; kernels
+    that overlap each other and the extents' edges: inside the first,
+    [2.5, 3.5] and [4, 5], 2 s; inside the second, [9.6, 9.8], 0.2 s. The
+    backward's extent and the kernels outside count nothing: 1.1 s a step."""
+    reading = _epoch()
+    reading.host.append(("cut.train.step", 9.2, 11.0))
+    reading.device = [("k", 2.0, 3.0), ("k", 2.8, 3.5), ("k", 4.0, 4.5), ("k", 4.2, 6.0),
+                      ("k", 9.6, 9.7), ("k", 9.65, 9.8), ("k", 10.5, 10.9), ("k", 0.0, 1.0)]
+    reading.annotations = [("cut.train.forward", 2.5, 5.0), ("cut.train.backward", 5.0, 7.0),
+                           ("cut.train.forward", 9.5, 10.0)]
+    assert _read("forward_busy_ms.train", reading) == pytest.approx(1e3 * 2.2 / 2)
+    reading.annotations = reading.annotations[1:2]
+    assert _read("forward_busy_ms.train", reading) is None
+
+
+@pytest.fixture(scope="module")
+def traced_run(tmp_path_factory):
+    """A traced run of the training cell on the card, the profiler's raw
+    trace copied as it is exported: its result line and the trace's
+    complete events."""
+    import torch
     import torch.profiler
 
     from portbench import run
 
-    kept = tmp_path / "raw.json"
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs the kernels on the card")
+    kept = tmp_path_factory.mktemp("trace") / "raw.json"
 
     class Keeping(torch.profiler.profile):
         def export_chrome_trace(self, path):
             super().export_chrome_trace(path)
             shutil.copy(path, kept)
 
-    monkeypatch.setattr(torch.profiler, "profile", Keeping)
-    args = Namespace(workload="camus-dsnt-al.train", seed=2 ** 31 + 7, seconds=1.0, trace=1)
-    result = run.measure(args, MANIFEST)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(torch.profiler, "profile", Keeping)
+        args = Namespace(workload="camus-dsnt-al.train", seed=2 ** 31 + 7, seconds=1.0, trace=1)
+        result = run.measure(args, MANIFEST)
+    events = [e for e in json.loads(kept.read_text())["traceEvents"] if e.get("ph") == "X"]
+    return result, events
+
+
+@pytest.mark.card
+def test_k2_launches_inside_forward_on_one_clock(card, traced_run):
+    """One `cut.train.step` per traced step, one K2 launch a step, each
+    launch call inside a `cut.train.forward` and its kernel started on the
+    device after that span's start."""
+    result, events = traced_run
     assert result["correct"]
     assert {"feed_get_ms.train", "host_syncs.train", "idle_forward.train"} <= set(
         result["metrics"])
 
-    events = [e for e in json.loads(kept.read_text())["traceEvents"] if e.get("ph") == "X"]
     # The host's spans (the device's copies of them, `gpu_user_annotation`, left out).
     host = [e for e in events if e.get("cat") == "user_annotation"]
     steps = [e for e in host if e["name"] == "cut.train.step"]
@@ -147,3 +204,17 @@ def test_k2_launches_inside_forward_on_one_clock(card, tmp_path, monkeypatch):
         span = [(a, b) for a, b in forwards if a <= call["ts"] <= b]
         assert len(span) == 1, call
         assert kernel["ts"] >= span[0][0]
+
+
+@pytest.mark.card
+def test_forward_busy_is_read_on_the_card(card, traced_run):
+    """The forward's device extents are in the trace, and
+    `forward_busy_ms.train` reads a positive number no larger than the
+    traced busy time over the traced steps."""
+    result, events = traced_run
+    steps = sum(e.get("cat") == "user_annotation" and e["name"] == "cut.train.step"
+                for e in events)
+    assert any(e.get("cat") == "gpu_user_annotation" and e["name"] == "cut.train.forward"
+               for e in events)
+    busy_ms = result["metrics"]["forward_busy_ms.train"]["value"]
+    assert 0.0 < busy_ms <= 1e3 * result["device"]["busy_s"] / steps
