@@ -13,7 +13,8 @@ stay f32 between convolutions, which run in `dtype`. On ASPP's pooled 1x1
 map the variance is exactly 0 and the norm gives its bias. Submodules carry
 the flax auto-names (ResNetBackbone_0, DropoutBottleneck_i, ASPP_0, Conv_i,
 GroupNorm_i, head_conv_i, head_out_i), so convert.py maps a JAX parameter
-tree one to one.
+tree one to one. The forward opens the trace spans `cut.model.backbone`,
+`cut.model.aspp` and `cut.model.head` (utils/profiling.py `span`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from contouring_uncertainty_torch.models.unet import Conv, InstanceNorm, channel_dropout
+from contouring_uncertainty_torch.utils.profiling import span
 
 
 def group_norm(channels: int) -> InstanceNorm:
@@ -188,13 +190,18 @@ class DeepLabV3(nn.Module):
             raise ValueError(f"DeepLabV3 has no mode {mode!r}")
         h, w = x.shape[-2:]
         out_dtype = torch.promote_types(torch.float32, self.dtype)
-        feats = self.ResNetBackbone_0(x.to(self.dtype), deterministic, generator)
-        aspp = self.ASPP_0(feats)
+        with span("cut.model.backbone"):
+            feats = self.ResNetBackbone_0(x.to(self.dtype), deterministic, generator)
+        with span("cut.model.aspp"):
+            aspp = self.ASPP_0(feats)
         outs = []
-        for i in range(len(self.head_sizes)):
-            head = F.relu(getattr(self, f"GroupNorm_{i}")(getattr(self, f"head_conv_{i}")(aspp)))
-            head = getattr(self, f"head_out_{i}")(head).to(out_dtype)
-            outs.append(F.interpolate(head, size=(h, w), mode="bilinear", align_corners=False))
+        with span("cut.model.head"):
+            for i in range(len(self.head_sizes)):
+                head = getattr(self, f"head_conv_{i}")(aspp)
+                head = F.relu(getattr(self, f"GroupNorm_{i}")(head))
+                head = getattr(self, f"head_out_{i}")(head).to(out_dtype)
+                outs.append(F.interpolate(head, size=(h, w), mode="bilinear",
+                                          align_corners=False))
         result = {"out": outs[0]}
         if self.ssn_rank > 0:
             result["ssn"] = outs[1:]

@@ -23,11 +23,19 @@ Counterpart of contouring_uncertainty_tpu/utils/profiling.py:
     model, its head and the NLL), `cut.train.backward` (`loss.backward()`;
     its ops run on the autograd engine's thread, inside this span's time)
     and `cut.train.update` (the gradients' all-reduce, the optimizer's
-    update).
+    update);
+  - `cut.model.backbone`, `cut.model.aspp`, `cut.model.head`:
+    `models/deeplabv3.py DeepLabV3.forward`'s ResNet backbone, its ASPP,
+    and its heads (each head's 3x3 conv, norm, 1x1 conv, cast and bilinear
+    upsampling), in turn; in training they open inside
+    `cut.train.forward`. The UNet opens none. The profiler gives a span a
+    device extent over the kernels launched while it is the innermost
+    open span, so these take the model's kernels out of
+    `cut.train.forward`'s extent.
 
   A profiler records the thread that started it: the feed's worker thread
-  is not seen. The serving path has no spans. A span changes no
-  arithmetic.
+  is not seen. The serving path opens only the model's spans, where its
+  model is a DeepLabV3. A span changes no arithmetic.
 
 The JAX `device_trace` is, here, `torch.profiler` around the call, which
 these spans annotate.
