@@ -284,7 +284,26 @@ result line):
    steps, `epilogue_ledger`): in every train step one forward and one
    backward launch per ConvLayer call on the kernel route (30 of each in a
    unet2 step, none in bf16); the kernels line carries each path's
-   launches per step and [19]'s times.
+   launches per step and [19]'s times. DeepLabV3's norm chains take the
+   same count (`epilogue_ledger` adds its chains on the kernel route and
+   the norm tail's launches, [20]).
+20. DeepLabV3's norm chains (models/deeplabv3.py -> ops/conv_epilogue.py
+   -> csrc/conv_epilogue.cu), before the kernels line: at each plane shape
+   of DeepLabV3-ResNet50 at 256^2, batch 32, the three chains: A (conv
+   epilogue, ReLU), P (conv epilogue, no activation) and T (the norm
+   tail: norm, channel dropout at 0.1 after it, residual add, ReLU), the
+   forward and backward kernels and the plain f32 chain with autograd on
+   the same f32 inputs, each held to an f64 evaluation from those inputs
+   on its own side of every kink (y, the input's and the parameters'
+   gradients, and the residual's for T), the kernels' error at most
+   EPILOGUE_BAR times the plain chain's (or one f32 rounding); each timed
+   (CUDA graphs) beside its byte bound (A and P 8 and 12 bytes an
+   element, T 12 and 20) and the plain chain; a whole step's 60 norms
+   summed. Then a full-width DeepLabV3's training forward and backward at
+   batch 32: one forward and one backward launch per norm (44 conv
+   epilogue, 16 norm tail) in every step, and its output, loss and
+   gradients beside the op-by-op model's (`norm_route` forced to "plain"),
+   printed.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -414,6 +433,20 @@ EPILOGUE_BATCH = 32
 UNET2_LAYERS = 2 * (2 * 8 - 1)  # ConvLayers of the 8-stage UNet: 2 per ConvBlock
 EPILOGUE_BAR = 2.0
 EPILOGUE_FLOOR = 2.0 ** -24
+
+# DeepLabV3-ResNet50's norm chains ([20]) at 256^2: (chain, channels, plane
+# side, chains of that shape in a step). A: conv -> norm -> ReLU (the stem,
+# each bottleneck's first two, ASPP's five branches and projection, the
+# head), P: a stage's projection, conv -> norm; T: a bottleneck's last norm,
+# channel dropout at DEEPLAB_DROPOUT, the residual add and the ReLU.
+DEEPLAB_CHAINS = [("A", 64, 128, 1), ("A", 64, 64, 6), ("A", 128, 64, 1), ("A", 128, 32, 7),
+                  ("A", 256, 32, 1), ("A", 256, 16, 17), ("A", 512, 16, 6), ("A", 256, 1, 1),
+                  ("P", 256, 64, 1), ("P", 512, 32, 1), ("P", 1024, 16, 1), ("P", 2048, 16, 1),
+                  ("T", 256, 64, 3), ("T", 512, 32, 4), ("T", 1024, 16, 6), ("T", 2048, 16, 3)]
+DEEPLAB_NORMS = 60  # 1 + 3 x 16 bottlenecks + 4 projections + 6 in ASPP + 1 in the head
+DEEPLAB_DROPOUT = 0.1
+# Bytes an element each kernel must move (forward, backward).
+CHAIN_BYTES = {"A": (8.0, 12.0), "P": (8.0, 12.0), "T": (12.0, 20.0)}
 
 
 def card_line() -> str:
@@ -1067,33 +1100,64 @@ def launch_ledger():
             setattr(cls, name, fn)
 
 
-@contextmanager
-def epilogue_ledger():
-    """Per train step (`Trainer.train_step`, wrapped while the block runs):
-    the ConvLayer epilogue kernels' (forward, backward) launches and the
-    ConvLayer calls on the kernel route (`epilogue_route`) in it."""
-    from contouring_uncertainty_torch.models.unet import ConvLayer
+def norm_launches():
+    """(forward, backward) launches of the norm chain kernels so far: the
+    conv epilogue's and the norm tail's."""
     from contouring_uncertainty_torch.ops import conv_epilogue as ce
-    from contouring_uncertainty_torch.train import Trainer
 
-    steps, routed = [], [0]
-    step_fn, forward_fn = Trainer.train_step, ConvLayer.forward
+    return (ce.fwd_launches + ce.tail_fwd_launches, ce.bwd_launches + ce.tail_bwd_launches)
+
+
+@contextmanager
+def routed_chains():
+    """While the block runs, the norm chains taking the kernel route: the
+    ConvLayer calls (`epilogue_route`) and DeepLabV3's chains
+    (`norm_route`). Yields a one-element list, the count so far."""
+    from contouring_uncertainty_torch.models import deeplabv3
+    from contouring_uncertainty_torch.models.unet import ConvLayer
+
+    routed = [0]
+    forward_fn, route_fn = ConvLayer.forward, deeplabv3.norm_route
 
     def forward(self, x, *args, **kwargs):
         routed[0] += self.epilogue_route(x.device) == "kernel"
         return forward_fn(self, x, *args, **kwargs)
 
+    def norm_route(*args):
+        route = route_fn(*args)
+        routed[0] += route == "kernel"
+        return route
+
+    ConvLayer.forward, deeplabv3.norm_route = forward, norm_route
+    try:
+        yield routed
+    finally:
+        ConvLayer.forward, deeplabv3.norm_route = forward_fn, route_fn
+
+
+@contextmanager
+def epilogue_ledger():
+    """Per train step (`Trainer.train_step`, wrapped while the block runs):
+    the norm chain kernels' (forward, backward) launches (`norm_launches`)
+    and the chains on the kernel route (`routed_chains`) in it."""
+    from contouring_uncertainty_torch.train import Trainer
+
+    steps = []
+    step_fn = Trainer.train_step
+
     def train_step(self, *args, **kwargs):
-        before, routed[0] = (ce.fwd_launches, ce.bwd_launches), 0
+        before, routed[0] = norm_launches(), 0
         out = step_fn(self, *args, **kwargs)
-        steps.append((ce.fwd_launches - before[0], ce.bwd_launches - before[1], routed[0]))
+        after = norm_launches()
+        steps.append((after[0] - before[0], after[1] - before[1], routed[0]))
         return out
 
-    Trainer.train_step, ConvLayer.forward = train_step, forward
+    Trainer.train_step = train_step
     try:
-        yield steps
+        with routed_chains() as routed:
+            yield steps
     finally:
-        Trainer.train_step, ConvLayer.forward = step_fn, forward_fn
+        Trainer.train_step = step_fn
 
 
 def epilogue_per_step(label: str, steps: list, layers=None) -> dict:
@@ -4511,6 +4575,215 @@ def epilogue_kernel_entry(epilogue: dict, paths: dict) -> dict:
             "step": epilogue["step"]}
 
 
+def norm_chain_block(chain: str, channels: int, side: int, seed: int) -> dict:
+    """One DeepLabV3 norm chain at one plane shape at EPILOGUE_BATCH: the
+    kernels and the plain f32 chain against f64, and their times."""
+    import torch
+    import torch.nn.functional as F
+
+    from contouring_uncertainty_torch.models.unet import InstanceNorm, channel_keep
+    from contouring_uncertainty_torch.ops import conv_epilogue as ce
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (EPILOGUE_BATCH, channels, side, side)
+    randn = lambda *size: torch.randn(*size, generator=gen, device="cuda")
+    a = 0.4 + 1.3 * randn(*shape)
+    w, b = 1.0 + 0.3 * randn(channels), 0.5 * randn(channels)
+    r = 0.7 * randn(*shape) if chain == "T" else None
+    gy = randn(*shape)
+    keep = channel_keep(a, DEEPLAB_DROPOUT, gen) if chain == "T" else None
+    kp = 1.0 - DEEPLAB_DROPOUT
+    act = {"A": "relu", "P": None}.get(chain)
+
+    norm = InstanceNorm(channels).cuda()
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+    al = a.detach().requires_grad_()
+    rl = None if r is None else r.detach().requires_grad_()
+
+    def plain_forward():
+        z = norm(al)
+        if chain == "T":
+            z = torch.where(keep[:, :, None, None], z / kp, torch.zeros((), device="cuda"))
+            return F.relu(z + rl), [al, norm.weight, norm.bias, rl]
+        return (F.relu(z) if act else z), [al, norm.weight, norm.bias]
+
+    def plain_step():
+        y_p, leaves = plain_forward()
+        return torch.autograd.grad(y_p, leaves, gy)
+
+    if chain == "T":
+        fwd = lambda: ce.tail_cuda(a, keep, kp, w, b, r)
+        y, stats = fwd()
+        bwd = lambda: ce.tail_backward_cuda(a, keep, kp, w, b, stats, y, gy)
+        got = (y, *bwd())
+    else:
+        fwd = lambda: ce.epilogue_cuda(a, None, None, 1.0, w, b, act)
+        y, stats = fwd()
+        bwd = lambda: ce.epilogue_backward_cuda(a, None, None, 1.0, w, b, stats, gy,
+                                                activation=act)
+        dx, _, dw, db = bwd()
+        got = (y, dx, dw, db)
+    y_p, leaves = plain_forward()
+    g_p = torch.autograd.grad(y_p, leaves, gy)
+    plain = (y_p.detach(), *g_p)
+    del y_p, leaves  # no graph of an eager step outlives it into the captured ones
+    a64, w64, b64, gy64 = (t.double() for t in (a, w, b, gy))
+    names = ("y", "da", "d weight", "d bias", "dr")
+    err = {}
+    for label, out in (("kernel", got), ("plain", plain)):
+        ys = out[0]
+        if chain == "T":
+            y64, st64 = ce.tail_plain(a64, keep, kp, w64, b64, r.double())
+            da, dw, db, dr = ce.tail_backward_plain(a64, keep, kp, w64, b64, st64, ys.double(),
+                                                    gy64)
+            ref = (y64, da, dw, db, dr)
+        else:
+            y64, st64 = ce.epilogue_plain(a64, None, None, 1.0, w64, b64, act)
+            dx, _, dw, db = ce.epilogue_backward_plain(a64, None, None, 1.0, w64, b64, st64,
+                                                       gy64, sides=ys > 0, activation=act)
+            ref = (y64, dx, dw, db)
+        # Both outputs in `names` order: y, then a's, the weight's, the bias's
+        # (and r's) gradients.
+        err[label] = {n: float((g.double() - rf).abs().max()) / max(float(rf.abs().max()), 1e-30)
+                      for n, g, rf in zip(names, out, ref)}
+        del y64, st64, ref
+    share = {k: err["kernel"][k] / max(err["plain"][k], EPILOGUE_FLOOR) for k in err["kernel"]}
+    elems = a.numel()
+    fwd_bytes, bwd_bytes = CHAIN_BYTES[chain]
+    row = {
+        "chain": chain, "shape": list(shape), "errors": err, "of_plain": share,
+        "fwd_ms": cuda_ms(fwd), "bwd_ms": cuda_ms(bwd),
+        "fwd_bound_ms": fwd_bytes * elems / HBM_BYTES_PER_S * 1e3,
+        "bwd_bound_ms": bwd_bytes * elems / HBM_BYTES_PER_S * 1e3,
+        "plain_fwd_ms": cuda_ms(lambda: plain_forward()[0]),
+        "plain_step_ms": cuda_ms(plain_step),
+    }
+    row["plain_bwd_ms"] = row["plain_step_ms"] - row["plain_fwd_ms"]
+    if side == 1:  # ASPP's pooled planes: exactly the norm's bias, through the activation
+        want = F.relu(b)[None, :, None, None].expand_as(y) if act else \
+            b[None, :, None, None].expand_as(y)
+        if not torch.equal(y, want):
+            raise AssertionError(f"norm chain {chain} on 1x1 planes: not the norm's bias")
+    if max(share.values()) > EPILOGUE_BAR:
+        raise AssertionError(f"norm chain {chain} kernels at {shape}: errors {err} exceed "
+                             f"{EPILOGUE_BAR}x the plain chain's: {share}")
+    return row
+
+
+def deeplab_step_launches(steps: int = 2) -> dict:
+    """A full-width DeepLabV3 (base 64, layers [3, 4, 6, 3], dropout 0.1)
+    training forward and backward at EPILOGUE_BATCH x 256^2, `steps` times:
+    one forward and one backward kernel per norm in each (44 conv
+    epilogue, 16 norm tail), every chain on the kernel route; then its
+    output, loss and gradients beside the op-by-op model's on the same
+    weights, input and draws (printed, not gated: the portbench cell holds
+    the whole step to its reference)."""
+    import torch
+
+    from contouring_uncertainty_torch.models import deeplabv3
+    from contouring_uncertainty_torch.ops import conv_epilogue as ce
+
+    model = deeplabv3.DeepLabV3((1, 256, 256), (21, 256, 256), dropout=DEEPLAB_DROPOUT)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.cuda()
+    x = torch.randn(EPILOGUE_BATCH, 1, 256, 256, generator=torch.Generator().manual_seed(1))
+    x = x.cuda()
+    weight = torch.linspace(-1, 1, EPILOGUE_BATCH * 21 * 256 * 256, device="cuda")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        out = model(x, deterministic=False, generator=gen)["out"]
+        loss = (out.reshape(-1) * weight).sum() / weight.numel()
+        loss.backward()
+        return (out.detach(), float(loss.detach()),
+                {n: p.grad.clone() for n, p in model.named_parameters()})
+
+    counts = []
+    for _ in range(steps):
+        with routed_chains() as routed:
+            before = (ce.fwd_launches, ce.bwd_launches, ce.tail_fwd_launches,
+                      ce.tail_bwd_launches)
+            out, loss, grads = step()
+            after = (ce.fwd_launches, ce.bwd_launches, ce.tail_fwd_launches,
+                     ce.tail_bwd_launches)
+        counts.append((*(q - p for p, q in zip(before, after)), routed[0]))
+    if set(counts) != {(44, 44, 16, 16, DEEPLAB_NORMS)}:
+        raise AssertionError(f"DeepLabV3 train step: (epilogue forward, backward, tail forward, "
+                             f"backward, chains on the kernel route) {counts}, expected "
+                             f"(44, 44, 16, 16, {DEEPLAB_NORMS}) in every step")
+    route_fn = deeplabv3.norm_route
+    deeplabv3.norm_route = lambda *args: "plain"
+    try:
+        out_p, loss_p, grads_p = step()
+    finally:
+        deeplabv3.norm_route = route_fn
+    leaf = {n: float((grads[n].norm() - grads_p[n].norm()).abs() / grads_p[n].norm().clamp_min(
+        1e-30)) for n in grads}
+    worst = max(leaf, key=leaf.get)
+    row = {"launches_per_step": {"epilogue": [44, 44], "tail": [16, 16]},
+           "steps": steps, "out_rel": float((out - out_p).abs().max() / out_p.abs().max()),
+           "loss_rel": abs(loss - loss_p) / abs(loss_p), "worst_leaf": [worst, leaf[worst]]}
+    if not all(np.isfinite(v) for v in (row["out_rel"], row["loss_rel"], leaf[worst])):
+        raise AssertionError(f"DeepLabV3 fused against op by op: not finite: {row}")
+    return row
+
+
+def norm_chain_phase() -> dict:
+    """[20]: every chain of DEEPLAB_CHAINS (norm_chain_block), a step's 60
+    norms summed, and the launches of a full-width DeepLabV3 train step
+    (deeplab_step_launches)."""
+    import torch
+
+    rows = []
+    for i, (chain, channels, side, count) in enumerate(DEEPLAB_CHAINS):
+        row = norm_chain_block(chain, channels, side, seed=200 + i)
+        row["count"] = count
+        rows.append(row)
+        e, r = row["errors"], row["of_plain"]
+        print(f"    {chain} {tuple(row['shape'])} x{count}: forward {row['fwd_ms']:.4f} ms (bound "
+              f"{row['fwd_bound_ms']:.4f}, {row['fwd_bound_ms'] / row['fwd_ms']:.0%}), backward "
+              f"{row['bwd_ms']:.4f} ms (bound {row['bwd_bound_ms']:.4f}, "
+              f"{row['bwd_bound_ms'] / row['bwd_ms']:.0%}); plain chain "
+              f"{row['plain_fwd_ms']:.4f} + {row['plain_bwd_ms']:.4f} ms")
+        print("      error vs f64, kernel [plain]: " + ", ".join(
+            f"{k} {e['kernel'][k]:.2e} [{e['plain'][k]:.2e}]" for k in e["kernel"])
+            + f"; worst share {max(r.values()):.2f} of the plain chain's (bar {EPILOGUE_BAR})")
+        torch.cuda.empty_cache()
+    keys = ("fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms", "plain_fwd_ms", "plain_bwd_ms")
+    step = {}
+    for chain in ("A", "P", "T", None):
+        mine = [row for row in rows if chain in (None, row["chain"])]
+        step[chain or "all"] = {k: sum(row["count"] * row[k] for row in mine) for k in keys}
+    for label, t in step.items():
+        print(f"    a step's {label} chains at batch {EPILOGUE_BATCH}: kernels "
+              f"{t['fwd_ms']:.3f} + {t['bwd_ms']:.3f} ms (bound {t['fwd_bound_ms']:.3f} + "
+              f"{t['bwd_bound_ms']:.3f} ms, "
+              f"{(t['fwd_bound_ms'] + t['bwd_bound_ms']) / (t['fwd_ms'] + t['bwd_ms']):.0%}), "
+              f"plain chain {t['plain_fwd_ms']:.3f} + {t['plain_bwd_ms']:.3f} ms")
+    launches = deeplab_step_launches()
+    print(f"    DeepLabV3 train step (batch {EPILOGUE_BATCH}, 256^2, dropout {DEEPLAB_DROPOUT}): "
+          f"launches per step {launches['launches_per_step']} ({DEEPLAB_NORMS} norms) over "
+          f"{launches['steps']} steps; against the op-by-op model: output "
+          f"{launches['out_rel']:.2e}, loss {launches['loss_rel']:.2e}, worst leaf "
+          f"{launches['worst_leaf'][0]} {launches['worst_leaf'][1]:.2e}")
+    return {"blocks": rows, "step": step, "train_step": launches}
+
+
+def norm_chain_kernel_entry(chains: dict) -> dict:
+    """The kernels line's entry of DeepLabV3's norm chain kernels: [20]'s
+    launches per train step, times, bounds and the plain chain's per shape
+    and for a step's 60 norms."""
+    keys = ("fwd_ms", "fwd_bound_ms", "bwd_ms", "bwd_bound_ms", "plain_fwd_ms", "plain_bwd_ms")
+    return {"name": "norm chains (DeepLabV3: conv epilogue with ReLU or none, norm tail)",
+            "training_launches_per_step": chains["train_step"]["launches_per_step"],
+            "shapes": [{"chain": row["chain"], "shape": row["shape"], "count": row["count"],
+                        **{k: row[k] for k in keys}} for row in chains["blocks"]],
+            "step": chains["step"]}
+
+
 def main(argv) -> int:
     import torch
 
@@ -5192,6 +5465,10 @@ def main(argv) -> int:
                 for r in multi["gloo"]}}
     kernels.append(epilogue_kernel_entry(epilogue, paths))
     print(f"    launches (forward, backward) per train step: {paths}")
+    phase_start[20] = time.perf_counter()
+    print(f"[20] DeepLabV3's norm chains at its plane shapes (batch {EPILOGUE_BATCH}) vs the "
+          f"plain f32 chain and f64; launches per DeepLabV3 train step")
+    kernels.append(norm_chain_kernel_entry(norm_chain_phase()))
 
     t_end = time.perf_counter()
     starts = sorted(phase_start.items())

@@ -1,5 +1,9 @@
-// ConvLayer epilogue: everything between a ConvLayer's convolution and its
-// output (models/unet.py ConvLayer), forward and backward, one kernel each:
+// Norm chains: everything between a convolution and the next one's input,
+// forward and backward, one kernel each. Two kernel pairs share the plane
+// and cluster machinery below.
+//
+// The conv epilogue (`conv_epilogue_fwd/_bwd`): models/unet.py ConvLayer's
+// chain, and DeepLabV3's conv -> norm [-> ReLU] (models/deeplabv3.py):
 //
 //   v    = x + conv_bias, then v / keep_prob where the channel is kept and 0
 //          where it is dropped (channel dropout, only where a keep mask is
@@ -7,29 +11,44 @@
 //   mean = sum(v) / HW, var = max(sum(v^2) / HW - mean^2, 0) per (n, c)
 //          plane, in f32 (the program's single-pass formula)
 //   rstd = 1 / sqrt(var + 1e-5), xhat = (v - mean) * rstd
-//   z    = xhat * weight[c] + bias[c], y = z > 0 ? z : 0.01 * z
+//   z    = xhat * weight[c] + bias[c], y = act(z)
 //
-// x is the convolution's output without its bias. The backward is the
-// closed form of the same chain: gz = gy * (z > 0 ? 1 : 0.01), the plane's
-// sums S1 = sum(gz) and S2 = sum(gz * xhat), then
+// act is a template parameter: LeakyReLU(0.01) (the UNet's ConvLayer),
+// ReLU, or none. x is the convolution's output without its bias. The
+// backward is the closed form of the same chain: gz = gy * act'(z), the
+// plane's sums S1 = sum(gz) and S2 = sum(gz * xhat), then
 //   dv = rstd * weight * (gz - S1 / HW - xhat * S2 / HW)
 // (the S2 term only where var was not clamped: the clamp passes no
 // gradient), dx = dv / keep_prob where kept, 0 where dropped. It also
 // writes each plane's S2 and S1 (the norm's weight and bias gradients
-// before the sum over n) and the sum of its dx (the conv bias's gradient
-// before the sum over n), the latter per member of the plane's cluster.
+// before the sum over n) and, where there is a conv bias, the sum of its
+// dx (the conv bias's gradient before the sum over n), the latter per
+// member of the plane's cluster.
 //
-// It replaces no TPU kernel: the JAX package leaves this chain to XLA,
-// which fuses it on the TPU. On the card the port ran it as about ten
-// PyTorch launches a layer forward and twenty backward, each a pass over
+// The norm tail (`norm_tail_fwd/_bwd`): a DeepLabV3 bottleneck's last norm,
+// its channel dropout after the norm, the residual add and the ReLU:
+//
+//   z = xhat * weight[c] + bias[c] (the statistics of a, as above)
+//   y = relu(z / keep_prob (kept) or 0 (dropped) + r)
+//
+// a is the convolution's output, r the residual. Backward: gz = gy where
+// y > 0, else 0, written out as r's gradient; gn = gz / keep_prob (kept)
+// or 0 (dropped); then the norm's closed form of gn as above (da = dv), and
+// each plane's S2 and S1 of gn. It reads the saved y, which the next
+// convolution keeps alive anyway, so the mask costs no memory.
+//
+// They replace no TPU kernel: the JAX package leaves these chains to XLA,
+// which fuses them on the TPU. On the card the port ran them as about ten
+// PyTorch launches a norm forward and twenty backward, each a pass over
 // the activations (PERF.md has the times).
 //
-// What bounds it on an H100: device memory. The arithmetic is a few
-// operations per element, far below the card's ridge point. The forward
-// must read x once and write y once (8 bytes an element), the backward read
-// x and gy once and write dx once (12 bytes); at batch 32 the 30 ConvLayers
-// of unet2 hold 524 M elements, 10.5 GB for both, 3.1 ms at 3.35 TB/s. The
-// design keeps every plane on chip between the statistics and their use:
+// What bounds them on an H100: device memory. The arithmetic is a few
+// operations per element, far below the card's ridge point. The epilogue's
+// forward must read x once and write y once (8 bytes an element), its
+// backward read x and gy once and write dx once (12 bytes); the tail's
+// forward reads a and r and writes y (12), its backward reads a, y and gy
+// and writes da and r's gradient (20). The design keeps every plane on
+// chip between the statistics and their use:
 //
 // - A plane lives in registers. Each thread holds up to 16 floats of one
 //   plane (four 16-byte vectors where HW is a multiple of 4), loaded
@@ -49,8 +68,8 @@
 // Every sum is f32, carried with its rounding error (`Acc`): a per-thread
 // run of at most 16 terms, a tree of shuffles, then the warps' and the
 // cluster's partials in order. The normalisation and the kink test use the
-// same rounded operations (`normed`, `affine`) in both kernels, so the
-// backward sees the forward's side of every kink.
+// same rounded operations (`normed`, `affine`) in both kernels of a pair,
+// so the backward sees the forward's side of every kink.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,6 +85,9 @@ constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr float kSlope = 0.01f;
 constexpr float kEps = 1e-5f;
 
+// The conv epilogue's activation (its template parameter).
+enum Act { kLeaky = 0, kRelu = 1, kNone = 2 };
+
 struct Args {
   const float* x;                 // (planes, hw): the convolution's output without bias
   const float* conv_bias;         // (channels,) or null
@@ -75,13 +97,15 @@ struct Args {
   const float* gy;                // backward: (planes, hw) incoming gradient
   float* out;                     // forward y, backward dx: (planes, hw)
   float* stats;                   // (3, planes): mean, rstd, 1 where var was not clamped
-  float* part;                    // backward: (2 + cluster, planes): S2, S1, sum(dx) per rank
+  float* part;                    // backward: (2 [+ cluster], planes): S2, S1[, sum(dx) per rank]
   long long planes;
   int channels;
   int hw;
   int n_vec;                      // vectors of VEC floats in a plane
   int group;                      // threads of a plane in each block
   float keep_prob;
+  const float* res;               // tail: forward the residual r, backward the saved y
+  float* out2;                    // tail backward: r's gradient
 };
 
 template <int VEC> struct Vec;
@@ -118,6 +142,27 @@ __device__ __forceinline__ float normed(float v, float mean, float rstd) {
 
 __device__ __forceinline__ float affine(float xhat, float w, float b) {
   return __fmaf_rn(xhat, w, b);
+}
+
+template <int ACT>
+__device__ __forceinline__ float activate(float z) {
+  if (ACT == kLeaky) return z > 0.0f ? z : __fmul_rn(z, kSlope);
+  if (ACT == kRelu) return z > 0.0f ? z : 0.0f;
+  return z;
+}
+
+// gy times the activation's slope at z.
+template <int ACT>
+__device__ __forceinline__ float activate_grad(float gy, float z) {
+  if (ACT == kLeaky) return z > 0.0f ? gy : __fmul_rn(gy, kSlope);
+  if (ACT == kRelu) return z > 0.0f ? gy : 0.0f;
+  return gy;
+}
+
+// The tail's dropout after the norm: z / keep_prob (kept) or 0 (dropped).
+__device__ __forceinline__ float post_dropped(float z, bool has_keep, bool kept, float keep_prob) {
+  if (!has_keep) return z;
+  return kept ? __fdiv_rn(z, keep_prob) : 0.0f;
 }
 
 // An f32 sum carried with its rounding error: each addition's error is
@@ -244,7 +289,7 @@ __device__ __forceinline__ Place place(const Args& a) {
   return p;
 }
 
-template <int VEC, int V>
+template <int ACT, int VEC, int V>
 __global__ void __launch_bounds__(kThreads, 2) conv_epilogue_fwd_kernel(const Args a) {
   __shared__ float warp_part[kWarps][4];
   __shared__ float part[4];
@@ -291,8 +336,7 @@ __global__ void __launch_bounds__(kThreads, 2) conv_epilogue_fwd_kernel(const Ar
     if (p.live && vi < a.n_vec) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        const float z = affine(normed(f[k][j], mean, rstd), w, b);
-        f[k][j] = z > 0.0f ? z : __fmul_rn(z, kSlope);
+        f[k][j] = activate<ACT>(affine(normed(f[k][j], mean, rstd), w, b));
       }
       Vec<VEC>::store(dst, vi, f[k]);
     }
@@ -305,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, 2) conv_epilogue_fwd_kernel(const Ar
   if (p.blocks > 1) cg::this_cluster().sync();  // no block leaves while another reads its shared memory
 }
 
-template <int VEC, int V>
+template <int ACT, int VEC, int V>
 __global__ void __launch_bounds__(kThreads, 2) conv_epilogue_bwd_kernel(const Args a) {
   __shared__ float warp_part[kWarps][4];
   __shared__ float warp_part_dx[kWarps][2];
@@ -340,8 +384,7 @@ __global__ void __launch_bounds__(kThreads, 2) conv_epilogue_bwd_kernel(const Ar
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         h[k][j] = normed(dropped(h[k][j], cb, has_keep, kept, a.keep_prob), mean, rstd);
-        const float z = affine(h[k][j], w, b);
-        if (!(z > 0.0f)) g[k][j] = __fmul_rn(g[k][j], kSlope);
+        g[k][j] = activate_grad<ACT>(g[k][j], affine(h[k][j], w, b));
         s[0].add(g[k][j]);
         s[1].add_product(g[k][j], h[k][j]);
       }
@@ -365,24 +408,157 @@ __global__ void __launch_bounds__(kThreads, 2) conv_epilogue_bwd_kernel(const Ar
         float d = rw * (g[k][j] - mean_gz - h[k][j] * mean_gzh);
         if (has_keep) d = kept ? __fdiv_rn(d, a.keep_prob) : 0.0f;
         g[k][j] = d;
-        sdx[0].add(d);
+        if (a.conv_bias != nullptr) sdx[0].add(d);
       }
       Vec<VEC>::store(dst, vi, g[k]);
     }
   }
-  group_sum(sdx, a.group, warp_part_dx);
+  if (a.conv_bias != nullptr) group_sum(sdx, a.group, warp_part_dx);
   if (p.live && p.t == 0) {
     if (p.rank == 0) {
       a.part[p.plane] = s[1].value();
       a.part[a.planes + p.plane] = s[0].value();
     }
-    a.part[(2 + p.rank) * a.planes + p.plane] = sdx[0].value();
+    if (a.conv_bias != nullptr) a.part[(2 + p.rank) * a.planes + p.plane] = sdx[0].value();
   }
   if (p.blocks > 1) cg::this_cluster().sync();  // no block leaves while another reads its shared memory
 }
 
 template <int VEC, int V>
-int launch(int backward, const Args& a, int cluster, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 2) norm_tail_fwd_kernel(const Args a) {
+  __shared__ float warp_part[kWarps][4];
+  __shared__ float part[4];
+  __shared__ float total[4];
+  const Place p = place(a);
+  const bool has_keep = a.keep != nullptr;
+  const bool kept = !has_keep || (p.live && a.keep[p.plane] != 0);
+  const long long off = p.plane * a.hw;
+  const int first = p.rank * a.group * V + p.t;
+
+  float f[V][VEC];  // a, then y
+  float r[V][VEC];  // the residual
+  Acc s[2];         // sum a, sum a^2
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int vi = first + k * a.group;
+    if (p.live && vi < a.n_vec) {
+      Vec<VEC>::load(a.x + off, vi, f[k]);
+      Vec<VEC>::load(a.res + off, vi, r[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (p.live && first + k * a.group < a.n_vec) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        s[0].add(f[k][j]);
+        s[1].add_product(f[k][j], f[k][j]);
+      }
+    }
+  }
+  group_sum(s, a.group, warp_part);
+  if (p.blocks > 1) cluster_sum(s, part, total);
+
+  const float n = static_cast<float>(a.hw);
+  const float mean = __fdiv_rn(s[0].value(), n);
+  const float raw = __fsub_rn(__fdiv_rn(s[1].value(), n), __fmul_rn(mean, mean));
+  const float var = raw < 0.0f ? 0.0f : raw;
+  const float rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(var, kEps)));
+  const float w = a.weight[p.c];
+  const float b = a.bias[p.c];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int vi = first + k * a.group;
+    if (p.live && vi < a.n_vec) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float z = affine(normed(f[k][j], mean, rstd), w, b);
+        f[k][j] = activate<kRelu>(__fadd_rn(post_dropped(z, has_keep, kept, a.keep_prob), r[k][j]));
+      }
+      Vec<VEC>::store(a.out + off, vi, f[k]);
+    }
+  }
+  if (p.live && p.t == 0 && p.rank == 0) {
+    a.stats[p.plane] = mean;
+    a.stats[a.planes + p.plane] = rstd;
+    a.stats[2 * a.planes + p.plane] = raw < 0.0f ? 0.0f : 1.0f;
+  }
+  if (p.blocks > 1) cg::this_cluster().sync();  // no block leaves while another reads its shared memory
+}
+
+template <int VEC, int V>
+__global__ void __launch_bounds__(kThreads, 2) norm_tail_bwd_kernel(const Args a) {
+  __shared__ float warp_part[kWarps][4];
+  __shared__ float part[4];
+  __shared__ float total[4];
+  const Place p = place(a);
+  const bool has_keep = a.keep != nullptr;
+  const bool kept = !has_keep || (p.live && a.keep[p.plane] != 0);
+  const float mean = p.live ? a.stats[p.plane] : 0.0f;
+  const float rstd = p.live ? a.stats[a.planes + p.plane] : 0.0f;
+  const bool full = p.live && a.stats[2 * a.planes + p.plane] != 0.0f;
+  const float w = a.weight[p.c];
+  const long long off = p.plane * a.hw;
+  const int first = p.rank * a.group * V + p.t;
+
+  float h[V][VEC];  // a, then xhat (a dropped plane reads no a)
+  float g[V][VEC];  // gy, then gz (stored as r's gradient), then gn, then da
+  Acc s[2];         // sum gn, sum gn * xhat
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int vi = first + k * a.group;
+    if (p.live && vi < a.n_vec) {
+      if (kept) Vec<VEC>::load(a.x + off, vi, h[k]);
+      Vec<VEC>::load(a.gy + off, vi, g[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int vi = first + k * a.group;
+    if (p.live && vi < a.n_vec) {
+      float y[VEC];
+      Vec<VEC>::load(a.res + off, vi, y);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) g[k][j] = activate_grad<kRelu>(g[k][j], y[j]);
+      Vec<VEC>::store(a.out2 + off, vi, g[k]);
+      if (kept) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          g[k][j] = post_dropped(g[k][j], has_keep, kept, a.keep_prob);
+          h[k][j] = normed(h[k][j], mean, rstd);
+          s[0].add(g[k][j]);
+          s[1].add_product(g[k][j], h[k][j]);
+        }
+      }
+    }
+  }
+  group_sum(s, a.group, warp_part);
+  if (p.blocks > 1) cluster_sum(s, part, total);
+
+  const float n = static_cast<float>(a.hw);
+  const float mean_gn = __fdiv_rn(s[0].value(), n);
+  const float mean_gnh = full ? __fdiv_rn(s[1].value(), n) : 0.0f;
+  const float rw = __fmul_rn(rstd, w);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int vi = first + k * a.group;
+    if (p.live && vi < a.n_vec) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        g[k][j] = kept ? rw * (g[k][j] - mean_gn - h[k][j] * mean_gnh) : 0.0f;
+      }
+      Vec<VEC>::store(a.out + off, vi, g[k]);
+    }
+  }
+  if (p.live && p.t == 0 && p.rank == 0) {
+    a.part[p.plane] = s[1].value();
+    a.part[a.planes + p.plane] = s[0].value();
+  }
+  if (p.blocks > 1) cg::this_cluster().sync();  // no block leaves while another reads its shared memory
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const Args& a, int cluster, cudaStream_t stream) {
   const long long per_block = kThreads / a.group;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>((a.planes + per_block - 1) / per_block * cluster));
@@ -396,63 +572,119 @@ int launch(int backward, const Args& a, int cluster, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = backward
-      ? cudaLaunchKernelEx(&cfg, conv_epilogue_bwd_kernel<VEC, V>, a)
-      : cudaLaunchKernelEx(&cfg, conv_epilogue_fwd_kernel<VEC, V>, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The kernel pairs, each a `run<VEC, V>` that launches its forward or backward.
+template <int ACT>
+struct Epilogue {
+  template <int VEC, int V>
+  static int run(int backward, const Args& a, int cluster, cudaStream_t s) {
+    return backward ? launch(conv_epilogue_bwd_kernel<ACT, VEC, V>, a, cluster, s)
+                    : launch(conv_epilogue_fwd_kernel<ACT, VEC, V>, a, cluster, s);
+  }
+};
+
+struct Tail {
+  template <int VEC, int V>
+  static int run(int backward, const Args& a, int cluster, cudaStream_t s) {
+    return backward ? launch(norm_tail_bwd_kernel<VEC, V>, a, cluster, s)
+                    : launch(norm_tail_fwd_kernel<VEC, V>, a, cluster, s);
+  }
+};
+
+template <typename Pair>
+int dispatch(int backward, const Args& a, int vec, int vecs, int cluster, cudaStream_t s) {
+  if (vec == 4) {
+    switch (vecs) {
+      case 1: return Pair::template run<4, 1>(backward, a, cluster, s);
+      case 2: return Pair::template run<4, 2>(backward, a, cluster, s);
+      default: return Pair::template run<4, 4>(backward, a, cluster, s);
+    }
+  }
+  switch (vecs) {
+    case 1: return Pair::template run<1, 1>(backward, a, cluster, s);
+    case 2: return Pair::template run<1, 2>(backward, a, cluster, s);
+    case 4: return Pair::template run<1, 4>(backward, a, cluster, s);
+    case 8: return Pair::template run<1, 8>(backward, a, cluster, s);
+    default: return Pair::template run<1, 16>(backward, a, cluster, s);
+  }
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 == 0; }
 
+// A launch layout the kernels take (see `cu_conv_epilogue`).
+bool plan_ok(long long planes, int channels, int hw, int vec, int vecs, int group, int cluster,
+             const unsigned char* keep, float keep_prob) {
+  const long long per_block = group > 0 ? kThreads / group : 0;
+  const int n_vec = vec > 0 ? hw / vec : 0;
+  return planes >= 0 && channels >= 1 && planes % channels == 0 && hw >= 1
+         && (vec == 1 || vec == 4) && hw % vec == 0
+         && vecs >= 1 && (vecs & (vecs - 1)) == 0 && vec * vecs <= kMaxElems
+         && group >= 1 && group <= kThreads && (group & (group - 1)) == 0
+         && cluster >= 1 && cluster <= kMaxCluster && (cluster == 1 || group == kThreads)
+         && static_cast<long long>(group) * vecs * cluster >= n_vec
+         && (planes + per_block - 1) / per_block * cluster <= 0x7fffffffLL
+         && (keep == nullptr || keep_prob > 0.0f);
+}
+
 }  // namespace
 
-// One launch of the forward (backward = 0) or the backward (1) kernel, as
-// ops/conv_epilogue.py `epilogue_plan` lays it out: `vec` floats a vector
-// (4 where hw % 4 == 0 and the planes are 16-byte aligned, else 1),
-// `vecs` vectors a thread (vec * vecs <= 16, a power of two), `group`
+// One launch of the forward (backward = 0) or the backward (1) conv
+// epilogue kernel with activation `act` (0 LeakyReLU(0.01), 1 ReLU, 2
+// none), as ops/conv_epilogue.py `epilogue_plan` lays it out: `vec` floats
+// a vector (4 where hw % 4 == 0 and the planes are 16-byte aligned, else
+// 1), `vecs` vectors a thread (vec * vecs <= 16, a power of two), `group`
 // threads of a plane in a block (a power of two up to 512), `cluster`
 // blocks a plane (1-8; above 1 the group is the whole block). All tensors
 // are contiguous f32 (keep: bool) on the current device. The forward
 // writes out (y) and stats; the backward reads stats and gy and writes out
-// (dx) and part. Launches on `stream`; returns a CUDA error code (0 on
-// success).
-extern "C" int cu_conv_epilogue(int backward, const float* x, const float* conv_bias,
+// (dx) and part (2 + cluster rows with a conv bias, else 2). Launches on
+// `stream`; returns a CUDA error code (0 on success).
+extern "C" int cu_conv_epilogue(int backward, int act, const float* x, const float* conv_bias,
                                 const unsigned char* keep, float keep_prob,
                                 const float* weight, const float* bias, const float* gy,
                                 float* out, float* stats, float* part, long long planes,
                                 int channels, int hw, int vec, int vecs, int group, int cluster,
                                 void* stream) {
   if (planes == 0) return 0;
-  const long long per_block = group > 0 ? kThreads / group : 0;
-  const int n_vec = vec > 0 ? hw / vec : 0;
-  if ((backward != 0 && backward != 1) || x == nullptr || weight == nullptr || bias == nullptr
-      || out == nullptr || stats == nullptr || (backward && (gy == nullptr || part == nullptr))
-      || planes < 0 || channels < 1 || planes % channels != 0 || hw < 1
-      || (vec != 1 && vec != 4) || hw % vec != 0
-      || (vec == 4 && (!aligned16(x) || !aligned16(out) || (backward && !aligned16(gy))))
-      || vecs < 1 || (vecs & (vecs - 1)) != 0 || vec * vecs > kMaxElems
-      || group < 1 || group > kThreads || (group & (group - 1)) != 0
-      || cluster < 1 || cluster > kMaxCluster || (cluster > 1 && group != kThreads)
-      || static_cast<long long>(group) * vecs * cluster < n_vec
-      || (planes + per_block - 1) / per_block * cluster > 0x7fffffffLL
-      || (keep != nullptr && !(keep_prob > 0.0f))) {
+  if ((backward != 0 && backward != 1) || act < kLeaky || act > kNone || x == nullptr
+      || weight == nullptr || bias == nullptr || out == nullptr || stats == nullptr
+      || (backward && (gy == nullptr || part == nullptr))
+      || !plan_ok(planes, channels, hw, vec, vecs, group, cluster, keep, keep_prob)
+      || (vec == 4 && (!aligned16(x) || !aligned16(out) || (backward && !aligned16(gy))))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a = {x, conv_bias, keep, weight, bias, gy, out, stats, part, planes, channels, hw,
-                  n_vec, group, keep_prob};
+                  hw / vec, group, keep_prob, nullptr, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    switch (vecs) {
-      case 1: return launch<4, 1>(backward, a, cluster, s);
-      case 2: return launch<4, 2>(backward, a, cluster, s);
-      default: return launch<4, 4>(backward, a, cluster, s);
-    }
+  switch (act) {
+    case kLeaky: return dispatch<Epilogue<kLeaky>>(backward, a, vec, vecs, cluster, s);
+    case kRelu: return dispatch<Epilogue<kRelu>>(backward, a, vec, vecs, cluster, s);
+    default: return dispatch<Epilogue<kNone>>(backward, a, vec, vecs, cluster, s);
   }
-  switch (vecs) {
-    case 1: return launch<1, 1>(backward, a, cluster, s);
-    case 2: return launch<1, 2>(backward, a, cluster, s);
-    case 4: return launch<1, 4>(backward, a, cluster, s);
-    case 8: return launch<1, 8>(backward, a, cluster, s);
-    default: return launch<1, 16>(backward, a, cluster, s);
+}
+
+// One launch of the norm tail's forward (backward = 0: reads x = a and res
+// = r, writes out = y and stats) or backward (1: reads x = a, res = the
+// forward's y, gy and stats, writes out = da, out2 = r's gradient and part,
+// 2 rows), laid out as `cu_conv_epilogue`. Returns a CUDA error code.
+extern "C" int cu_norm_tail(int backward, const float* x, const float* res,
+                            const unsigned char* keep, float keep_prob, const float* weight,
+                            const float* bias, const float* gy, float* out, float* out2,
+                            float* stats, float* part, long long planes, int channels, int hw,
+                            int vec, int vecs, int group, int cluster, void* stream) {
+  if (planes == 0) return 0;
+  if ((backward != 0 && backward != 1) || x == nullptr || res == nullptr || weight == nullptr
+      || bias == nullptr || out == nullptr || stats == nullptr
+      || (backward && (gy == nullptr || out2 == nullptr || part == nullptr))
+      || !plan_ok(planes, channels, hw, vec, vecs, group, cluster, keep, keep_prob)
+      || (vec == 4 && (!aligned16(x) || !aligned16(res) || !aligned16(out)
+                       || (backward && (!aligned16(gy) || !aligned16(out2)))))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Args a = {x, nullptr, keep, weight, bias, gy, out, stats, part, planes, channels, hw,
+                  hw / vec, group, keep_prob, res, out2};
+  return dispatch<Tail>(backward, a, vec, vecs, cluster, static_cast<cudaStream_t>(stream));
 }

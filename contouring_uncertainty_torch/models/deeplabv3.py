@@ -15,6 +15,13 @@ the flax auto-names (ResNetBackbone_0, DropoutBottleneck_i, ASPP_0, Conv_i,
 GroupNorm_i, head_conv_i, head_out_i), so convert.py maps a JAX parameter
 tree one to one. The forward opens the trace spans `cut.model.backbone`,
 `cut.model.aspp` and `cut.model.head` (utils/profiling.py `span`).
+
+On the card in f32 each norm chain after a convolution is one kernel
+forward and one backward (ops/conv_epilogue.py; `norm_route`): conv ->
+norm -> ReLU and the projections' conv -> norm take the conv epilogue
+kernels, a bottleneck's last norm, its dropout, the residual add and the
+ReLU the norm tail kernels; the same draws, the same arithmetic in f32.
+Elsewhere (the CPU, f64 and bf16 models) the chains run op by op.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contouring_uncertainty_torch.models.unet import Conv, InstanceNorm, channel_dropout
+from contouring_uncertainty_torch.models.unet import (Conv, InstanceNorm, channel_dropout,
+                                                      channel_keep)
+from contouring_uncertainty_torch.ops import conv_epilogue
 from contouring_uncertainty_torch.utils.profiling import span
 
 
@@ -42,6 +51,29 @@ def conv(c_in, c_out, kernel_size, stride=1, padding="SAME", dilation=1, bias=Fa
         padding = pair(padding)
     return Conv(c_in, c_out, pair(kernel_size), pair(stride), padding, bias=bias, dtype=dtype,
                 dilation=pair(dilation), init_scale=1.0)
+
+
+def norm_route(conv: Conv, norm: InstanceNorm, device: torch.device) -> str:
+    """"kernel" on a CUDA device with the convolution and the norm in f32
+    (f32 norm parameters): ops/conv_epilogue.py runs the chain after the
+    convolution. Else "plain": the CPU, an f64 or bf16 model keep the
+    op-by-op chain."""
+    if (device.type == "cuda" and conv.dtype == norm.dtype == torch.float32
+            and norm.weight.dtype == torch.float32):
+        return "kernel"
+    return "plain"
+
+
+def conv_norm(conv: Conv, norm: InstanceNorm, x: torch.Tensor, relu: bool = True):
+    """conv -> norm [-> ReLU]; on the kernel route the chain after the
+    convolution is the conv epilogue kernels' (a plane they do not take
+    raises)."""
+    x = conv(x)
+    if norm_route(conv, norm, x.device) == "kernel":
+        return conv_epilogue.conv_epilogue(x, None, None, 1.0, norm.weight, norm.bias,
+                                           "relu" if relu else None)
+    x = norm(x)
+    return F.relu(x) if relu else x
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
@@ -78,11 +110,20 @@ class DropoutBottleneck(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, deterministic=True, generator=None):
-        out = F.relu(self.GroupNorm_0(self.Conv_0(x)))
-        out = F.relu(self.GroupNorm_1(self.Conv_1(out)))
-        out = self.GroupNorm_2(self.Conv_2(out))
-        out = dropout(out, self.dropout, deterministic, generator)
-        residual = self.GroupNorm_3(self.Conv_3(x)) if self.project else x
+        out = conv_norm(self.Conv_0, self.GroupNorm_0, x)
+        out = conv_norm(self.Conv_1, self.GroupNorm_1, out)
+        out = self.Conv_2(out)
+        if norm_route(self.Conv_2, self.GroupNorm_2, out.device) == "kernel":
+            # The mask is drawn where the op-by-op chain draws it: before Conv_3.
+            drop = not deterministic and self.dropout != 0.0
+            keep = channel_keep(out, self.dropout, generator) if drop else None
+            residual = (conv_norm(self.Conv_3, self.GroupNorm_3, x, relu=False) if self.project
+                        else x)
+            norm = self.GroupNorm_2
+            return conv_epilogue.norm_tail(out, keep, 1.0 - self.dropout, norm.weight, norm.bias,
+                                           residual)
+        out = dropout(self.GroupNorm_2(out), self.dropout, deterministic, generator)
+        residual = conv_norm(self.Conv_3, self.GroupNorm_3, x, relu=False) if self.project else x
         return F.relu(out + residual)
 
 
@@ -104,7 +145,7 @@ class ResNetBackbone(nn.Module):
         self.out_channels = c
 
     def forward(self, x, deterministic=True, generator=None):
-        out = max_pool_3x3_s2(F.relu(self.GroupNorm_0(self.Conv_0(x))))
+        out = max_pool_3x3_s2(conv_norm(self.Conv_0, self.GroupNorm_0, x))
         for i in range(self.n_blocks):
             out = getattr(self, f"DropoutBottleneck_{i}")(out, deterministic, generator)
         return out  # (N, base*32, H/16, W/16)
@@ -128,7 +169,8 @@ class ASPP(nn.Module):
         self.n_branches = n
 
     def forward(self, x):
-        layer = lambda j, h: F.relu(getattr(self, f"GroupNorm_{j}")(getattr(self, f"Conv_{j}")(h)))
+        layer = lambda j, h: conv_norm(getattr(self, f"Conv_{j}"),
+                                       getattr(self, f"GroupNorm_{j}"), h)
         n = self.n_branches
         branches = [layer(j, x) for j in range(n)]
         pooled = layer(n, x.mean(dim=(2, 3), keepdim=True))
@@ -197,8 +239,8 @@ class DeepLabV3(nn.Module):
         outs = []
         with span("cut.model.head"):
             for i in range(len(self.head_sizes)):
-                head = getattr(self, f"head_conv_{i}")(aspp)
-                head = F.relu(getattr(self, f"GroupNorm_{i}")(head))
+                head = conv_norm(getattr(self, f"head_conv_{i}"), getattr(self, f"GroupNorm_{i}"),
+                                 aspp)
                 head = getattr(self, f"head_out_{i}")(head).to(out_dtype)
                 outs.append(F.interpolate(head, size=(h, w), mode="bilinear",
                                           align_corners=False))

@@ -319,3 +319,34 @@ def test_epilogue_fused_metric_counts_launches_per_conv_layer():
     assert reader.read(fused, ctx) == pytest.approx(100.0)
     assert reader.read(plain, ctx) == 0.0
     assert reader.read(devtrace.Reading(window_s=3.0, device=device, kind="train"), ctx) is None
+
+
+def test_norm_fused_metric_counts_launches_per_deeplabv3_norm():
+    """portbench's `norm_fused.train` on a hand-built traced epoch of two
+    steps of DeepLabV3-ResNet50 (layers [3, 4, 6, 3]: 60 norms): 100 with
+    one forward and one backward kernel a norm a step (the conv epilogue's
+    and the norm tail's), 0 with none (the op-by-op chains), nothing
+    without the program's step spans."""
+    from types import SimpleNamespace
+
+    from portbench import devtrace, harness
+
+    manifest = harness.Manifest(harness.REPO / "BENCHMARK.json")
+    reader = manifest.metric_reader("norm_fused.train")
+    config = manifest.config("camus-dsnt-al-deeplabv3")
+    assert config["model"]["layers"] == [3, 4, 6, 3] and reader.norms([3, 4, 6, 3]) == 60
+    ctx = SimpleNamespace(config=config)
+    names = ["void (anonymous namespace)::conv_epilogue_fwd_kernel<1, 4, 4>(Args)",
+             "void (anonymous namespace)::conv_epilogue_bwd_kernel<1, 4, 4>(Args)",
+             "void (anonymous namespace)::norm_tail_fwd_kernel<4, 4>(Args)",
+             "void (anonymous namespace)::norm_tail_bwd_kernel<4, 4>(Args)"]
+    # Per step: 44 epilogue chains and 16 tails, each a forward and a backward.
+    per_step = [names[0], names[1]] * 44 + [names[2], names[3]] * 16
+    device = [(n, 0.001 * i, 0.001 * i + 0.0005) for i, n in enumerate(per_step * 2)]
+    device.append(("void at::native::vectorized_elementwise_kernel<4>", 2.0, 2.1))
+    host = [("cut.train.step", 0.0, 1.0), ("cut.train.step", 1.0, 2.0)]
+    fused = devtrace.Reading(window_s=3.0, device=device, host=host, kind="train")
+    plain = devtrace.Reading(window_s=3.0, device=device[-1:], host=host, kind="train")
+    assert reader.read(fused, ctx) == pytest.approx(100.0)
+    assert reader.read(plain, ctx) == 0.0
+    assert reader.read(devtrace.Reading(window_s=3.0, device=device, kind="train"), ctx) is None
