@@ -302,7 +302,7 @@ result line):
    summed. Then a full-width DeepLabV3's training forward and backward at
    batch 32: one forward and one backward launch per norm (44 conv
    epilogue, 16 norm tail) in every step, and its output, loss and
-   gradients beside the op-by-op model's (`norm_route` forced to "plain"),
+   gradients beside the op-by-op model's (`chain_route` forced to "plain"),
    printed.
 
 It imports nothing of JAX or of the JAX package.
@@ -1110,29 +1110,24 @@ def norm_launches():
 
 @contextmanager
 def routed_chains():
-    """While the block runs, the norm chains taking the kernel route: the
-    ConvLayer calls (`epilogue_route`) and DeepLabV3's chains
-    (`norm_route`). Yields a one-element list, the count so far."""
-    from contouring_uncertainty_torch.models import deeplabv3
-    from contouring_uncertainty_torch.models.unet import ConvLayer
+    """While the block runs, the norm chains taking the kernel route (the
+    UNet's ConvLayers, DeepLabV3's chains): models/layers.py `chain_route`'s
+    "kernel" answers. Yields a one-element list, the count so far."""
+    from contouring_uncertainty_torch.models import layers
 
     routed = [0]
-    forward_fn, route_fn = ConvLayer.forward, deeplabv3.norm_route
+    route_fn = layers.chain_route
 
-    def forward(self, x, *args, **kwargs):
-        routed[0] += self.epilogue_route(x.device) == "kernel"
-        return forward_fn(self, x, *args, **kwargs)
-
-    def norm_route(*args):
+    def chain_route(*args):
         route = route_fn(*args)
         routed[0] += route == "kernel"
         return route
 
-    ConvLayer.forward, deeplabv3.norm_route = forward, norm_route
+    layers.chain_route = chain_route
     try:
         yield routed
     finally:
-        ConvLayer.forward, deeplabv3.norm_route = forward_fn, route_fn
+        layers.chain_route = route_fn
 
 
 @contextmanager
@@ -1449,7 +1444,8 @@ def gpu_vs_cpu_step() -> dict:
 
     from contouring_uncertainty_torch.data.config import DataParams, Tags
     from contouring_uncertainty_torch.data.synthetic import make_arrays
-    from contouring_uncertainty_torch.models.unet import leaky_relu_sides, set_compute_dtype
+    from contouring_uncertainty_torch.models.layers import set_compute_dtype
+    from contouring_uncertainty_torch.models.unet import leaky_relu_sides
     from contouring_uncertainty_torch.tasks import DSNTAleatoric
     from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
@@ -3681,8 +3677,8 @@ def bf16_step_check() -> dict:
 
     from contouring_uncertainty_torch.data.config import DataParams, Tags
     from contouring_uncertainty_torch.data.synthetic import make_arrays
-    from contouring_uncertainty_torch.models.unet import (conv_output_dtypes, leaky_relu_sides,
-                                                         set_compute_dtype)
+    from contouring_uncertainty_torch.models.layers import conv_output_dtypes, set_compute_dtype
+    from contouring_uncertainty_torch.models.unet import leaky_relu_sides
     from contouring_uncertainty_torch.tasks import DSNTAleatoric
     from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 
@@ -4467,7 +4463,7 @@ def epilogue_block(channels: int, side: int, drop: bool, seed: int) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from contouring_uncertainty_torch.models.unet import InstanceNorm, channel_keep
+    from contouring_uncertainty_torch.models.layers import InstanceNorm, channel_keep
     from contouring_uncertainty_torch.ops import conv_epilogue as ce
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -4581,7 +4577,7 @@ def norm_chain_block(chain: str, channels: int, side: int, seed: int) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from contouring_uncertainty_torch.models.unet import InstanceNorm, channel_keep
+    from contouring_uncertainty_torch.models.layers import InstanceNorm, channel_keep
     from contouring_uncertainty_torch.ops import conv_epilogue as ce
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -4682,10 +4678,11 @@ def deeplab_step_launches(steps: int = 2) -> dict:
     the whole step to its reference)."""
     import torch
 
-    from contouring_uncertainty_torch.models import deeplabv3
+    from contouring_uncertainty_torch.models import layers
+    from contouring_uncertainty_torch.models.deeplabv3 import DeepLabV3
     from contouring_uncertainty_torch.ops import conv_epilogue as ce
 
-    model = deeplabv3.DeepLabV3((1, 256, 256), (21, 256, 256), dropout=DEEPLAB_DROPOUT)
+    model = DeepLabV3((1, 256, 256), (21, 256, 256), dropout=DEEPLAB_DROPOUT)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model = model.cuda()
     x = torch.randn(EPILOGUE_BATCH, 1, 256, 256, generator=torch.Generator().manual_seed(1))
@@ -4714,12 +4711,12 @@ def deeplab_step_launches(steps: int = 2) -> dict:
         raise AssertionError(f"DeepLabV3 train step: (epilogue forward, backward, tail forward, "
                              f"backward, chains on the kernel route) {counts}, expected "
                              f"(44, 44, 16, 16, {DEEPLAB_NORMS}) in every step")
-    route_fn = deeplabv3.norm_route
-    deeplabv3.norm_route = lambda *args: "plain"
+    route_fn = layers.chain_route
+    layers.chain_route = lambda *args: "plain"
     try:
         out_p, loss_p, grads_p = step()
     finally:
-        deeplabv3.norm_route = route_fn
+        layers.chain_route = route_fn
     leaf = {n: float((grads[n].norm() - grads_p[n].norm()).abs() / grads_p[n].norm().clamp_min(
         1e-30)) for n in grads}
     worst = max(leaf, key=leaf.get)

@@ -7,21 +7,18 @@ head, bilinear upsampling to the input size, multi-head (`n_heads`) and SSN
 (`ssn_rank`) outputs, and `bottleneck_out` backbone features for the skew
 ConfidenceNet; the same output dict as the UNet.
 
-Norms are flax's `GroupNorm(group_size=1)`: per-channel statistics in f32,
-single pass (the UNet's `InstanceNorm` with an f32 output), so activations
+Norms are flax's `GroupNorm(group_size=1)` (models/layers.py
+`group_norm`): per-channel statistics in f32, single pass, so activations
 stay f32 between convolutions, which run in `dtype`. On ASPP's pooled 1x1
 map the variance is exactly 0 and the norm gives its bias. Submodules carry
 the flax auto-names (ResNetBackbone_0, DropoutBottleneck_i, ASPP_0, Conv_i,
 GroupNorm_i, head_conv_i, head_out_i), so convert.py maps a JAX parameter
 tree one to one. The forward opens the trace spans `cut.model.backbone`,
-`cut.model.aspp` and `cut.model.head` (utils/profiling.py `span`).
-
-On the card in f32 each norm chain after a convolution is one kernel
-forward and one backward (ops/conv_epilogue.py; `norm_route`): conv ->
-norm -> ReLU and the projections' conv -> norm take the conv epilogue
-kernels, a bottleneck's last norm, its dropout, the residual add and the
-ReLU the norm tail kernels; the same draws, the same arithmetic in f32.
-Elsewhere (the CPU, f64 and bf16 models) the chains run op by op.
+`cut.model.aspp` and `cut.model.head` (utils/profiling.py `span`). Each
+norm chain is models/layers.py's `conv_norm` (conv -> norm -> ReLU, or no
+activation in a projection) or `conv_norm_tail` (a bottleneck's last norm,
+its dropout, the residual add and the ReLU), on the kernels where
+`chain_route` sends it.
 """
 
 from __future__ import annotations
@@ -32,61 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contouring_uncertainty_torch.models.unet import (Conv, InstanceNorm, channel_dropout,
-                                                      channel_keep)
-from contouring_uncertainty_torch.ops import conv_epilogue
+from contouring_uncertainty_torch.models.layers import (conv, conv_norm, conv_norm_tail,
+                                                        group_norm, max_pool_3x3_s2, reset_layers)
 from contouring_uncertainty_torch.utils.profiling import span
-
-
-def group_norm(channels: int) -> InstanceNorm:
-    """flax GroupNorm(group_size=1, epsilon=1e-5, dtype=float32)."""
-    return InstanceNorm(channels, dtype=torch.float32)
-
-
-def conv(c_in, c_out, kernel_size, stride=1, padding="SAME", dilation=1, bias=False,
-         dtype=torch.float32) -> Conv:
-    """flax Conv (default init: lecun truncated normal; "SAME" padding)."""
-    pair = lambda v: (v, v) if isinstance(v, int) else tuple(v)
-    if padding != "SAME":
-        padding = pair(padding)
-    return Conv(c_in, c_out, pair(kernel_size), pair(stride), padding, bias=bias, dtype=dtype,
-                dilation=pair(dilation), init_scale=1.0)
-
-
-def norm_route(conv: Conv, norm: InstanceNorm, device: torch.device) -> str:
-    """"kernel" on a CUDA device with the convolution and the norm in f32
-    (f32 norm parameters): ops/conv_epilogue.py runs the chain after the
-    convolution. Else "plain": the CPU, an f64 or bf16 model keep the
-    op-by-op chain."""
-    if (device.type == "cuda" and conv.dtype == norm.dtype == torch.float32
-            and norm.weight.dtype == torch.float32):
-        return "kernel"
-    return "plain"
-
-
-def conv_norm(conv: Conv, norm: InstanceNorm, x: torch.Tensor, relu: bool = True):
-    """conv -> norm [-> ReLU]; on the kernel route the chain after the
-    convolution is the conv epilogue kernels' (a plane they do not take
-    raises)."""
-    x = conv(x)
-    if norm_route(conv, norm, x.device) == "kernel":
-        return conv_epilogue.conv_epilogue(x, None, None, 1.0, norm.weight, norm.bias,
-                                           "relu" if relu else None)
-    x = norm(x)
-    return F.relu(x) if relu else x
-
-
-def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """flax max_pool (3, 3), strides 2, padding ((1, 1), (1, 1)): -inf pads."""
-    return F.max_pool2d(x, 3, 2, padding=1)
-
-
-def dropout(x, rate: float, deterministic: bool, generator):
-    """flax Dropout(rate, broadcast_dims=(1, 2)): no draw at rate 0 or when
-    deterministic."""
-    if deterministic or rate == 0.0:
-        return x
-    return channel_dropout(x, rate, generator)
 
 
 class DropoutBottleneck(nn.Module):
@@ -110,21 +55,11 @@ class DropoutBottleneck(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, deterministic=True, generator=None):
-        out = conv_norm(self.Conv_0, self.GroupNorm_0, x)
-        out = conv_norm(self.Conv_1, self.GroupNorm_1, out)
-        out = self.Conv_2(out)
-        if norm_route(self.Conv_2, self.GroupNorm_2, out.device) == "kernel":
-            # The mask is drawn where the op-by-op chain draws it: before Conv_3.
-            drop = not deterministic and self.dropout != 0.0
-            keep = channel_keep(out, self.dropout, generator) if drop else None
-            residual = (conv_norm(self.Conv_3, self.GroupNorm_3, x, relu=False) if self.project
-                        else x)
-            norm = self.GroupNorm_2
-            return conv_epilogue.norm_tail(out, keep, 1.0 - self.dropout, norm.weight, norm.bias,
-                                           residual)
-        out = dropout(self.GroupNorm_2(out), self.dropout, deterministic, generator)
-        residual = conv_norm(self.Conv_3, self.GroupNorm_3, x, relu=False) if self.project else x
-        return F.relu(out + residual)
+        out = conv_norm(self.Conv_0, self.GroupNorm_0, x, "relu")
+        out = conv_norm(self.Conv_1, self.GroupNorm_1, out, "relu")
+        residual = lambda: conv_norm(self.Conv_3, self.GroupNorm_3, x, None) if self.project else x
+        return conv_norm_tail(self.Conv_2, self.GroupNorm_2, out, residual,
+                              not deterministic and self.dropout != 0.0, self.dropout, generator)
 
 
 class ResNetBackbone(nn.Module):
@@ -145,7 +80,7 @@ class ResNetBackbone(nn.Module):
         self.out_channels = c
 
     def forward(self, x, deterministic=True, generator=None):
-        out = max_pool_3x3_s2(conv_norm(self.Conv_0, self.GroupNorm_0, x))
+        out = max_pool_3x3_s2(conv_norm(self.Conv_0, self.GroupNorm_0, x, "relu"))
         for i in range(self.n_blocks):
             out = getattr(self, f"DropoutBottleneck_{i}")(out, deterministic, generator)
         return out  # (N, base*32, H/16, W/16)
@@ -170,7 +105,7 @@ class ASPP(nn.Module):
 
     def forward(self, x):
         layer = lambda j, h: conv_norm(getattr(self, f"Conv_{j}"),
-                                       getattr(self, f"GroupNorm_{j}"), h)
+                                       getattr(self, f"GroupNorm_{j}"), h, "relu")
         n = self.n_branches
         branches = [layer(j, x) for j in range(n)]
         pooled = layer(n, x.mean(dim=(2, 3), keepdim=True))
@@ -217,14 +152,8 @@ class DeepLabV3(nn.Module):
         return self.ResNetBackbone_0.out_channels, h, w
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax's default init: lecun truncated normal, zero biases, unit
-        norm scales."""
-        for mod in self.modules():
-            if isinstance(mod, Conv):
-                mod.reset_parameters(generator)
-            elif isinstance(mod, InstanceNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
+        """flax's default init (lecun truncated normal), by `reset_layers`."""
+        reset_layers(self, generator)
 
     def forward(self, x, deterministic: bool = True, generator=None, mode: str = "full",
                 prefix=None, train: bool = False):
@@ -240,7 +169,7 @@ class DeepLabV3(nn.Module):
         with span("cut.model.head"):
             for i in range(len(self.head_sizes)):
                 head = conv_norm(getattr(self, f"head_conv_{i}"), getattr(self, f"GroupNorm_{i}"),
-                                 aspp)
+                                 aspp, "relu")
                 head = getattr(self, f"head_out_{i}")(head).to(out_dtype)
                 outs.append(F.interpolate(head, size=(h, w), mode="bilinear",
                                           align_corners=False))

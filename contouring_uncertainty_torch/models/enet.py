@@ -5,12 +5,12 @@ Counterpart of contouring_uncertainty_tpu/models/enet.py: an initial block
 asymmetric and downsampling bottlenecks, a decoder of upsampling ones
 (strided transposed convolutions; the main branch a nearest 2x repeat),
 per-head decoders (`n_heads`, `ssn_rank`) and `bottleneck_out` features.
-ReLU or a per-channel PReLU; group norms in f32 (deeplabv3.py
-`group_norm`); convolutions in `dtype`.
+ReLU or a per-channel PReLU; group norms in f32 (layers.py `group_norm`);
+convolutions in `dtype`.
 
 The transposed convolutions are flax's `ConvTranspose(k=3, s=2, "SAME")`:
 torch's unpadded transposed conv of the flipped kernel (convert.py), its
-last row and column dropped (unet.py `ConvTranspose`), exactly; torch's
+last row and column dropped (layers.py `ConvTranspose`), exactly; torch's
 `padding=1, output_padding=1` would pad the other side. Submodules carry
 the flax auto-names (InitialBlock_0, Bottleneck_i, head_i, Conv_j,
 ConvTranspose_0, GroupNorm_j, PReLU_j).
@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contouring_uncertainty_torch.models.deeplabv3 import conv, dropout, group_norm
-from contouring_uncertainty_torch.models.unet import Conv, ConvTranspose, InstanceNorm
+from contouring_uncertainty_torch.models.layers import (ConvTranspose, conv, dropout, group_norm,
+                                                        reset_layers)
 
 
 class PReLU(nn.Module):
@@ -211,13 +211,9 @@ class Enet(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """flax's default init: lecun truncated normal, unit norm scales,
         zero norm biases, PReLU slopes 0.25."""
+        reset_layers(self, generator)
         for mod in self.modules():
-            if isinstance(mod, (Conv, ConvTranspose)):
-                mod.reset_parameters(generator)
-            elif isinstance(mod, InstanceNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
-            elif isinstance(mod, PReLU):
+            if isinstance(mod, PReLU):
                 nn.init.constant_(mod.alpha, 0.25)
 
     def forward(self, x, deterministic: bool = True, generator=None, mode: str = "full",

@@ -8,7 +8,7 @@ the data's channels, global average pooling and a dense head reshaped to
 second branch of layers 3-4 (parameters of its own) runs from the layer-2
 features and regresses (N, K, sigma_out) per-point uncertainty parameters.
 
-Norms are per-channel group norms in f32 (deeplabv3.py `group_norm`);
+Norms are per-channel group norms in f32 (layers.py `group_norm`);
 convolutions run in `dtype`, the pooled features and the dense heads in
 f32. Submodules carry the flax names (Conv_0, GroupNorm_0, layer1..4,
 sigma_layer3/4, RegressionBottleneck_i, fc, sigma_fc).
@@ -23,13 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contouring_uncertainty_torch.models.deeplabv3 import (
-    conv,
-    dropout,
-    group_norm,
-    max_pool_3x3_s2,
-)
-from contouring_uncertainty_torch.models.unet import Conv, Dense, InstanceNorm
+from contouring_uncertainty_torch.models.layers import (Dense, conv, dropout, group_norm,
+                                                        max_pool_3x3_s2, reset_layers)
 
 
 class RegressionBottleneck(nn.Module):
@@ -102,14 +97,8 @@ class Resnet(nn.Module):
             self.sigma_fc = Dense(2048, self.output_shape[0] * self.sigma_out)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax's default init: lecun truncated normal, zero biases, unit
-        norm scales."""
-        for mod in self.modules():
-            if isinstance(mod, (Conv, Dense)):
-                mod.reset_parameters(generator)
-            elif isinstance(mod, InstanceNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
+        """flax's default init (lecun truncated normal), by `reset_layers`."""
+        reset_layers(self, generator)
 
     def forward(self, x, deterministic: bool = True, generator=None, mode: str = "full",
                 prefix=None, train: bool = False):

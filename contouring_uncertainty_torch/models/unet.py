@@ -15,186 +15,31 @@ stages) and `attention` (an AttentionGate on each skip).
 
 Submodules carry the flax auto-names (ConvBlock_i or ResidBlock_i,
 UpsampleBlock_j, AttentionGate_0, OutputBlock_0, ConvLayer_0, Conv_0,
-InstanceNorm_0, ConvTranspose_0), so
-convert.py maps a JAX parameter tree onto `state_dict` keys one to one.
-Parameters are float32; convolutions run in `dtype` (weights cast per call),
-instance-norm statistics in f32 (f64 in an f64 model). `set_compute_dtype`
-makes a whole model compute in one dtype, e.g. the f64 reference of the
-training checks. Dropout draws its masks from an explicit `torch.Generator`
-(on the generator's device, then moved; rng.py), in execution order. On the
-card in f32 a ConvLayer's chain after its convolution (conv bias, channel
-dropout, instance norm, LeakyReLU) is one kernel forward and one backward
-(ops/conv_epilogue.py; `ConvLayer.epilogue_route`).
+InstanceNorm_0, ConvTranspose_0), so convert.py maps a JAX parameter tree
+onto `state_dict` keys one to one.
+The layers, their dtypes and dropout draws are models/layers.py's; a
+ConvLayer's chain is its `conv_norm`, on the kernels where `chain_route`
+sends it.
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contouring_uncertainty_torch.ops import conv_epilogue
-from contouring_uncertainty_torch.rng import draw_uniform
-
-_NEG_SLOPE = 1e-2
-# flax variance_scaling(2 / (1 + 0.01^2), "fan_in", "truncated_normal"):
-# N(0, sqrt(scale / fan_in)) truncated at +-2 std, std corrected by the
-# truncation factor.
-_KAIMING_SCALE = 2.0 / (1.0 + 0.01 ** 2)
-_TRUNC_STD = 0.87962566103423978
-
-
-def _kaiming_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator],
-              scale: float = _KAIMING_SCALE):
-    """flax variance_scaling(scale, "fan_in", "truncated_normal"); scale 1
-    is flax's default (lecun) initializer."""
-    std = math.sqrt(scale / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
-def torch_padding(kernel_size) -> tuple:
-    """Symmetric padding (k//2, k//2) per spatial dim (not XLA's "SAME")."""
-    return tuple(k // 2 for k in kernel_size)
-
-
-def same_padding(size, kernel_size, stride, dilation) -> list:
-    """XLA's "SAME" padding of each spatial dim, [(lo, hi), ...]: the output
-    has ceil(size / stride) elements and the extra pad goes high."""
-    pads = []
-    for n, k, s, d in zip(size, kernel_size, stride, dilation):
-        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
-        pads.append((total // 2, total - total // 2))
-    return pads
-
-
-def channel_keep(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
-    """The (N, C) bool mask of the channels that channel dropout at `rate`
-    keeps: uniforms drawn as (N, C, 1, 1) from `generator`, below 1 - rate."""
-    u = draw_uniform(generator, (x.shape[0], x.shape[1], 1, 1), torch.float32, x.device)
-    return (u < 1.0 - rate).reshape(x.shape[0], x.shape[1])
-
-
-def channel_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
-    """Dropout2d: zero whole channels with probability `rate`, scale the
-    kept ones by 1/(1-rate) (flax Dropout with broadcast_dims=(H, W))."""
-    keep = channel_keep(x, rate, generator)[:, :, None, None]
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-class InstanceNorm(nn.Module):
-    """Instance norm with single-pass statistics max(E[x^2]-E[x]^2, 0) in
-    f32 (f64 when `dtype` is f64), eps 1e-5 and affine parameters; output
-    in `dtype`."""
-
-    def __init__(self, channels: int, dtype=torch.float32, epsilon: float = 1e-5):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.dtype = dtype
-        self.epsilon = epsilon
-
-    def forward(self, x):
-        xf = x.to(torch.float64 if self.dtype == torch.float64 else torch.float32)
-        mean = xf.mean(dim=(2, 3), keepdim=True)
-        mean2 = (xf * xf).mean(dim=(2, 3), keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
-        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
-        return y.to(self.dtype)
-
-
-class Conv(nn.Module):
-    """Conv2d with f32 parameters computed in `dtype`. `padding` is
-    symmetric per dim, or "SAME" (XLA's, flax's default: the odd extra
-    pixel goes high). `init_scale` is the variance scale of the
-    truncated-normal fan-in init (Kaiming for LeakyReLU by default, 1 for
-    flax's default)."""
-
-    def __init__(self, c_in: int, c_out: int, kernel_size=(3, 3), stride=(1, 1),
-                 padding=(0, 0), bias: bool = True, dtype=torch.float32,
-                 dilation=(1, 1), init_scale: float = _KAIMING_SCALE):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(c_out, c_in, *kernel_size))
-        self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
-        self.stride = tuple(stride)
-        self.padding = padding if padding == "SAME" else tuple(padding)
-        self.dilation = tuple(dilation)
-        self.dtype = dtype
-        self.init_scale = init_scale
-
-    def reset_parameters(self, generator=None):
-        _kaiming_(self.weight, self.weight[0].numel(), generator, self.init_scale)
-        if self.bias is not None:
-            nn.init.zeros_(self.bias)
-
-    def forward(self, x, add_bias: bool = True):
-        b = None if self.bias is None or not add_bias else self.bias.to(self.dtype)
-        x = x.to(self.dtype)
-        padding = self.padding
-        if padding == "SAME":
-            pads = same_padding(x.shape[2:], self.weight.shape[2:], self.stride, self.dilation)
-            if all(lo == hi for lo, hi in pads):
-                padding = tuple(lo for lo, _ in pads)
-            else:
-                (top, bottom), (left, right) = pads
-                x, padding = F.pad(x, (left, right, top, bottom)), (0, 0)
-        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding, self.dilation)
-
-
-def _transpose_crop(k: int, s: int, padding: str):
-    """lax.conv_transpose's (lo, hi) padding of the dilated input for
-    `padding` -> where its output starts in torch's unpadded transposed
-    conv (which pads k - 1 both sides) and how long it is, less the
-    dilated input's length."""
-    if padding == "SAME":
-        pad_len = k + s - 2
-        lo = k - 1 if s > k - 1 else -(-pad_len // 2)
-    else:  # VALID
-        pad_len = k + s - 2 + max(k - s, 0)
-        lo = k - 1
-    return (k - 1) - lo, pad_len - k + 1
-
-
-class ConvTranspose(nn.Module):
-    """flax ConvTranspose without bias: a stride-s transposed conv with
-    kernel `kernel_size` (default s) and padding "VALID" or "SAME" (lax's,
-    cropped out of torch's unpadded output); the weight is in torch's
-    (ci, co, kh, kw) orientation, the flax kernel flipped (convert.py)."""
-
-    def __init__(self, c_in: int, c_out: int, stride=(2, 2), dtype=torch.float32,
-                 kernel_size=None, padding: str = "VALID",
-                 init_scale: float = _KAIMING_SCALE):
-        super().__init__()
-        kernel_size = tuple(kernel_size or stride)
-        self.weight = nn.Parameter(torch.empty(c_in, c_out, *kernel_size))
-        self.stride = tuple(stride)
-        self.padding = padding
-        self.dtype = dtype
-        self.init_scale = init_scale
-
-    def reset_parameters(self, generator=None):
-        c_in, _, kh, kw = self.weight.shape
-        _kaiming_(self.weight, c_in * kh * kw, generator, self.init_scale)
-
-    def forward(self, x):
-        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                               stride=self.stride)
-        for dim, (n, k, s) in enumerate(zip(x.shape[2:], self.weight.shape[2:], self.stride)):
-            start, extra = _transpose_crop(k, s, self.padding)
-            y = y.narrow(2 + dim, start, (n - 1) * s + 1 + extra)
-        return y
+from contouring_uncertainty_torch.models.layers import (NEG_SLOPE, Conv, ConvTranspose, Dense,
+                                                        InstanceNorm, channel_dropout,
+                                                        conv_norm, reset_layers, torch_padding)
 
 
 class ConvLayer(nn.Module):
-    """conv -> [channel dropout] -> instance norm -> leaky relu. Where
-    `epilogue_route` says "kernel" the convolution runs without its bias
-    and ops/conv_epilogue.py computes the rest of the chain (the same
-    draws, the same arithmetic in f32; a plane over the kernels' 65,536
-    elements raises); elsewhere the chain runs op by op."""
+    """conv -> [channel dropout] -> instance norm -> leaky relu, by
+    models/layers.py `conv_norm` (the kernels or the op-by-op chain, as
+    `chain_route` decides)."""
 
     def __init__(self, c_in, features, kernel_size=(3, 3), strides=(1, 1),
                  drop_block=False, drop_rate=0.5, dtype=torch.float32):
@@ -207,32 +52,10 @@ class ConvLayer(nn.Module):
         # The LeakyReLU's sides while `leaky_relu_sides` pins them, else None.
         self.pinned_sides: Optional[torch.Tensor] = None
 
-    def epilogue_route(self, device: torch.device) -> str:
-        """"kernel" on a CUDA device with the convolution and the norm in
-        f32 (f32 norm parameters) and no pinned sides, else "plain": the
-        CPU, an f64 or bf16 model and a pinned model keep the op-by-op
-        chain."""
-        norm = self.InstanceNorm_0
-        if (device.type == "cuda" and self.Conv_0.dtype == norm.dtype == torch.float32
-                and norm.weight.dtype == torch.float32 and self.pinned_sides is None):
-            return "kernel"
-        return "plain"
-
     def forward(self, x, deterministic=True, generator=None):
-        drop = self.drop_block and not deterministic
-        if self.epilogue_route(x.device) == "kernel":
-            x = self.Conv_0(x, add_bias=False)
-            keep = channel_keep(x, self.drop_rate, generator) if drop else None
-            norm = self.InstanceNorm_0
-            return conv_epilogue.conv_epilogue(x, self.Conv_0.bias, keep, 1.0 - self.drop_rate,
-                                               norm.weight, norm.bias)
-        x = self.Conv_0(x)
-        if drop:
-            x = channel_dropout(x, self.drop_rate, generator)
-        x = self.InstanceNorm_0(x)
-        if self.pinned_sides is not None:
-            return torch.where(self.pinned_sides.to(x.device), x, _NEG_SLOPE * x)
-        return F.leaky_relu(x, _NEG_SLOPE)
+        return conv_norm(self.Conv_0, self.InstanceNorm_0, x, "leaky_relu",
+                         self.drop_block and not deterministic, self.drop_rate, generator,
+                         self.pinned_sides)
 
 
 class ConvBlock(nn.Module):
@@ -284,7 +107,7 @@ class ResidBlock(nn.Module):
             if drop:
                 residual = channel_dropout(residual, 0.5, generator)
             residual = self.InstanceNorm_1(residual)
-        return F.leaky_relu(out + residual, _NEG_SLOPE)
+        return F.leaky_relu(out + residual, NEG_SLOPE)
 
 
 class AttentionGate(nn.Module):
@@ -343,26 +166,6 @@ class OutputBlock(nn.Module):
         return self.Conv_0(x).to(self.out_dtype)
 
 
-class Dense(nn.Module):
-    """flax Dense computed in `dtype` (f32): x @ kernel + bias, the kernel
-    stored as a torch Linear weight (out, in); lecun truncated-normal init,
-    zero bias."""
-
-    def __init__(self, c_in: int, c_out: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(c_out, c_in))
-        self.bias = nn.Parameter(torch.zeros(c_out))
-        self.dtype = torch.float32
-
-    def reset_parameters(self, generator=None):
-        std = math.sqrt(1.0 / self.weight.shape[1]) / _TRUNC_STD
-        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
-
-
 class ConfidenceNet(nn.Module):
     """Bottleneck (N, C, Hb, Wb) -> (N, output_size) skew head: three 3x3
     convolutions of 128 channels with ReLU, a flatten in flax's NHWC order
@@ -379,9 +182,7 @@ class ConfidenceNet(nn.Module):
         self.Dense_0 = Dense(128 * hb * wb, output_size)
 
     def reset_parameters(self, generator=None):
-        for i in range(3):
-            getattr(self, f"Conv_{i}").reset_parameters(generator)
-        self.Dense_0.reset_parameters(generator)
+        reset_layers(self, generator)
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -480,14 +281,8 @@ class UNet(nn.Module):
         return self.filters[-1], h, w
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax-style init (truncated-normal Kaiming for LeakyReLU(0.01),
-        zero biases, unit norm scales) drawn from `generator`."""
-        for mod in self.modules():
-            if isinstance(mod, (Conv, ConvTranspose)):
-                mod.reset_parameters(generator)
-            elif isinstance(mod, InstanceNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
+        """Kaiming truncated-normal init for LeakyReLU(0.01), by `reset_layers`."""
+        reset_layers(self, generator)
 
     def forward(self, x: Optional[torch.Tensor], deterministic: bool = True,
                 generator: Optional[torch.Generator] = None, mode: str = "full",
@@ -535,20 +330,6 @@ class UNet(nn.Module):
         return result
 
 
-def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Make every layer of `model` (a UNet, a SkewUNet, a ConfidenceNet)
-    compute in `dtype`: the convolutions, the head and its output, the
-    instance norms (their statistics in f64 for f64, else f32), the
-    ConfidenceNet and its Dense layer. The parameters keep their dtype:
-    `set_compute_dtype(model.double(), torch.float64)` is an f64 model
-    throughout. Returns `model`."""
-    for mod in model.modules():
-        for attr in ("dtype", "head_dtype", "out_dtype"):
-            if attr in vars(mod):
-                setattr(mod, attr, dtype)
-    return model
-
-
 @contextlib.contextmanager
 def leaky_relu_sides(model: nn.Module, pin: Optional[Dict[str, torch.Tensor]] = None):
     """Within the block, record on which side of its LeakyReLU kink each
@@ -577,23 +358,3 @@ def leaky_relu_sides(model: nn.Module, pin: Optional[Dict[str, torch.Tensor]] = 
             h.remove()
         for _, mod in layers:
             mod.pinned_sides = None
-
-
-@contextlib.contextmanager
-def conv_output_dtypes(model: nn.Module):
-    """Within the block, record the dtype each Conv and ConvTranspose of
-    `model` emitted in its last forward (module name -> dtype): a bf16
-    model's trunk convolutions give bf16 and its head's f32. Yields the
-    record."""
-    seen: Dict[str, torch.dtype] = {}
-
-    def record(name):
-        return lambda mod, inputs, out: seen.__setitem__(name, out.dtype)
-
-    handles = [mod.register_forward_hook(record(name)) for name, mod in model.named_modules()
-               if isinstance(mod, (Conv, ConvTranspose))]
-    try:
-        yield seen
-    finally:
-        for h in handles:
-            h.remove()

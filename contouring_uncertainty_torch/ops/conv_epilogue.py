@@ -2,11 +2,11 @@
 forward and backward, one pass over the layer each.
 
 The conv epilogue: conv bias, channel dropout, instance norm and an
-activation (LeakyReLU(0.01), ReLU or none). `models/unet.py ConvLayer`
-computes conv -> [channel dropout] -> instance norm -> LeakyReLU, and
-`models/deeplabv3.py` conv -> GroupNorm [-> ReLU] (no conv bias, no
-dropout). On the card in f32 the convolution runs without its bias and
-this module does the rest, with the CUDA C++ kernels of
+activation (LeakyReLU(0.01), ReLU or none). `models/layers.py conv_norm`
+computes conv -> [channel dropout] -> norm -> activation: the UNet's
+ConvLayer with LeakyReLU, DeepLabV3's chains with ReLU or none (no conv
+bias, no dropout). On the card in f32 the convolution runs without its
+bias and this module does the rest, with the CUDA C++ kernels of
 csrc/conv_epilogue.cu (bound with ctypes): one forward and one backward
 launch a layer, in place of about ten PyTorch launches forward and twenty
 backward, each a pass over the activations. The activation is the
@@ -40,8 +40,8 @@ where kept, else 0; da = the closed form above of gn; d weight, d bias the
 sums of S2 and S1 of gn.
 
 The Functions (`ConvEpilogue`, `NormTail`) run the kernels on CUDA tensors
-only: which layers take them is `models/unet.py ConvLayer.epilogue_route`'s
-and `models/deeplabv3.py norm_route`'s choice, and everything else here
+only: which chains take them is `models/layers.py chain_route`'s choice
+alone (`conv_norm` and `conv_norm_tail` call it), and everything else here
 refuses what the kernels do not take. `epilogue_plain`,
 `epilogue_backward_plain`, `tail_plain` and `tail_backward_plain` are the
 plain versions (f32, or f64 for f64 inputs), the reference the tests and

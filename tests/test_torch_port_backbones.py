@@ -38,7 +38,7 @@ from contouring_uncertainty_tpu.tasks.epistemic import EpistemicUncertainty as J
 from contouring_uncertainty_torch.convert import flax_to_torch_state
 from contouring_uncertainty_torch.data.config import DataParams
 from contouring_uncertainty_torch.models import build_backbone
-from contouring_uncertainty_torch.models import unet as tunet
+from contouring_uncertainty_torch.models import layers as tlayers
 from contouring_uncertainty_torch.tasks import DSNTAleatoric, DSNTSkew
 from contouring_uncertainty_torch.tasks import dsnt_al as tdsnt_al
 from contouring_uncertainty_torch.tasks.dsnt_al import mc_dropout_apply
@@ -150,7 +150,7 @@ def test_backbone_forward_matches_flax(case, monkeypatch):
         v, x, deterministic=False, rngs={"dropout": k}))(variables, jnp.asarray(img),
                                                           jax.random.key(7))
     assert masks and not all(m.all() for m in masks)  # dropout is live
-    monkeypatch.setattr(tunet, "draw_uniform", masks_as_uniforms(masks))
+    monkeypatch.setattr(tlayers, "draw_uniform", masks_as_uniforms(masks))
     with torch.no_grad():
         got = model(torch.as_tensor(img), deterministic=False)
     _assert_outputs_close(got, ref)
@@ -164,7 +164,7 @@ def test_enet_transposed_conv_matches_flax_same_padding():
     layer = fnn.ConvTranspose(3, (3, 3), strides=(2, 2), padding="SAME", use_bias=False)
     variables = layer.init(jax.random.key(0), jnp.asarray(x))
     ref = np.asarray(layer.apply(variables, jnp.asarray(x))).transpose(0, 3, 1, 2)
-    conv = tunet.ConvTranspose(4, 3, (2, 2), kernel_size=(3, 3), padding="SAME")
+    conv = tlayers.ConvTranspose(4, 3, (2, 2), kernel_size=(3, 3), padding="SAME")
     state = flax_to_torch_state({"ConvTranspose_0": jax.tree.map(np.asarray,
                                                                  variables["params"])})
     conv.weight.data = state["ConvTranspose_0.weight"]
@@ -271,7 +271,7 @@ def test_dsnt_al_mc_predict_matches_jax(model_name, kwargs, monkeypatch):
     img = _img(2, seed=6)
     (mu_j, cov_j), masks = capture_masks(lambda v, x, k: jtask.predict(jmodel, v, x, rng=k))(
         variables, jnp.asarray(img), jax.random.key(9))
-    monkeypatch.setattr(tunet, "draw_uniform", masks_as_uniforms(masks))
+    monkeypatch.setattr(tlayers, "draw_uniform", masks_as_uniforms(masks))
     with torch.no_grad():
         mu, cov = task.predict(model, torch.as_tensor(img))
     assert mu.shape == (2, 2, 21, 2) and cov.shape == (2, 2, 21, 2, 2)

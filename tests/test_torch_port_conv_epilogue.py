@@ -1,7 +1,8 @@
 """The ConvLayer epilogue (ops/conv_epilogue.py, models/unet.py ConvLayer):
 the kernels' plain version against autograd of the plain chain (conv bias,
 channel dropout, instance norm, LeakyReLU), the kernels' launch plan at
-unet2's plane shapes, and which route each model takes.
+unet2's plane shapes, and which route each model's norm chains take
+(models/layers.py `chain_route`, the UNet's and DeepLabV3's).
 
 The CUDA kernels run only on the card (chip_smoke.py [19]); here the
 plain version stands in for them where a test forces the kernel route.
@@ -12,10 +13,11 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from contouring_uncertainty_torch.models import unet as unet_mod
-from contouring_uncertainty_torch.models.unet import (ConvLayer, InstanceNorm, UNet,
-                                                      channel_dropout, channel_keep,
-                                                      leaky_relu_sides, set_compute_dtype)
+from contouring_uncertainty_torch.models import layers
+from contouring_uncertainty_torch.models.deeplabv3 import DeepLabV3
+from contouring_uncertainty_torch.models.layers import (InstanceNorm, channel_dropout,
+                                                        channel_keep, set_compute_dtype)
+from contouring_uncertainty_torch.models.unet import ConvLayer, UNet, leaky_relu_sides
 from contouring_uncertainty_torch.ops import conv_epilogue as ce
 
 torch.set_num_threads(1)
@@ -174,7 +176,7 @@ def test_conv_epilogue_launch_plan_refuses_other_layouts(make):
 def test_conv_epilogue_kernels_refuse_cpu_tensors():
     """The kernels' wrappers and the Function take CUDA tensors only: a
     CPU tensor raises before any launch (the CPU takes the op-by-op chain,
-    by `ConvLayer.epilogue_route`)."""
+    by models/layers.py `chain_route`)."""
     x, cb, w, b, gy = _inputs((2, 3, 8, 8), seed=5, dtype=torch.float32)
     for call in (lambda: ce.epilogue_cuda(x, cb, None, 1.0, w, b),
                  lambda: ce.conv_epilogue(x, cb, None, 1.0, w, b),
@@ -192,28 +194,69 @@ def _small_unet(dtype=torch.float32, drop_block=True, seed=0):
     return model
 
 
-def test_epilogue_route_follows_the_device_dtype_and_pinning():
-    """An f32 model takes the kernels on a CUDA device and the op-by-op
-    chain on the CPU; an f64 model, a bf16 one and a model pinned by
-    `leaky_relu_sides(pin=...)` take the op-by-op chain on a CUDA device
-    too (the route is read from the device and the layer, nothing runs)."""
+def _small_deeplab(dtype=torch.float32, seed=0):
+    model = DeepLabV3((1, 32, 32), (3, 32, 32), layers=(1, 1, 1, 1), base=8, dropout=0.3,
+                      dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model
+
+
+SMALL_MODELS = {"unet": _small_unet, "deeplabv3": _small_deeplab}
+
+
+def _norm_chains(model):
+    """`chain_route`'s (conv, norm, pinned sides) of every norm chain: a
+    UNet's ConvLayers; a DeepLabV3's GroupNorm_i after Conv_i, or after
+    head_conv_i in the head."""
+    if isinstance(model, UNet):
+        return [(m.Conv_0, m.InstanceNorm_0, m.pinned_sides) for m in model.modules()
+                if isinstance(m, ConvLayer)]
+    out = []
+    for mod in model.modules():
+        for child, norm in mod.named_children():
+            if child.startswith("GroupNorm_"):
+                i = child.split("_")[1]
+                conv = getattr(mod, f"Conv_{i}", None) or getattr(mod, f"head_conv_{i}")
+                out.append((conv, norm, None))
+    return out
+
+
+@pytest.mark.parametrize("name", list(SMALL_MODELS))
+def test_chain_route_follows_the_device_dtype_and_pinning(name):
+    """An f32 model's norm chains take the kernels on a CUDA device and
+    the op-by-op chain on the CPU; an f64 model, a bf16 one and a UNet
+    pinned by `leaky_relu_sides(pin=...)` take the op-by-op chain on a
+    CUDA device too (the route is read from the device and the layers,
+    nothing runs). The small UNet has 14 ConvLayers, the small DeepLabV3
+    24 norms, as the benchmark's `norm_fused.train` counts them."""
+    from portbench import harness
+
+    build = SMALL_MODELS[name]
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    f32 = _small_unet()
-    layers = [m for m in f32.modules() if isinstance(m, ConvLayer)]
-    assert len(layers) == 2 * (2 * 4 - 1)
-    assert {m.epilogue_route(cuda) for m in layers} == {"kernel"}
-    assert {m.epilogue_route(cpu) for m in layers} == {"plain"}
-    f64 = set_compute_dtype(_small_unet().double(), torch.float64)
-    bf16 = _small_unet(dtype=torch.bfloat16)
+
+    def routes(model, device):
+        return {layers.chain_route(c, n, device, s) for c, n, s in _norm_chains(model)}
+
+    f32 = build()
+    if name == "unet":
+        assert len(_norm_chains(f32)) == 2 * (2 * 4 - 1)
+    else:
+        reader = harness.Manifest(harness.REPO / "BENCHMARK.json").metric_reader(
+            "norm_fused.train")
+        assert len(_norm_chains(f32)) == reader.norms((1, 1, 1, 1)) == 24
+    assert routes(f32, cuda) == {"kernel"}
+    assert routes(f32, cpu) == {"plain"}
+    f64 = set_compute_dtype(build().double(), torch.float64)
+    bf16 = build(dtype=torch.bfloat16)
     for model in (f64, bf16):
-        assert {m.epilogue_route(cuda) for m in model.modules()
-                if isinstance(m, ConvLayer)} == {"plain"}
-    x = torch.randn(2, 1, 32, 32)
-    with leaky_relu_sides(f32) as sides:
-        f32(x)
-    with leaky_relu_sides(f32, sides):
-        assert {m.epilogue_route(cuda) for m in layers} == {"plain"}
-    assert {m.epilogue_route(cuda) for m in layers} == {"kernel"}
+        assert routes(model, cuda) == {"plain"}
+    if name == "unet":
+        x = torch.randn(2, 1, 32, 32)
+        with leaky_relu_sides(f32) as sides:
+            f32(x)
+        with leaky_relu_sides(f32, sides):
+            assert routes(f32, cuda) == {"plain"}
+        assert routes(f32, cuda) == {"kernel"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -238,15 +281,21 @@ def test_leaky_relu_sides_records_the_pre_activation_sign(dtype):
 
 
 def _plain_kernels(monkeypatch):
-    """Force the kernel route on the CPU, with the plain version in the
-    kernels' place inside the Function."""
+    """Force the kernel route on the CPU, with the plain versions in the
+    kernels' place inside the Functions."""
     def forward(x, *args):
         ce.epilogue_plan(x)  # what the kernels refuse, refused
         return ce.epilogue_plain(x, *args)
 
-    monkeypatch.setattr(ConvLayer, "epilogue_route", lambda self, device: "kernel")
+    def tail(a, keep, keep_prob, weight, bias, r):
+        ce.epilogue_plan(a, r)
+        return ce.tail_plain(a, keep, keep_prob, weight, bias, r)
+
+    monkeypatch.setattr(layers, "chain_route", lambda *args: "kernel")
     monkeypatch.setattr(ce, "epilogue_cuda", forward)
     monkeypatch.setattr(ce, "epilogue_backward_cuda", ce.epilogue_backward_plain)
+    monkeypatch.setattr(ce, "tail_cuda", tail)
+    monkeypatch.setattr(ce, "tail_backward_cuda", ce.tail_backward_plain)
 
 
 def test_kernel_route_on_the_cpu_matches_the_plain_chain(monkeypatch):
@@ -269,9 +318,8 @@ def test_kernel_route_on_the_cpu_matches_the_plain_chain(monkeypatch):
     plain = run()
     _plain_kernels(monkeypatch)
     calls = []
-    real = unet_mod.conv_epilogue.conv_epilogue
-    monkeypatch.setattr(unet_mod.conv_epilogue, "conv_epilogue",
-                        lambda *a: calls.append(a[2] is not None) or real(*a))
+    real = ce.conv_epilogue
+    monkeypatch.setattr(ce, "conv_epilogue", lambda *a: calls.append(a[2] is not None) or real(*a))
     fused = run()
     assert len(calls) == 14 and sum(calls) == 6  # dropout in the two deepest stages
     assert torch.equal(plain[2], fused[2])
@@ -284,6 +332,38 @@ def test_kernel_route_on_the_cpu_matches_the_plain_chain(monkeypatch):
         tol = (1e-5 * top if name.endswith("Conv_0.bias") and ".ConvLayer_" in name
                else 2e-4 * float(g.abs().max()) + 1e-6 * top)
         assert float((got - g).abs().max()) <= tol, name
+
+
+@pytest.mark.parametrize("name,chains", [("unet", 14), ("deeplabv3", 24)])
+def test_every_fused_chain_takes_the_route(name, chains, monkeypatch):
+    """In one training forward and backward of the small UNet (14
+    ConvLayers) and the small DeepLabV3 (24 norms), with the plain
+    versions in the kernels' place, `chain_route` answers "kernel" once a
+    chain when asked for a CUDA device, and the kernels launch once a
+    chain each way: no fused chain reaches the kernels without the
+    route."""
+    real_route = layers.chain_route
+    _plain_kernels(monkeypatch)
+    answers, launches = [], []
+
+    def on_card(conv, norm, device, sides=None):
+        answers.append(real_route(conv, norm, torch.device("cuda"), sides))
+        return answers[-1]
+
+    monkeypatch.setattr(layers, "chain_route", on_card)
+    for fn in ("epilogue_cuda", "epilogue_backward_cuda", "tail_cuda", "tail_backward_cuda"):
+        inner = getattr(ce, fn)
+        monkeypatch.setattr(ce, fn, lambda *a, inner=inner, fn=fn, **k:
+                            launches.append(fn) or inner(*a, **k))
+    model = SMALL_MODELS[name](seed=2)
+    out = model(torch.randn(2, 1, 32, 32), deterministic=False,
+                generator=torch.Generator().manual_seed(3))["out"]
+    out.square().sum().backward()
+    assert answers == ["kernel"] * chains
+    forward = launches.count("epilogue_cuda") + launches.count("tail_cuda")
+    backward = launches.count("epilogue_backward_cuda") + launches.count("tail_backward_cuda")
+    assert forward == backward == chains
+    assert launches.count("tail_cuda") == (4 if name == "deeplabv3" else 0)
 
 
 def test_conv_layer_refuses_planes_over_the_kernels_limit(monkeypatch):

@@ -1,10 +1,11 @@
-"""DeepLabV3's norm chains on the kernel route (models/deeplabv3.py
-`norm_route`, ops/conv_epilogue.py): the plain versions of the three chains
-against autograd of the op-by-op chain (A: conv -> GroupNorm -> ReLU; P:
-conv -> GroupNorm; T: a bottleneck's last norm, channel dropout after it,
-the residual add and the ReLU), a small DeepLabV3 with the kernel route
-forced on the CPU against the op-by-op model, which route each model
-takes, and the launch plan at DeepLabV3's plane shapes.
+"""DeepLabV3's norm chains on the kernel route (models/layers.py
+`conv_norm` and `conv_norm_tail`, ops/conv_epilogue.py): the plain versions
+of the three chains against autograd of the op-by-op chain (A: conv ->
+GroupNorm -> ReLU; P: conv -> GroupNorm; T: a bottleneck's last norm,
+channel dropout after it, the residual add and the ReLU), a small DeepLabV3
+with the kernel route forced on the CPU against the op-by-op model, and the
+launch plan at DeepLabV3's plane shapes (which route each model takes:
+tests/test_torch_port_conv_epilogue.py).
 
 The CUDA kernels run only on the card (chip_smoke.py [20]); here the plain
 versions stand in for them where a test forces the kernel route.
@@ -15,11 +16,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from contouring_uncertainty_torch.models import deeplabv3 as dl_mod
-from contouring_uncertainty_torch.models import unet as unet_mod
-from contouring_uncertainty_torch.models.deeplabv3 import DeepLabV3, norm_route
-from contouring_uncertainty_torch.models.unet import (InstanceNorm, channel_dropout, channel_keep,
-                                                      set_compute_dtype)
+from contouring_uncertainty_torch.models import layers
+from contouring_uncertainty_torch.models.deeplabv3 import DeepLabV3
+from contouring_uncertainty_torch.models.layers import InstanceNorm, channel_dropout, channel_keep
 from contouring_uncertainty_torch.ops import conv_epilogue as ce
 
 torch.set_num_threads(1)
@@ -121,40 +120,6 @@ def _small_deeplab(dtype=torch.float32, seed=0):
     return model
 
 
-def _chains(model):
-    """Every (conv, norm) pair of a DeepLabV3: GroupNorm_i after Conv_i, or
-    after head_conv_i in the head."""
-    out = []
-    for name, mod in model.named_modules():
-        for child, norm in mod.named_children():
-            if child.startswith("GroupNorm_"):
-                i = child.split("_")[1]
-                conv = getattr(mod, f"Conv_{i}", None) or getattr(mod, f"head_conv_{i}")
-                out.append((f"{name}.{child}", conv, norm))
-    return out
-
-
-def test_norm_route_follows_the_device_and_dtype():
-    """An f32 model takes the kernels on a CUDA device and the op-by-op
-    chain on the CPU; an f64 model and a bf16 one take the op-by-op chain
-    on a CUDA device too (the route is read from the device and the layer,
-    nothing runs). The small model has 24 norms, as the benchmark's
-    `norm_fused.train` counts them."""
-    from portbench import harness
-
-    reader = harness.Manifest(harness.REPO / "BENCHMARK.json").metric_reader("norm_fused.train")
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    f32 = _small_deeplab()
-    chains = _chains(f32)
-    assert len(chains) == reader.norms((1, 1, 1, 1)) == 24
-    assert {norm_route(c, n, cuda) for _, c, n in chains} == {"kernel"}
-    assert {norm_route(c, n, cpu) for _, c, n in chains} == {"plain"}
-    f64 = set_compute_dtype(_small_deeplab().double(), torch.float64)
-    bf16 = _small_deeplab(dtype=torch.bfloat16)
-    for model in (f64, bf16):
-        assert {norm_route(c, n, cuda) for _, c, n in _chains(model)} == {"plain"}
-
-
 def _plain_kernels(monkeypatch):
     """Force the kernel route on the CPU, with the plain versions in the
     kernels' place inside the Functions (what the kernels refuse, refused)."""
@@ -166,7 +131,7 @@ def _plain_kernels(monkeypatch):
         ce.epilogue_plan(a, r)
         return ce.tail_plain(a, keep, keep_prob, weight, bias, r)
 
-    monkeypatch.setattr(dl_mod, "norm_route", lambda conv, norm, device: "kernel")
+    monkeypatch.setattr(layers, "chain_route", lambda *args: "kernel")
     monkeypatch.setattr(ce, "epilogue_cuda", forward)
     monkeypatch.setattr(ce, "epilogue_backward_cuda", ce.epilogue_backward_plain)
     monkeypatch.setattr(ce, "tail_cuda", tail)
@@ -181,7 +146,7 @@ def test_kernel_route_on_the_cpu_matches_the_op_by_op_model(monkeypatch):
     generators end equal), outputs, loss and every gradient within f32
     rounding; 20 chains through the epilogue and 4 through the tail."""
     x = torch.randn(3, 1, 32, 32, generator=torch.Generator().manual_seed(4))
-    real_keep = unet_mod.channel_keep
+    real_keep = layers.channel_keep
 
     def run():
         masks = []
@@ -190,8 +155,7 @@ def test_kernel_route_on_the_cpu_matches_the_op_by_op_model(monkeypatch):
             masks.append(real_keep(t, rate, gen))
             return masks[-1]
 
-        monkeypatch.setattr(unet_mod, "channel_keep", record)
-        monkeypatch.setattr(dl_mod, "channel_keep", record)
+        monkeypatch.setattr(layers, "channel_keep", record)
         model = _small_deeplab(seed=3)
         gen = torch.Generator().manual_seed(9)
         out = model(x, deterministic=False, generator=gen)["out"]
@@ -236,7 +200,7 @@ def test_kernel_route_refuses_what_the_kernels_do_not_take(monkeypatch):
     model = _small_deeplab()
     stem = model.ResNetBackbone_0
     with pytest.raises(ValueError, match="planes of at most 65536"):
-        dl_mod.conv_norm(stem.Conv_0, stem.GroupNorm_0, torch.zeros(1, 1, 514, 512))
+        layers.conv_norm(stem.Conv_0, stem.GroupNorm_0, torch.zeros(1, 1, 514, 512), "relu")
     a, w, b, r, gy = _inputs("16x16", seed=1, dtype=torch.float32)
     monkeypatch.undo()
     for bad in (r[:, :, :8], r.double()):

@@ -33,7 +33,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from contouring_uncertainty_torch.data.config import DataParams
 from contouring_uncertainty_torch.models.deeplabv3 import DeepLabV3
-from contouring_uncertainty_torch.models.unet import Conv, InstanceNorm
+from contouring_uncertainty_torch.models.layers import Conv, InstanceNorm
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 from contouring_uncertainty_torch.utils import profiling

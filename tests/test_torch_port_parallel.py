@@ -54,7 +54,7 @@ from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
 from contouring_uncertainty_torch.models import build_backbone
 from contouring_uncertainty_torch.models.unet import UNet
 from contouring_uncertainty_torch import rng
-from contouring_uncertainty_torch.models import unet as tunet
+from contouring_uncertainty_torch.models import layers as tlayers
 from contouring_uncertainty_torch.ops import dsnt_kernel
 from contouring_uncertainty_torch.ops.dsnt import logits_to_pixel_gaussians
 from contouring_uncertainty_torch.parallel import (
@@ -161,7 +161,7 @@ def _results(results):
 def _recorded(model, sampler=None):
     """Within the block, record the rows of each call of `model`'s encoder
     prefix (its first stage) and of its stochastic tail (its first dropout
-    stage), every dropout mask (`draw_uniform` in models/unet.py: a tail
+    stage), every dropout mask (`draw_uniform` in models/layers.py: a tail
     block's rows of the whole batch's mask) and, within
     `sampler.sample_batch`, every draw (the outermost `rng._draw` calls)."""
     rec = {"prefix": [], "tail": [], "masks": [], "draws": []}
@@ -169,7 +169,7 @@ def _recorded(model, sampler=None):
     rows = lambda key: lambda mod, inputs, out: rec[key].append(inputs[0].shape[0])
     handles = [unet.stage(0).register_forward_hook(rows("prefix")),
                unet.stage(unet.first_drop + 1).register_forward_hook(rows("tail"))]
-    draw_uniform, draw, depth, sampling = tunet.draw_uniform, rng._draw, [0], [False]
+    draw_uniform, draw, depth, sampling = tlayers.draw_uniform, rng._draw, [0], [False]
 
     def masks(*args, **kwargs):
         u = draw_uniform(*args, **kwargs)
@@ -195,13 +195,13 @@ def _recorded(model, sampler=None):
         finally:
             sampling[0] = False
 
-    tunet.draw_uniform, rng._draw = masks, draws
+    tlayers.draw_uniform, rng._draw = masks, draws
     if sampler is not None:
         sampler.sample_batch = sampled
     try:
         yield rec
     finally:
-        tunet.draw_uniform, rng._draw = draw_uniform, draw
+        tlayers.draw_uniform, rng._draw = draw_uniform, draw
         if sampler is not None:
             del sampler.sample_batch
         for h in handles:

@@ -42,7 +42,7 @@ from contouring_uncertainty_torch import runner
 from contouring_uncertainty_torch.data import augment as taug
 from contouring_uncertainty_torch.data.config import BatchResult, DataParams
 from contouring_uncertainty_torch.data.synthetic import synthetic_camus_data
-from contouring_uncertainty_torch.models import unet as tunet
+from contouring_uncertainty_torch.models import layers as tlayers
 from contouring_uncertainty_torch.results import run_processors
 from contouring_uncertainty_torch.rng import RowBlock
 from contouring_uncertainty_torch.sampler import PosteriorShapeModelSampler, fit_shape_prior
@@ -91,7 +91,7 @@ def capture_masks(fn):
 
 
 def masks_as_uniforms(masks):
-    """Stands in for rng.draw_uniform in models/unet.py: uniforms that keep
+    """Stands in for rng.draw_uniform in models/layers.py: uniforms that keep
     exactly the channels of the next captured mask. The row blocks of an
     MC-dropout forward (an `rng.RowBlock` each, tasks/dsnt_al.py
     `mc_dropout_apply`) run one after another: each block takes, in order,
@@ -175,7 +175,7 @@ def test_seg_predictor_matches_jax(name, channels, imgs, monkeypatch):
 
     def run(fn):
         with monkeypatch.context() as mp:
-            mp.setattr(tunet, "draw_uniform", masks_as_uniforms(masks))
+            mp.setattr(tlayers, "draw_uniform", masks_as_uniforms(masks))
             port_draws(name, draws, mp)
             return fn()
 
@@ -188,7 +188,7 @@ def test_seg_predictor_matches_jax(name, channels, imgs, monkeypatch):
     singles = []
     for v in range(2):
         with monkeypatch.context() as mp:
-            mp.setattr(tunet, "draw_uniform", masks_as_uniforms(masks[v * len(masks) // 2:]))
+            mp.setattr(tlayers, "draw_uniform", masks_as_uniforms(masks[v * len(masks) // 2:]))
             port_draws(name, draws[v:v + 1], mp)
             singles.append(tpred._to_numpy(predictor(imgs[v], gens[v])))
     both = tpred._to_numpy(run(lambda: predictor.batched(imgs, gens)))
@@ -383,7 +383,7 @@ def test_epistemic_task_matches_jax(epistemic_pair, imgs, monkeypatch):
 
     def with_masks(fn):
         with monkeypatch.context() as mp:
-            mp.setattr(tunet, "draw_uniform", masks_as_uniforms(masks))
+            mp.setattr(tlayers, "draw_uniform", masks_as_uniforms(masks))
             return fn()
 
     with torch.no_grad():

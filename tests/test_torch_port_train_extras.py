@@ -37,8 +37,8 @@ from contouring_uncertainty_torch.data import native_loader
 from contouring_uncertainty_torch.data.config import DataParams
 from contouring_uncertainty_torch.data.native_loader import NativePrefetcher
 from contouring_uncertainty_torch.data.synthetic import make_arrays
-from contouring_uncertainty_torch.models.unet import (conv_output_dtypes, leaky_relu_sides,
-                                                     set_compute_dtype)
+from contouring_uncertainty_torch.models.layers import conv_output_dtypes, set_compute_dtype
+from contouring_uncertainty_torch.models.unet import leaky_relu_sides
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 from contouring_uncertainty_torch.train import Trainer, TrainerConfig
 from contouring_uncertainty_torch.train.checkpoint import resolve_checkpoint

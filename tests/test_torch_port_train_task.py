@@ -23,7 +23,8 @@ from contouring_uncertainty_torch.convert import flax_to_torch_state
 from contouring_uncertainty_torch.data import augment as taug
 from contouring_uncertainty_torch.data.config import DataParams
 from contouring_uncertainty_torch.data.synthetic import make_arrays
-from contouring_uncertainty_torch.models.unet import leaky_relu_sides, set_compute_dtype
+from contouring_uncertainty_torch.models.layers import set_compute_dtype
+from contouring_uncertainty_torch.models.unet import leaky_relu_sides
 from contouring_uncertainty_torch.tasks import DSNTAleatoric
 from contouring_uncertainty_torch.utils.metrics import dice_binary
 
@@ -253,7 +254,7 @@ def test_channel_dropout_keep_rate_matches_flax():
     over H, W) and scaled by 2, over 20,000 channels (4 sigma ~ 0.014)."""
     from flax import linen as nn
 
-    from contouring_uncertainty_torch.models.unet import channel_dropout
+    from contouring_uncertainty_torch.models.layers import channel_dropout
 
     x = np.ones((200, 100, 2, 2), np.float32)
     jy = nn.Dropout(0.5, broadcast_dims=(1, 2)).apply(
