@@ -12,8 +12,9 @@ result line):
 
 1. card check: CUDA present; the card's name and power limit; TF32 off for
    matmuls and cuDNN convolutions;
-2. build: nvcc for the three CUDA sources (csrc/min_k_crossings.cu,
-   csrc/dsnt_moments.cu, csrc/conv_epilogue.cu) and g++ for the C++ batch prefetcher
+2. build: nvcc for the four CUDA sources (csrc/min_k_crossings.cu,
+   csrc/dsnt_moments.cu, csrc/conv_epilogue.cu, csrc/conv1x1_wgrad.cu) and
+   g++ for the C++ batch prefetcher
    (csrc/prefetch_loader.cpp), all in parallel, from the sources in this
    checkout into contouring_uncertainty_torch/_build/, with ptxas's
    register report; a prefetcher that does not build fails the run;
@@ -304,6 +305,27 @@ result line):
    epilogue, 16 norm tail) in every step, and its output, loss and
    gradients beside the op-by-op model's (`chain_route` forced to "plain"),
    printed.
+21. the 1x1 convolutions' weight gradient (models/layers.py `Conv`, routed
+   by `wgrad_route` -> ops/conv1x1_wgrad.py -> csrc/conv1x1_wgrad.cu),
+   before the kernels line: at each 1x1 shape of DeepLabV3-ResNet50 (40 a
+   step) and the UNet's head at batch 32, 256^2, the split-K kernel twice
+   (the same bits) and the plain f32 version against f64 (relative
+   Frobenius error at most WGRAD_BAR), each timed (CUDA graphs) beside its
+   bound (operations at 67 TFLOP/s or bytes at 3.35 TB/s, the larger), the
+   plain version, and as yardsticks the port never calls: cuDNN's weight
+   gradient under its heuristics and under `cudnn.benchmark`, cuDNN's
+   data gradient alone, and torch.matmul's batched product and sum; a
+   step's 1x1s summed per model. The kernel's launches are counted in
+   every `Trainer.train_step` of the training paths (`epilogue_ledger`):
+   1 a step in [9]'s flagship run (and none outside its train steps), 40
+   in [15]'s DeepLabV3 training, 1 in [16]'s bf16 run (its head's output
+   convolution computes in f32, the bf16 trunk takes none); the kernels
+   line carries each path's launches a step. Then in one training forward
+   and backward, none in an f64 DeepLabV3, a bf16 one and a no_grad
+   forward; and the f32 DeepLabV3 step's cuDNN forward and data gradient
+   kernels the same names with the route as without it (`wgrad_route`
+   forced to "plain"), and its cuDNN weight gradient launches and time
+   both ways, printed.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -447,6 +469,26 @@ DEEPLAB_NORMS = 60  # 1 + 3 x 16 bottlenecks + 4 projections + 6 in ASPP + 1 in 
 DEEPLAB_DROPOUT = 0.1
 # Bytes an element each kernel must move (forward, backward).
 CHAIN_BYTES = {"A": (8.0, 12.0), "P": (8.0, 12.0), "T": (12.0, 20.0)}
+
+# The 1x1 convolutions' weight gradient ([21]) at batch 32, 256^2: (model,
+# Co, Ci, input side, stride, convolutions of that shape in a step).
+# DeepLabV3-ResNet50's 40 (two a bottleneck, four projections, ASPP's 1x1
+# branch, pooled branch and projection, the head's output) and the UNet's
+# 32 -> 21 head. The kernel's and the plain f32 version's error against
+# f64 (Frobenius norm, relative) at most WGRAD_BAR.
+WGRAD_1X1 = [("deeplabv3", 64, 64, 64, 1, 1), ("deeplabv3", 256, 64, 64, 1, 4),
+             ("deeplabv3", 64, 256, 64, 1, 2), ("deeplabv3", 128, 256, 64, 1, 1),
+             ("deeplabv3", 512, 128, 32, 1, 4), ("deeplabv3", 512, 256, 64, 2, 1),
+             ("deeplabv3", 128, 512, 32, 1, 3), ("deeplabv3", 256, 512, 32, 1, 1),
+             ("deeplabv3", 1024, 256, 16, 1, 6), ("deeplabv3", 1024, 512, 32, 2, 1),
+             ("deeplabv3", 256, 1024, 16, 1, 5), ("deeplabv3", 512, 1024, 16, 1, 1),
+             ("deeplabv3", 2048, 512, 16, 1, 3), ("deeplabv3", 2048, 1024, 16, 1, 1),
+             ("deeplabv3", 512, 2048, 16, 1, 2), ("deeplabv3", 256, 2048, 16, 1, 1),
+             ("deeplabv3", 256, 2048, 1, 1, 1), ("deeplabv3", 256, 1280, 16, 1, 1),
+             ("deeplabv3", 21, 256, 16, 1, 1), ("unet2", 21, 32, 256, 1, 1)]
+WGRAD_BATCH = 32
+WGRAD_BAR = 1e-5
+DEEPLAB_1X1 = 40  # 2 x 16 bottlenecks + 4 projections + 3 in ASPP + the head's output
 
 
 def card_line() -> str:
@@ -1108,6 +1150,19 @@ def norm_launches():
     return (ce.fwd_launches + ce.tail_fwd_launches, ce.bwd_launches + ce.tail_bwd_launches)
 
 
+def wgrad_launches():
+    """(kernel, reduce pass) launches of the 1x1 weight gradient so far."""
+    from contouring_uncertainty_torch.ops import conv1x1_wgrad as cw
+
+    return cw.launches, cw.reduce_launches
+
+
+def zero_wgrad_launches() -> None:
+    from contouring_uncertainty_torch.ops import conv1x1_wgrad as cw
+
+    cw.launches = cw.reduce_launches = 0
+
+
 @contextmanager
 def routed_chains():
     """While the block runs, the norm chains taking the kernel route (the
@@ -1133,18 +1188,20 @@ def routed_chains():
 @contextmanager
 def epilogue_ledger():
     """Per train step (`Trainer.train_step`, wrapped while the block runs):
-    the norm chain kernels' (forward, backward) launches (`norm_launches`)
-    and the chains on the kernel route (`routed_chains`) in it."""
+    the norm chain kernels' (forward, backward) launches (`norm_launches`),
+    the chains on the kernel route (`routed_chains`) and the 1x1 weight
+    gradient's (kernel, reduce pass) launches (`wgrad_launches`) in it."""
     from contouring_uncertainty_torch.train import Trainer
 
     steps = []
     step_fn = Trainer.train_step
 
     def train_step(self, *args, **kwargs):
-        before, routed[0] = norm_launches(), 0
+        before, wgrad_before, routed[0] = norm_launches(), wgrad_launches(), 0
         out = step_fn(self, *args, **kwargs)
-        after = norm_launches()
-        steps.append((after[0] - before[0], after[1] - before[1], routed[0]))
+        after, wgrad_after = norm_launches(), wgrad_launches()
+        steps.append((after[0] - before[0], after[1] - before[1], routed[0],
+                      wgrad_after[0] - wgrad_before[0], wgrad_after[1] - wgrad_before[1]))
         return out
 
     Trainer.train_step = train_step
@@ -1155,19 +1212,27 @@ def epilogue_ledger():
         Trainer.train_step = step_fn
 
 
-def epilogue_per_step(label: str, steps: list, layers=None) -> dict:
+def epilogue_per_step(label: str, steps: list, layers=None, wgrad=None) -> dict:
     """From `epilogue_ledger`'s steps: every step launched the forward and
     the backward kernel once per ConvLayer call on the kernel route (and
-    made `layers` such calls, where given), the same in every step ->
+    made `layers` such calls, where given) and the 1x1 weight gradient
+    kernel `wgrad` times (where given), the same in every step ->
     launches per step."""
+    norm = [step[:3] for step in steps]
     want = None if layers is None else (layers, layers, layers)
-    if not steps or len(set(steps)) != 1 or steps[0][0] != steps[0][2] \
-            or steps[0][1] != steps[0][2] or want not in (None, steps[0]):
+    if not steps or len(set(norm)) != 1 or norm[0][0] != norm[0][2] \
+            or norm[0][1] != norm[0][2] or want not in (None, norm[0]):
         raise AssertionError(f"{label}: conv epilogue launches (forward, backward, ConvLayer "
-                             f"calls on the kernel route) per train step {sorted(set(steps))}, "
+                             f"calls on the kernel route) per train step {sorted(set(norm))}, "
                              f"expected one launch of each per call"
                              f"{'' if want is None else f', {layers} calls'}")
-    return {"forward": steps[0][0], "backward": steps[0][1], "steps": len(steps)}
+    per_step = {step[3:] for step in steps}
+    if len(per_step) != 1 or wgrad not in (None, steps[0][3]):
+        raise AssertionError(f"{label}: 1x1 weight gradient launches (kernel, reduce pass) per "
+                             f"train step {sorted(per_step)}, expected the same in every step"
+                             f"{'' if wgrad is None else f', {wgrad} kernel launches'}")
+    return {"forward": steps[0][0], "backward": steps[0][1], "wgrad": steps[0][3],
+            "wgrad_reduce": steps[0][4], "steps": len(steps)}
 
 
 def training_run() -> dict:
@@ -1185,6 +1250,7 @@ def training_run() -> dict:
     dsnt_kernel.row_launches = dsnt_kernel.col_launches = 0
     select_kernel.launches = 0
     ce.fwd_launches = ce.bwd_launches = 0
+    zero_wgrad_launches()
     native_loader.batches_served = 0
     t0 = time.perf_counter()
     with launch_ledger() as ledger, epilogue_ledger() as epi:
@@ -1194,8 +1260,13 @@ def training_run() -> dict:
     feed = native_feed(len(ledger["train step"]))
     totals = {"K2": dsnt_kernel.row_launches, "K1": dsnt_kernel.col_launches,
               "K3": select_kernel.launches}
-    epilogue = {**epilogue_per_step("[9] training", epi, layers=UNET2_LAYERS),
-                "run_forward": ce.fwd_launches, "run_backward": ce.bwd_launches}
+    epilogue = {**epilogue_per_step("[9] training", epi, layers=UNET2_LAYERS, wgrad=1),
+                "run_forward": ce.fwd_launches, "run_backward": ce.bwd_launches,
+                "run_wgrad": wgrad_launches()[0]}
+    if epilogue["run_wgrad"] != epilogue["wgrad"] * epilogue["steps"]:
+        raise AssertionError(f"[9] training: {epilogue['run_wgrad']} 1x1 weight gradient "
+                             f"launches in the run, {epilogue['wgrad']} in each of its "
+                             f"{epilogue['steps']} train steps and none elsewhere expected")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # Gates: finite losses, the files a run leaves, launches where expected.
@@ -3115,10 +3186,12 @@ def batch_of_32(data):
                       "cuda")
 
 
-def train_steps(label: str, trainer, batch, steps: int, fit_steps: int = 0) -> dict:
+def train_steps(label: str, trainer, batch, steps: int, fit_steps: int = 0,
+                wgrad=None) -> dict:
     """A warm-up step, then `steps` timed steps (every loss finite, launches
-    counted from 0: their totals and per step; the conv epilogue's in
-    every step, `epilogue_per_step`), peak memory; with
+    counted from 0: their totals and per step; the conv epilogue's and the
+    1x1 weight gradient's in every step, `epilogue_per_step`, `wgrad`
+    kernel launches a step where given), peak memory; with
     `fit_steps`, that many more steps without augmentation, in which the
     loss must fall."""
     import torch
@@ -3131,6 +3204,7 @@ def train_steps(label: str, trainer, batch, steps: int, fit_steps: int = 0) -> d
     with epilogue_ledger() as epi:
         losses = [float(trainer.train_step(batch, 0)["loss"])]
         dsnt_kernel.row_launches = dsnt_kernel.col_launches = select_kernel.launches = 0
+        zero_wgrad_launches()
         steps_ms = []
         for step in range(1, 1 + steps):
             torch.cuda.synchronize()
@@ -3141,9 +3215,12 @@ def train_steps(label: str, trainer, batch, steps: int, fit_steps: int = 0) -> d
                 "K3": select_kernel.launches}
     if not np.isfinite(losses).all():
         raise AssertionError(f"{label}: non-finite training loss {losses}")
+    if wgrad_launches()[0] != sum(step[3] for step in epi[1:]):
+        raise AssertionError(f"{label}: {wgrad_launches()[0]} 1x1 weight gradient launches in "
+                             f"the {steps} timed steps, counted {[s[3] for s in epi[1:]]}")
     out = {"losses": losses, "launches": launches,
            "per_step": {k: v / steps for k, v in launches.items()},
-           "epilogue_per_step": epilogue_per_step(label, epi),
+           "epilogue_per_step": epilogue_per_step(label, epi, wgrad=wgrad),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if fit_steps:
         trainer.config.augment = False
@@ -3245,7 +3322,8 @@ def backbones(camus: dict, profile_dir=None) -> dict:
                        f"seed={TRAIN_CFG['seed']}", f"save_path={CAMUS_DIR}"])
         task = build_task(cfg, train_data.data_params)
         trainer = build_trainer(cfg, task)
-        train = train_steps(f"{name} training", trainer, batch, BACKBONE_TRAIN_STEPS)
+        train = train_steps(f"{name} training", trainer, batch, BACKBONE_TRAIN_STEPS,
+                            wgrad=DEEPLAB_1X1 if name == "deeplabv3" else None)
         k2 = 0 if name == "resnet" else 1
         if train["per_step"] != {"K2": k2, "K1": 0, "K3": 0}:
             raise AssertionError(f"{name} training: launches per step {train['per_step']}")
@@ -3596,7 +3674,9 @@ def bf16_training() -> dict:
     for label, want in expected.items():
         if not ledger[label] or any(call != want for call in ledger[label]):
             raise AssertionError(f"bf16 training {label}: launches {ledger[label]}")
-    epilogue = epilogue_per_step("bf16 training", epi, layers=0)  # the op-by-op chain
+    # The norm chains op by op; the trunk's 1x1s compute in bf16 (no kernel),
+    # the head's output convolution in f32 (the kernel, once a step).
+    epilogue = epilogue_per_step("bf16 training", epi, layers=0, wgrad=1)
     feed = native_feed(len(ledger["train step"]))
     # The library's first epoch on the host, over sample indices.
     trainer, train, val = fits[0][:3]
@@ -4781,6 +4861,174 @@ def norm_chain_kernel_entry(chains: dict) -> dict:
             "step": chains["step"]}
 
 
+def wgrad_block(co: int, ci: int, side: int, stride: int, seed: int) -> dict:
+    """One 1x1 shape at WGRAD_BATCH: the kernel twice (the same bits) and
+    the plain f32 version against f64; the kernel, the plain version,
+    cuDNN's weight gradient (heuristics and benchmark mode), cuDNN's data
+    gradient alone and torch.matmul's batched product and sum, timed."""
+    import torch
+
+    from contouring_uncertainty_torch.ops import conv1x1_wgrad as cw
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(WGRAD_BATCH, ci, side, side, generator=gen, device="cuda")
+    ho = (side - 1) // stride + 1
+    gy = torch.randn(WGRAD_BATCH, co, ho, ho, generator=gen, device="cuda")
+    w = torch.randn(co, ci, 1, 1, generator=gen, device="cuda")
+    xs = cw.strided_input(x, (stride, stride))
+    got = cw.wgrad_cuda(gy, xs)
+    if not torch.equal(got, cw.wgrad_cuda(gy, xs)):
+        raise AssertionError(f"1x1 weight gradient {(co, ci, side, stride)}: two launches differ")
+    ref = cw.wgrad_plain(gy.double(), xs.double())
+    rel = lambda t: float((t.double() - ref).norm() / ref.norm().clamp_min(1e-300))
+    err = {"kernel": rel(got), "plain": rel(cw.wgrad_plain(gy, xs))}
+    if max(err.values()) > WGRAD_BAR:
+        raise AssertionError(f"1x1 weight gradient {(co, ci, side, stride)}: errors against "
+                             f"f64 {err} exceed {WGRAD_BAR}")
+    conv_backward = lambda mask: torch.ops.aten.convolution_backward(
+        gy, x, w, None, [stride, stride], [0, 0], [1, 1], False, [0, 0], 1, mask)
+    np_ = WGRAD_BATCH * ho * ho
+    row = {"shape": [co, ci, side, stride], "plan": list(cw.wgrad_plan(co, ci, np_, n_sm())),
+           "errors": err, "kernel_ms": cuda_ms(lambda: cw.wgrad_cuda(gy, xs)),
+           "bound_ms": cw.bound_seconds(co, ci, np_) * 1e3,
+           "bound_by": "operations" if 2 * co * ci * np_ / F32_OPS_PER_S
+           >= 4 * (co + ci) * np_ / HBM_BYTES_PER_S else "bytes",
+           "plain_ms": cuda_ms(lambda: cw.wgrad_plain(gy, xs)),
+           "cudnn_wgrad_ms": cuda_ms(lambda: conv_backward([False, True, False])),
+           "cudnn_dgrad_ms": cuda_ms(lambda: conv_backward([True, False, False])),
+           "matmul_ms": cuda_ms(lambda: torch.matmul(
+               gy.reshape(WGRAD_BATCH, co, -1),
+               xs.reshape(WGRAD_BATCH, ci, -1).transpose(1, 2)).sum(0))}
+    torch.backends.cudnn.benchmark = True
+    try:
+        row["cudnn_benchmark_wgrad_ms"] = cuda_ms(lambda: conv_backward([False, True, False]))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    row["share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def wgrad_step_launches() -> dict:
+    """The kernel's launches (the reduce pass's apart) in one training
+    forward and backward at WGRAD_BATCH x 256^2 where no train step of the
+    other phases shows them: a bf16 DeepLabV3, an f64 one (batch 2, 64^2)
+    and a no_grad forward of the f32 one: none. Then the cuDNN forward and
+    data gradient kernels of the f32 DeepLabV3 step against the same step
+    with the route off (`wgrad_route` -> "plain"): the same names; and the
+    cuDNN weight gradient kernels' launches and time in both."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from contouring_uncertainty_torch.models import layers
+    from contouring_uncertainty_torch.models.deeplabv3 import DeepLabV3
+
+    def model_of(dtype=torch.float32):
+        model = DeepLabV3((1, 256, 256), (21, 256, 256), dropout=DEEPLAB_DROPOUT, dtype=dtype)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        return model.to("cuda", torch.float64 if dtype == torch.float64 else torch.float32)
+
+    def step(model, batch=WGRAD_BATCH, size=256, grad=True):
+        x = torch.randn(batch, 1, size, size, device="cuda",
+                        dtype=next(model.parameters()).dtype)
+        before = wgrad_launches()
+        with torch.set_grad_enabled(grad):
+            out = model(x, deterministic=False,
+                        generator=torch.Generator(device="cuda").manual_seed(1))["out"]
+            if grad:
+                out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        after = wgrad_launches()
+        return after[0] - before[0], after[1] - before[1]
+
+    deeplab = model_of()
+    counts = {"deeplabv3 bf16": step(model_of(torch.bfloat16)),
+              "deeplabv3 f64": step(layers.set_compute_dtype(
+                  model_of(torch.float64), torch.float64), batch=2, size=64),
+              "deeplabv3 no_grad": step(deeplab, grad=False)}
+    if set(counts.values()) != {(0, 0)}:
+        raise AssertionError(f"1x1 weight gradient launches (kernel, reduce) {counts}, "
+                             f"expected none")
+
+    def cudnn_kernels():
+        """The step's cuDNN forward and data gradient kernel names, and its
+        weight gradient kernels' (launches, ms) (the port's kernel apart)."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(deeplab)
+        events = prof.key_averages()
+        names = {e.key for e in events if "fprop" in e.key or "dgrad" in e.key}
+        wgrad = [e for e in events if "wgrad" in e.key and "conv1x1_wgrad" not in e.key]
+        return names, (sum(e.count for e in wgrad),
+                       sum(e.device_time_total for e in wgrad) / 1e3)
+
+    routed, routed_wgrad = cudnn_kernels()
+    route_fn = layers.wgrad_route
+    layers.wgrad_route = lambda *args: "plain"
+    try:
+        plain, plain_wgrad = cudnn_kernels()
+    finally:
+        layers.wgrad_route = route_fn
+    if routed != plain:
+        raise AssertionError(f"DeepLabV3 step: cuDNN forward and data gradient kernels differ "
+                             f"with the route ({sorted(routed - plain)}) and without it "
+                             f"({sorted(plain - routed)})")
+    return {"per_step": counts, "cudnn_fprop_dgrad": sorted(routed),
+            "cudnn_wgrad": {"route": routed_wgrad, "plain": plain_wgrad}}
+
+
+def wgrad_phase() -> dict:
+    """[21]: every shape of WGRAD_1X1 (wgrad_block), a step's 1x1s summed
+    per model, and the launches where no train step shows them
+    (wgrad_step_launches)."""
+    import torch
+
+    rows = []
+    for i, (model, co, ci, side, stride, count) in enumerate(WGRAD_1X1):
+        row = wgrad_block(co, ci, side, stride, seed=300 + i)
+        row.update(model=model, count=count)
+        rows.append(row)
+        e = row["errors"]
+        print(f"    {model} {co}x{ci} at {side}^2 stride {stride} x{count}: kernel "
+              f"{row['kernel_ms']:.4f} ms (bound {row['bound_ms']:.4f} by {row['bound_by']}, "
+              f"{row['share']:.0%}; plan {row['plan']}), plain {row['plain_ms']:.4f}; cuDNN "
+              f"wgrad {row['cudnn_wgrad_ms']:.4f} (benchmark mode "
+              f"{row['cudnn_benchmark_wgrad_ms']:.4f}), dgrad {row['cudnn_dgrad_ms']:.4f}; "
+              f"matmul and sum {row['matmul_ms']:.4f}; error vs f64 kernel {e['kernel']:.2e} "
+              f"[plain {e['plain']:.2e}] (bar {WGRAD_BAR})")
+        torch.cuda.empty_cache()
+    keys = ("kernel_ms", "bound_ms", "plain_ms", "cudnn_wgrad_ms", "cudnn_benchmark_wgrad_ms",
+            "cudnn_dgrad_ms", "matmul_ms")
+    step = {m: {k: sum(r["count"] * r[k] for r in rows if r["model"] == m) for k in keys}
+            for m in ("deeplabv3", "unet2")}
+    for model, t in step.items():
+        print(f"    a {model} step's 1x1 weight gradients at batch {WGRAD_BATCH}: kernel "
+              f"{t['kernel_ms']:.3f} ms (bound {t['bound_ms']:.3f}, "
+              f"{t['bound_ms'] / t['kernel_ms']:.0%}); cuDNN wgrad {t['cudnn_wgrad_ms']:.3f} "
+              f"(benchmark mode {t['cudnn_benchmark_wgrad_ms']:.3f}), its dgrad "
+              f"{t['cudnn_dgrad_ms']:.3f}; matmul and sum {t['matmul_ms']:.3f}")
+    launches = wgrad_step_launches()
+    print(f"    launches (kernel, reduce) in a step: {launches['per_step']}; cuDNN forward "
+          f"and data gradient kernels the same with and without the route "
+          f"({len(launches['cudnn_fprop_dgrad'])} names); cuDNN's weight gradient kernels in "
+          f"the f32 DeepLabV3 step (launches, ms): {launches['cudnn_wgrad']['route']} with the "
+          f"route, {launches['cudnn_wgrad']['plain']} without it")
+    return {"blocks": rows, "step": step, "train_step": launches}
+
+
+def wgrad_kernel_entry(wgrad: dict, paths: dict) -> dict:
+    """The kernels line's entry of the 1x1 weight gradient kernel: its
+    launches a train step on each training path (`paths`, from
+    `epilogue_ledger`) and in [21]'s bf16, f64 and no_grad steps, and
+    times, bounds and yardsticks per shape and per step."""
+    keys = ("kernel_ms", "bound_ms", "bound_by", "plain_ms", "cudnn_wgrad_ms",
+            "cudnn_benchmark_wgrad_ms", "cudnn_dgrad_ms", "matmul_ms")
+    return {"name": "1x1 convolution weight gradient (split-K, csrc/conv1x1_wgrad.cu)",
+            "training_launches_per_step": {
+                **paths, **{k: v[0] for k, v in wgrad["train_step"]["per_step"].items()}},
+            "shapes": [{"model": r["model"], "shape": r["shape"], "count": r["count"],
+                        **{k: r[k] for k in keys}} for r in wgrad["blocks"]],
+            "step": wgrad["step"]}
+
+
 def main(argv) -> int:
     import torch
 
@@ -5449,14 +5697,15 @@ def main(argv) -> int:
           f"vs the plain f32 chain and f64")
     epilogue = epilogue_phase()
     per_step = lambda e: [e["forward"], e["backward"]]
-    paths = {"training": per_step(train["epilogue"]), "skew": per_step(skew_train["epilogue"]),
-             "ensemble": per_step(ens_train["epilogue"]), "bf16": per_step(bf16["epilogue"]),
-             "jsrt": per_step(jtrain["epilogue_per_step"]),
-             "camus LV+MYO": per_step(ctrain["epilogue_per_step"]),
-             **{f"segmentation {name}": per_step(row["epilogue_per_step"])
-                for name, row in seg_train.items()},
-             **{f"backbone {name}": per_step(row["train"]["epilogue_per_step"])
-                for name, row in bb.items() if "train" in row},
+    train_runs = {"training": train["epilogue"], "skew": skew_train["epilogue"],
+                  "ensemble": ens_train["epilogue"], "bf16": bf16["epilogue"],
+                  "jsrt": jtrain["epilogue_per_step"],
+                  "camus LV+MYO": ctrain["epilogue_per_step"],
+                  **{f"segmentation {name}": row["epilogue_per_step"]
+                     for name, row in seg_train.items()},
+                  **{f"backbone {name}": row["train"]["epilogue_per_step"]
+                     for name, row in bb.items() if "train" in row}}
+    paths = {**{k: per_step(e) for k, e in train_runs.items()},
              **{f"multi_rank rank {r['rank']}": [v / MULTI_CFG["steps"]
                                                 for v in per_step(r["train"]["epilogue"])]
                 for r in multi["gloo"]}}
@@ -5466,6 +5715,12 @@ def main(argv) -> int:
     print(f"[20] DeepLabV3's norm chains at its plane shapes (batch {EPILOGUE_BATCH}) vs the "
           f"plain f32 chain and f64; launches per DeepLabV3 train step")
     kernels.append(norm_chain_kernel_entry(norm_chain_phase()))
+    phase_start[21] = time.perf_counter()
+    print(f"[21] the 1x1 convolutions' weight gradient kernel at DeepLabV3's and the UNet's 1x1 "
+          f"shapes (batch {WGRAD_BATCH}) vs f64, cuDNN and matmul; launches per train step")
+    wgrad_paths = {k: e["wgrad"] for k, e in train_runs.items()}
+    print(f"    kernel launches per train step on the training paths: {wgrad_paths}")
+    kernels.append(wgrad_kernel_entry(wgrad_phase(), wgrad_paths))
 
     t_end = time.perf_counter()
     starts = sorted(phase_start.items())

@@ -11,7 +11,8 @@ A norm chain is what follows a convolution up to the next one's input:
 `conv_norm_tail` (a bottleneck's conv -> norm -> [dropout] -> + residual ->
 ReLU). `chain_route` alone decides whether a chain runs on the kernels of
 ops/conv_epilogue.py or op by op; both branches draw the same masks in the
-same order.
+same order. `wgrad_route` alone decides whether a 1x1 convolution's weight
+gradient runs on the kernel of ops/conv1x1_wgrad.py or in cuDNN.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from contouring_uncertainty_torch.ops import conv_epilogue
+from contouring_uncertainty_torch.ops import conv1x1_wgrad, conv_epilogue
 from contouring_uncertainty_torch.rng import draw_uniform
 
 NEG_SLOPE = conv_epilogue.NEG_SLOPE  # the LeakyReLU's, on either route
@@ -142,6 +143,8 @@ class Conv(nn.Module):
             else:
                 (top, bottom), (left, right) = pads
                 x, padding = F.pad(x, (left, right, top, bottom)), (0, 0)
+        if wgrad_route(self, x.device, padding) == "kernel":
+            return conv1x1_wgrad.Conv1x1.apply(x, self.weight, b, self.stride, self.dilation)
         return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, padding, self.dilation)
 
 
@@ -244,6 +247,21 @@ def chain_route(conv: Conv, norm: InstanceNorm, device: torch.device,
     the CPU, an f64 or bf16 model and a pinned one keep the op-by-op chain."""
     if (device.type == "cuda" and conv.dtype == norm.dtype == torch.float32
             and norm.weight.dtype == torch.float32 and sides is None):
+        return "kernel"
+    return "plain"
+
+
+def wgrad_route(conv: Conv, device: torch.device, padding) -> str:
+    """"kernel" on a CUDA device for an f32 1x1 convolution (f32 weight)
+    with zero padding whose weight needs a gradient under grad mode: its
+    weight gradient runs on ops/conv1x1_wgrad.py's kernel, the forward and
+    the input's gradient in cuDNN. Else "plain": the CPU, f64 and bf16
+    convolutions (a bf16 UNet's head computes in f32 and takes the
+    kernel), larger kernels and every forward without a weight gradient
+    keep `F.conv2d` and autograd."""
+    if (device.type == "cuda" and conv.dtype == conv.weight.dtype == torch.float32
+            and tuple(conv.weight.shape[2:]) == (1, 1) and tuple(padding) == (0, 0)
+            and conv.weight.requires_grad and torch.is_grad_enabled()):
         return "kernel"
     return "plain"
 
